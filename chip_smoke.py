@@ -1,0 +1,438 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA decoder (``src/repro_torch``) on one GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
+CUDA device and ``nvcc``, and exits non-zero without printing a result
+otherwise. Phases, each of which exits non-zero on failure:
+
+1. build: compile every kernel source with nvcc for sm_90a, all at once;
+2. kernel parity: each kernel against its plain PyTorch version on the
+   full-width batch's plan (exits, streams and coefficients bit-identical,
+   RGB within 1), with each one's time, its plain version's time and its
+   bound;
+3. oracle: small images through ``decode_batch`` with fuse="post" and
+   "full"; coefficients equal the sequential oracle, RGB within 1 of it;
+4. full width, at the paper's ``newyork`` setting (1920x1080, 4:2:0,
+   q95, chunk_bits=1024): 32 frames (8 distinct, each 4 times) through
+   ``decode_batch`` with fuse="post" and "full", with every launch count
+   set to 0 just before and read just after; coefficients, sync_rounds
+   and converged equal the plain path's on the card, RGB within 1.
+
+The line before the last is the per-kernel JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores (FMA = 2 FLOP)
+# 32-bit lane instructions per second: one per f32 lane per clock, i.e. the
+# f32 FMA peak counted as one operation
+INT_OPS_PER_S = F32_FLOP_PER_S / 2
+# integer operations per Huffman symbol step, counted from huffman.cuh's
+# symbol_step (window, LUT lookup, magnitude, state update); a low count,
+# so the bound stays a lower bound
+OPS_PER_SYMBOL_STEP = 40
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+def synth_frame(rng, width: int, height: int, t: float) -> np.ndarray:
+    """A photograph-like RGB frame: smooth illumination, oriented textures
+    and film grain; `t` slides the phases like consecutive video frames."""
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    xn, yn = xx / width, yy / height
+    base = 120 + 60 * np.sin(2.2 * xn + 0.7 * t) * np.cos(1.7 * yn - 0.3 * t)
+    tex = np.zeros_like(base)
+    for k in range(4):
+        fx = 2 ** (k + 2) * np.pi
+        ang = 0.6 * k + 0.2 * t
+        tex += (18.0 / (k + 1)) * np.sin(
+            fx * (xn * np.cos(ang) + yn * np.sin(ang)) + 3.1 * t)
+    luma = base + tex + rng.normal(0, 6.0, size=(height, width))
+    cb = 16 * np.sin(3.1 * xn + t) + 10 * np.cos(2.3 * yn)
+    cr = 14 * np.cos(2.7 * xn - 0.5 * t) + 9 * np.sin(3.7 * yn + t)
+    rgb = np.stack([luma + 1.402 * cr, luma - 0.344 * cb - 0.714 * cr,
+                    luma + 1.772 * cb], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` in ms, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_err(got, exp) -> int:
+    """Largest absolute difference over pairs of tensors."""
+    return max(int((g.to(torch.int64) - e.to(torch.int64)).abs().max())
+               if g.numel() else 0 for g, e in zip(got, exp))
+
+
+def device_us(event) -> float:
+    """Self device time of a profiler row, in us (the name changed across
+    torch versions)."""
+    t = getattr(event, "self_device_time_total", None)
+    return t if t is not None else event.self_cuda_time_total
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: int, ops: float, ops_per_s: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--quality", type=int, default=95)
+    ap.add_argument("--distinct", type=int, default=8)
+    ap.add_argument("--repeat", type=int, default=4)
+    ap.add_argument("--chunk-bits", type=int, default=1024)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke test runs on the card only")
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        fail(f"the repro_torch package is missing under {SRC}")
+    sys.path.insert(0, str(SRC))
+
+    from repro_torch import decode_batch
+    from repro_torch.core import decode as D
+    from repro_torch.core.api import ParallelDecoder
+    from repro_torch.core.state import DecodeState
+    from repro_torch.core.sync import chain_entries, jacobi_sync
+    from repro_torch.jpeg import codec_ref as cr
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused import pixels as FP
+    from repro_torch.kernels.fused import store as FS
+    from repro_torch.kernels.huffman import ops as HK
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = torch.device("cuda")
+
+    # -- 1. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    report = build.build_all()
+    for name, (secs, log) in report.items():
+        print(f"[build] {name}.cu: {secs:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build]   {line.strip()}")
+    for name in build.SOURCES:
+        build.load(name)
+    print(f"[build] all kernels built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- the full-width batch -----------------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    distinct = [cr.encode_baseline(
+        synth_frame(rng, args.width, args.height, t=0.13 * i),
+        quality=args.quality, subsampling="4:2:0").jpeg_bytes
+        for i in range(args.distinct)]
+    blobs = [b for b in distinct for _ in range(args.repeat)]
+    mb = sum(map(len, blobs)) / 1e6
+    print(f"[data] {len(blobs)} frames {args.width}x{args.height} 4:2:0 "
+          f"q{args.quality} ({args.distinct} distinct), {mb:.1f} MB "
+          f"compressed, encoded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    dec = ParallelDecoder.from_bytes(blobs, chunk_bits=args.chunk_bits,
+                                     device=gpu)
+    torch.cuda.synchronize()
+    sh, dev = dec.shape, dec.dev
+    print(f"[data] plan: {dec.plan.n_chunks} chunk lanes (capacity "
+          f"{sh.n_chunks}), s_max {sh.s_max}, {dec.plan.total_units} units "
+          f"(capacity {sh.n_units}); parsed, planned and copied in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # -- 2. kernel parity and timing on the full-width plan -------------------
+    meta = D.chunk_meta(dev)
+    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
+    cold = DecodeState.cold(dev["chunk_start"])
+    kernels = []
+
+    def record(name, source, replaces, err, ms, plain_ms, bytes_moved, ops,
+               ops_per_s):
+        b_ms, b_by = bound(bytes_moved, ops, ops_per_s)
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=0,
+                            max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        print(f"[parity] {name}: max_abs_err {err}, {ms:.4f} ms (plain "
+              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})",
+              flush=True)
+
+    def exits_plain(d, entry):
+        return HK.decode_exits_plain(d, meta, entry, **kw)
+
+    res = jacobi_sync(dev, max_rounds=sh.n_chunks + 2,
+                      decode_exits=lambda d, e: HK.decode_exits(d, meta, e,
+                                                                **kw),
+                      permuted=sh.permuted)
+    check(res.converged, "kernel Jacobi sync did not converge")
+    entries = chain_entries(dev, res.exits, sh.permuted)
+    errs = {}
+    for label, entry in (("cold", cold), ("chained", entries)):
+        got = HK.decode_exits(dev, meta, entry, **kw)
+        exp = exits_plain(dev, entry)
+        torch.cuda.synchronize()
+        errs[label] = max_err(got, exp)
+        check(errs[label] == 0, f"exit kernel differs from its plain "
+              f"version by {errs[label]} ({label} entries)")
+    # the write pass inputs, from the converged exits
+    bases = D.chunk_write_bases(dev, res.exits.n, permuted=sh.permuted)
+    seg_end = torch.cat([dev["seg_coeff_base"][1:], dev["units_end"][None]])
+    write_max = seg_end[dev["chunk_seg"].to(torch.int64)] - 1
+    n_coef = sh.n_units * 64
+    pos, val = HK.decode_streams(dev, meta, entries, **kw)
+    pos_p, val_p = HK.decode_streams_plain(dev, meta, entries, **kw)
+    torch.cuda.synchronize()
+    stream_err = max_err((pos, val), (pos_p, val_p))
+    check(stream_err == 0, f"stream kernel differs from its plain version "
+          f"by {stream_err}")
+    steps = int((pos >= 0).sum())  # symbol steps this batch's data needs
+    del pos_p, val_p
+    lane_in = [meta[k] for k in ("word_base", "ts", "limit", "upm")] + \
+        list(entries[:3])
+    tables = [dev["words"], dev["luts"], dev["unit_lut_row"]]
+    ms = cuda_ms(lambda: HK.decode_exits(dev, meta, entries, **kw),
+                 args.reps)
+    plain_ms = cuda_ms(lambda: exits_plain(dev, entries), 1)
+    record("huffman_exits", "src/repro_torch/kernels/csrc/huffman.cu",
+           "src/repro/kernels/huffman/huffman.py:261", max(errs.values()),
+           ms, plain_ms,
+           nbytes(*tables, *lane_in) + 4 * 4 * entries.p.numel(),
+           steps * OPS_PER_SYMBOL_STEP, INT_OPS_PER_S)
+    ms = cuda_ms(lambda: HK.decode_streams(dev, meta, entries, **kw),
+                 args.reps)
+    plain_ms = cuda_ms(
+        lambda: HK.decode_streams_plain(dev, meta, entries, **kw), 1)
+    record("huffman_streams", "src/repro_torch/kernels/csrc/huffman.cu",
+           "src/repro/kernels/huffman/huffman.py:332", stream_err, ms,
+           plain_ms,
+           nbytes(*tables, *lane_in, pos, val),
+           steps * OPS_PER_SYMBOL_STEP, INT_OPS_PER_S)
+    coef_stream = HK.scatter_streams(pos, val, bases, write_max, n_coef)
+    del pos, val
+    coef = FS.decode_coeffs_store(dev, meta, entries, bases, write_max,
+                                  n_coef, **kw)
+    coef_p = FS.decode_coeffs_store_plain(dev, meta, entries, bases,
+                                          write_max, n_coef, **kw)
+    torch.cuda.synchronize()
+    store_err = max_err((coef,), (coef_p,))
+    check(store_err == 0, f"store kernel differs from its plain version by "
+          f"{store_err}")
+    check(torch.equal(coef_stream, coef_p), "stream kernel + scatter "
+          "differs from the plain write pass")
+    del coef_stream, coef_p
+    ms = cuda_ms(lambda: FS.decode_coeffs_store(
+        dev, meta, entries, bases, write_max, n_coef, **kw), args.reps)
+    plain_ms = cuda_ms(lambda: FS.decode_coeffs_store_plain(
+        dev, meta, entries, bases, write_max, n_coef, **kw), 1)
+    record("huffman_store", "src/repro_torch/kernels/csrc/huffman.cu",
+           "src/repro/kernels/fused/store.py:150", store_err, ms, plain_ms,
+           nbytes(*tables, *lane_in, bases, write_max, coef),
+           steps * OPS_PER_SYMBOL_STEP, INT_OPS_PER_S)
+
+    g = dec.plan.geometry
+    units = D.undiff_dc(dev, coef.reshape(sh.n_units, 64))
+    units = units[:dec.plan.total_units]
+    mrow = dev["unit_mrow"][:dec.plan.total_units]
+    del coef
+    geo = dict(comp_h=tuple(g.comp_h), comp_v=tuple(g.comp_v),
+               h_max=g.h_max, v_max=g.v_max, upm=g.units_per_mcu)
+    blk = FP.fused_pixels(units, dev["m_matrices_t"], mrow, **geo)
+    blk_p = FP.fused_pixels_plain(units, dev["m_matrices_t"], mrow, **geo)
+    torch.cuda.synchronize()
+    diff = (blk.to(torch.int16) - blk_p.to(torch.int16)).abs()
+    err = int(diff.max())
+    print(f"[parity] pixel kernel: {int((diff == 1).sum())} samples off by "
+          f"one, max {err}")
+    check(err <= 1, f"pixel kernel differs from its plain version by {err}")
+    ms = cuda_ms(lambda: FP.fused_pixels(units, dev["m_matrices_t"], mrow,
+                                         **geo), args.reps)
+    plain_ms = cuda_ms(lambda: FP.fused_pixels_plain(
+        units, dev["m_matrices_t"], mrow, **geo), 1)
+    record("fused_pixels", "src/repro_torch/kernels/csrc/pixels.cu",
+           "src/repro/kernels/fused/pixels.py:164", err, ms, plain_ms,
+           nbytes(units, mrow, dev["m_matrices_t"], blk),
+           2 * units.shape[0] * 64 * 64, F32_FLOP_PER_S)
+    del units, blk, blk_p, dec, dev, meta, entries, res
+    torch.cuda.empty_cache()
+
+    # -- 3. small images against the sequential oracle ------------------------
+    small = np.random.default_rng(args.seed + 1)
+    frames = [synth_frame(small, 64, 48, t=0.5 * i) for i in range(5)]
+    groups = [
+        [cr.encode_baseline(frames[0], quality=70).jpeg_bytes,
+         cr.encode_baseline(frames[1], quality=90).jpeg_bytes,
+         cr.encode_baseline(frames[2], quality=90,
+                            restart_interval=2).jpeg_bytes,
+         cr.encode_baseline(frames[3], quality=85,
+                            optimize_huffman=True).jpeg_bytes],
+        [cr.encode_baseline(frames[4], quality=85,
+                            subsampling="4:4:4").jpeg_bytes],
+    ]
+    for blobs_s in groups:
+        exp = np.concatenate([cr.undiff_dc(img, cr.decode_coefficients(img))
+                              for img in map(cr.parse_jpeg, blobs_s)])
+        base = np.stack([cr.decode_baseline(b) for b in blobs_s])
+        for fuse in ("post", "full"):
+            out = decode_batch(blobs_s, chunk_bits=256, fuse=fuse)
+            check(out.converged, f"small batch did not converge ({fuse})")
+            check(np.array_equal(out.coeffs.cpu().numpy(), exp),
+                  f"coefficients differ from the oracle ({fuse})")
+            d = np.abs(out.rgb.cpu().numpy().astype(int) - base.astype(int))
+            check(d.max() <= 1, f"RGB differs from the oracle by {d.max()} "
+                  f"({fuse})")
+            print(f"[oracle] {len(blobs_s)} images, fuse={fuse}: "
+                  f"coefficients equal, RGB max diff {d.max()} "
+                  f"({int((d == 1).sum())} samples off by one), "
+                  f"{out.sync_rounds} rounds", flush=True)
+
+    # -- 4. the main path at full width ---------------------------------------
+    counted = (HK.decode_exits, HK.decode_streams, FS.decode_coeffs_store,
+               FP.fused_pixels)
+    for fn in counted:
+        fn.launches = 0
+    outs = {fuse: decode_batch(blobs, chunk_bits=args.chunk_bits, fuse=fuse)
+            for fuse in ("post", "full")}
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in counted]
+    for rec, n in zip(kernels, launches):
+        rec["launches"] = n
+    print(f"[main] launches: " + ", ".join(
+        f"{r['name']} {n}" for r, n in zip(kernels, launches)))
+    check(all(n > 0 for n in launches), "a kernel of the main path was "
+          "never launched")
+    plain = decode_batch(blobs, chunk_bits=args.chunk_bits, backend="torch",
+                         device=gpu)
+    for fuse, out in outs.items():
+        check(out.store_fused == (fuse == "full") and out.pixels_fused,
+              f"fuse={fuse} did not run its kernels")
+        check(out.converged and plain.converged, "full batch did not converge")
+        check(out.sync_rounds == plain.sync_rounds,
+              f"sync_rounds {out.sync_rounds} != plain {plain.sync_rounds}")
+        check(torch.equal(out.coeffs, plain.coeffs),
+              f"coefficients differ from the plain path ({fuse})")
+        check(tuple(out.rgb.shape) == (len(blobs), args.height, args.width, 3),
+              f"rgb shape {tuple(out.rgb.shape)}")
+        d = (out.rgb.to(torch.int16) - plain.rgb.to(torch.int16)).abs()
+        check(int(d.max()) <= 1, f"RGB differs from the plain path by "
+              f"{int(d.max())} ({fuse})")
+        print(f"[main] fuse={fuse}: coefficients and {out.sync_rounds} "
+              f"rounds equal the plain path; RGB max diff {int(d.max())} "
+              f"({int((d == 1).sum())} samples off by one)", flush=True)
+    del outs, plain
+
+    planned_ms = {}
+    for fuse in ("post", "full"):
+        dec = ParallelDecoder.from_bytes(blobs, chunk_bits=args.chunk_bits,
+                                         fuse=fuse)
+        device_ms = []
+        for _ in range(args.reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.decode()
+            torch.cuda.synchronize()
+            device_ms.append((time.perf_counter() - t0) * 1e3)
+        e2e_ms = []
+        for _ in range(max(2, args.reps // 2)):
+            t0 = time.perf_counter()
+            decode_batch(blobs, chunk_bits=args.chunk_bits, fuse=fuse)
+            torch.cuda.synchronize()
+            e2e_ms.append((time.perf_counter() - t0) * 1e3)
+        med = planned_ms[fuse] = statistics.median(device_ms[1:])
+        e2e = statistics.median(e2e_ms)
+        print(f"[main] fuse={fuse}: warm decode of a planned batch "
+              f"{med:.2f} ms median ({len(blobs) / med * 1e3:.1f} images/s, "
+              f"{mb / med * 1e3:.1f} MB/s compressed); decode_batch from "
+              f"bytes {e2e:.1f} ms ({len(blobs) / e2e * 1e3:.1f} images/s)",
+              flush=True)
+        del dec
+
+    # where the device time of one warm planned decode goes: the kernels'
+    # own rows of the profile (the rows of the aten ops that launched them
+    # repeat their time), against the unprofiled median wall time above
+    for fuse in ("post", "full"):
+        dec = ParallelDecoder.from_bytes(blobs, chunk_bits=args.chunk_bits,
+                                         fuse=fuse)
+        dec.decode()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            dec.decode()
+            torch.cuda.synchronize()
+        rows = [(e.key, device_us(e) / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and device_us(e) > 0]
+        busy = sum(r[1] for r in rows)
+        if busy:
+            wall = planned_ms[fuse]
+            print(f"[profile] fuse={fuse} planned decode: device busy "
+                  f"{busy:.2f} ms of {wall:.2f} ms wall, idle share "
+                  f"{max(0.0, 1 - busy / wall):.3f}")
+            for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
+                print(f"[profile]   {ms:9.3f} ms {n:5d}x  {key[:100]}")
+        else:
+            print(f"[profile] fuse={fuse}: the profiler saw no device time: "
+                  f"not measured")
+        del dec
+
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

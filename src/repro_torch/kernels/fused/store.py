@@ -1,0 +1,62 @@
+"""The store kernel: the write pass with an in-kernel coefficient store.
+
+The ``fuse="full"`` write pass. Where the stream form
+(``kernels/huffman/ops.py``) writes a (s_max, C) pair of streams for a
+scatter to place, each symbol step of the store kernel stores its
+coefficient at ``write_base + n + run_eff`` itself, under the mask of the
+stream form's scatter, into a buffer the wrapper zeroes. Its source is in
+``csrc/huffman.cu`` (``rt_decode_store``); the JAX package's 4 MiB VMEM
+gate has no counterpart here, so it engages at any size.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ...core import decode as D
+from ...core.state import DecodeState
+from .. import build as B
+from ..huffman.ops import kernel_fn, lane_args
+
+Dev = Dict[str, torch.Tensor]
+
+
+def decode_coeffs_store_plain(dev: Dev, meta: Dev, entry: DecodeState,
+                              write_base: torch.Tensor,
+                              write_max: torch.Tensor, n_coef: int, *,
+                              s_max: int, min_code_bits: int) -> torch.Tensor:
+    """(n_coef,) int32 coefficients: ``core.decode.decode_span(write=True)``."""
+    out = torch.zeros(n_coef, dtype=torch.int32, device=entry.p.device)
+    _, out = D.decode_span(dev, entry, meta["word_base"], meta["limit"],
+                           meta["ts"], meta["upm"], s_max=s_max,
+                           min_code_bits=min_code_bits, write=True, out=out,
+                           write_base=write_base, write_max=write_max)
+    return out
+
+
+def decode_coeffs_store(dev: Dev, meta: Dev, entry: DecodeState,
+                        write_base: torch.Tensor, write_max: torch.Tensor,
+                        n_coef: int, *, s_max: int,
+                        min_code_bits: int) -> torch.Tensor:
+    """:func:`decode_coeffs_store_plain`, by the store kernel on the card."""
+    if dev["words"].device.type == "cpu":
+        return decode_coeffs_store_plain(
+            dev, meta, entry, write_base, write_max, n_coef, s_max=s_max,
+            min_code_bits=min_code_bits)
+    args = lane_args(dev, meta, entry)
+    c = entry.p.shape[0]
+    for t in (write_base, write_max):
+        if t.dtype != torch.int32 or t.shape != (c,) \
+                or t.device != entry.p.device or not t.is_contiguous():
+            raise ValueError(f"write_base/write_max must be contiguous "
+                             f"({c},) int32 tensors on {entry.p.device}")
+    out = torch.zeros(n_coef, dtype=torch.int32, device=entry.p.device)
+    B.check(kernel_fn("rt_decode_store")(
+        *args, B.ptr(write_base), B.ptr(write_max), B.ptr(out), n_coef, c,
+        s_max, min_code_bits, B.stream_of(out)), "rt_decode_store")
+    decode_coeffs_store.launches += 1
+    return out
+
+
+decode_coeffs_store.launches = 0

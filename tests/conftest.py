@@ -5,6 +5,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device subprocess tests (forced device count)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
     # the decoder donates its per-batch words operand; CPU jax cannot
     # consume the donation and warns once per compile (expected, harmless
     # there). Scoped to CPU: on GPU/TPU donation must succeed, so the
