@@ -7,16 +7,22 @@ otherwise. Phases, each of which exits non-zero on failure:
 
 1. build: compile every kernel source with nvcc for sm_90a, all at once;
 2. kernel parity: each kernel against its plain PyTorch version on the
-   full-width batch's plan (exits, streams and coefficients bit-identical,
-   RGB within 1), with each one's time, its plain version's time and its
-   bound;
-3. oracle: small images through ``decode_batch`` with fuse="post" and
-   "full"; coefficients equal the sequential oracle, RGB within 1 of it;
+   full-width batch's plan (exits, the exits of a random half of the lanes
+   (the ``idx`` form), streams, coefficients and IDCT samples
+   bit-identical, RGB within 1), with each one's time, its plain
+   version's time and its bound;
+3. oracle: small images through ``decode_batch`` with every sync schedule
+   and fuse mode, and a grayscale group; coefficients equal the
+   sequential oracle, RGB within 1 of it;
 4. full width, at the paper's ``newyork`` setting (1920x1080, 4:2:0,
    q95, chunk_bits=1024): 32 frames (8 distinct, each 4 times) through
-   ``decode_batch`` with fuse="post" and "full", with every launch count
-   set to 0 just before and read just after; coefficients, sync_rounds
-   and converged equal the plain path's on the card, RGB within 1.
+   ``decode_batch`` along every path: jacobi with fuse="post", "full" and
+   "none", faithful and specmap with "post", sequential with "full", and
+   the frames' luma as a grayscale batch with "post" and "none". Every
+   launch count is set to 0 just before each path and read just after;
+   coefficients equal the plain path's on the card, RGB within 1, and
+   each path launched exactly its kernels. Then each path's warm decode
+   time, sync rounds and host checks, and a profile of its device time.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -76,6 +82,12 @@ def synth_frame(rng, width: int, height: int, t: float) -> np.ndarray:
     rgb = np.stack([luma + 1.402 * cr, luma - 0.344 * cb - 0.714 * cr,
                     luma + 1.772 * cb], axis=-1)
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def luma(rgb: np.ndarray) -> np.ndarray:
+    """BT.601 luma of an RGB frame, as uint8."""
+    y = rgb.astype(np.float64) @ np.array([0.299, 0.587, 0.114])
+    return np.clip(np.round(y), 0, 255).astype(np.uint8)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -138,13 +150,16 @@ def main() -> None:
     from repro_torch import decode_batch
     from repro_torch.core import decode as D
     from repro_torch.core.api import ParallelDecoder
+    from repro_torch.core import sync as SY
     from repro_torch.core.state import DecodeState
     from repro_torch.core.sync import chain_entries, jacobi_sync
     from repro_torch.jpeg import codec_ref as cr
     from repro_torch.kernels import build
+    from repro_torch.kernels.color import ops as CK
     from repro_torch.kernels.fused import pixels as FP
     from repro_torch.kernels.fused import store as FS
     from repro_torch.kernels.huffman import ops as HK
+    from repro_torch.kernels.idct import ops as IK
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -171,16 +186,26 @@ def main() -> None:
     # -- the full-width batch -----------------------------------------------
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
-    distinct = [cr.encode_baseline(
-        synth_frame(rng, args.width, args.height, t=0.13 * i),
-        quality=args.quality, subsampling="4:2:0").jpeg_bytes
-        for i in range(args.distinct)]
+    frames = [synth_frame(rng, args.width, args.height, t=0.13 * i)
+              for i in range(args.distinct)]
+    distinct = [cr.encode_baseline(f, quality=args.quality,
+                                   subsampling="4:2:0").jpeg_bytes
+                for f in frames]
     blobs = [b for b in distinct for _ in range(args.repeat)]
     mb = sum(map(len, blobs)) / 1e6
     print(f"[data] {len(blobs)} frames {args.width}x{args.height} 4:2:0 "
           f"q{args.quality} ({args.distinct} distinct), {mb:.1f} MB "
           f"compressed, encoded in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # the grayscale batch: the same frames' luma, same size and quality
+    t0 = time.perf_counter()
+    gray_distinct = [cr.encode_baseline(luma(f), quality=args.quality)
+                     .jpeg_bytes for f in frames]
+    gray_blobs = [b for b in gray_distinct for _ in range(args.repeat)]
+    del frames
+    print(f"[data] grayscale: {len(gray_blobs)} frames, "
+          f"{sum(map(len, gray_blobs)) / 1e6:.1f} MB compressed, encoded "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     dec = ParallelDecoder.from_bytes(blobs, chunk_bits=args.chunk_bits,
@@ -199,14 +224,16 @@ def main() -> None:
     kernels = []
 
     def record(name, source, replaces, err, ms, plain_ms, bytes_moved, ops,
-               ops_per_s):
+               ops_per_s, library_ms=None):
         b_ms, b_by = bound(bytes_moved, ops, ops_per_s)
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=0,
                             max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                            bound_ms=b_ms, bound_by=b_by,
+                            library_ms=library_ms))
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"[parity] {name}: max_abs_err {err}, {ms:.4f} ms (plain "
-              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})",
+              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}{lib})",
               flush=True)
 
     def exits_plain(d, entry):
@@ -237,7 +264,8 @@ def main() -> None:
     stream_err = max_err((pos, val), (pos_p, val_p))
     check(stream_err == 0, f"stream kernel differs from its plain version "
           f"by {stream_err}")
-    steps = int((pos >= 0).sum())  # symbol steps this batch's data needs
+    lane_steps = (pos >= 0).sum(0)  # symbol steps each lane's data needs
+    steps = int(lane_steps.sum())
     del pos_p, val_p
     lane_in = [meta[k] for k in ("word_base", "ts", "limit", "upm")] + \
         list(entries[:3])
@@ -281,6 +309,30 @@ def main() -> None:
            nbytes(*tables, *lane_in, bases, write_max, coef),
            steps * OPS_PER_SYMBOL_STEP, INT_OPS_PER_S)
 
+    # the exit kernel's idx form (faithful's decode_at): a seeded random
+    # half of the lanes, each with its converged entry
+    gen = torch.Generator().manual_seed(args.seed)
+    idx = torch.randperm(sh.n_chunks, generator=gen)[:sh.n_chunks // 2]
+    idx = idx.to(torch.int32).to(dev["chunk_start"].device)
+    sub = DecodeState(*(f[idx.long()] for f in entries))
+    got = HK.decode_exits(dev, meta, sub, idx, **kw)
+    exp = HK.decode_exits_plain(dev, meta, sub, idx, **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, exp)
+    check(err == 0, f"exit kernel at a lane subset differs from its plain "
+          f"version by {err}")
+    ms = cuda_ms(lambda: HK.decode_exits(dev, meta, sub, idx, **kw),
+                 args.reps)
+    plain_ms = cuda_ms(lambda: HK.decode_exits_plain(dev, meta, sub, idx,
+                                                     **kw), 1)
+    sub_in = list(HK.lane_subset(meta, idx).values()) + list(sub[:3])
+    record("huffman_exits_idx", "src/repro_torch/kernels/csrc/huffman.cu",
+           "src/repro/kernels/huffman/huffman.py:261", err, ms, plain_ms,
+           nbytes(*tables, idx, *sub_in) + 4 * 4 * idx.numel(),
+           int(lane_steps[idx.long()].sum()) * OPS_PER_SYMBOL_STEP,
+           INT_OPS_PER_S)
+    del got, exp, sub, sub_in, idx, lane_steps
+
     g = dec.plan.geometry
     units = D.undiff_dc(dev, coef.reshape(sh.n_units, 64))
     units = units[:dec.plan.total_units]
@@ -304,10 +356,69 @@ def main() -> None:
            "src/repro/kernels/fused/pixels.py:164", err, ms, plain_ms,
            nbytes(units, mrow, dev["m_matrices_t"], blk),
            2 * units.shape[0] * 64 * 64, F32_FLOP_PER_S)
-    del units, blk, blk_p, dec, dev, meta, entries, res
+    del blk, blk_p
+
+    # the unfused chain: IDCT kernel, plane assembly, color kernel
+    m_t = dev["m_matrices_t"]
+    pix = IK.idct_units(units, m_t, mrow)
+    pix_p = IK.idct_units_plain(units, m_t, mrow)
+    torch.cuda.synchronize()
+    err = float((pix - pix_p).abs().max())
+    check(torch.equal(pix, pix_p), f"IDCT kernel differs from its plain "
+          f"version by {err}")
+    ms = cuda_ms(lambda: IK.idct_units(units, m_t, mrow), args.reps)
+    plain_ms = cuda_ms(lambda: IK.idct_units_plain(units, m_t, mrow), 1)
+    # the library yardstick: the product alone, one torch.matmul per
+    # distinct matrix over all units (f32, TF32 off), no select or round
+    x = units.to(torch.float32)
+    nq = dec.plan.m_matrices.shape[0]
+    lib_ms = cuda_ms(lambda: [torch.matmul(x, m_t[q]) for q in range(nq)],
+                     args.reps)
+    del x, pix_p
+    record("idct", "src/repro_torch/kernels/csrc/idct.cu",
+           "src/repro/kernels/idct/idct.py:75", err, ms, plain_ms,
+           nbytes(units, mrow, m_t, pix), 2 * units.shape[0] * 64 * 64,
+           F32_FLOP_PER_S, library_ms=lib_ms)
+    comp_grid = [(g.mcus_y * v, g.mcus_x * h)
+                 for h, v in zip(g.comp_h, g.comp_v)]
+    planes = D.assemble_planes(pix, dec.plan.n_images, dec._comp_unit_idx,
+                               dec._comp_block_idx, comp_grid)
+    cgeo = (g.comp_h, g.comp_v, g.h_max, g.v_max, g.height, g.width)
+    rgb = CK.upsample_color(planes, *cgeo)
+    rgb_p = CK.upsample_color_plain(planes, *cgeo)
+    torch.cuda.synchronize()
+    diff = (rgb.to(torch.int16) - rgb_p.to(torch.int16)).abs()
+    err = int(diff.max())
+    print(f"[parity] color kernel: {int((diff == 1).sum())} samples off by "
+          f"one, max {err}")
+    check(err <= 1, f"color kernel differs from its plain version by {err}")
+    ms = cuda_ms(lambda: CK.upsample_color(planes, *cgeo), args.reps)
+    plain_ms = cuda_ms(lambda: CK.upsample_color_plain(planes, *cgeo), 1)
+    # bytes: only the samples the cropped image reads (the planes are
+    # padded to the MCU grid), each once, and the RGB written once;
+    # per pixel: 2 subtractions, 4 multiplies, 4 adds/subtracts
+    read = sum(rgb.shape[0] * -(-g.height // (g.v_max // v))
+               * -(-g.width // (g.h_max // h)) * p.element_size()
+               for p, h, v in zip(planes, g.comp_h, g.comp_v))
+    record("color", "src/repro_torch/kernels/csrc/color.cu",
+           "src/repro/kernels/color/color.py:74", err, ms, plain_ms,
+           read + nbytes(rgb), 10 * rgb.numel() // 3, F32_FLOP_PER_S)
+    del units, pix, planes, rgb, rgb_p, diff, dec, dev, meta, entries, res
     torch.cuda.empty_cache()
 
     # -- 3. small images against the sequential oracle ------------------------
+    # every (sync, fuse) the decoder takes, on the kernels
+    runs = [("jacobi", "post"), ("jacobi", "full"), ("jacobi", "none"),
+            ("faithful", "post"), ("specmap", "post"),
+            ("sequential", "post")]
+
+    def check_flags(out, fuse, gray, what):
+        unfused = fuse == "none" or gray
+        check(out.store_fused == (fuse == "full")
+              and out.pixels_fused != unfused and out.idct_kernel == unfused
+              and out.color_kernel == (unfused and not gray),
+              f"{what} did not run its kernels")
+
     small = np.random.default_rng(args.seed + 1)
     frames = [synth_frame(small, 64, 48, t=0.5 * i) for i in range(5)]
     groups = [
@@ -319,91 +430,149 @@ def main() -> None:
                             optimize_huffman=True).jpeg_bytes],
         [cr.encode_baseline(frames[4], quality=85,
                             subsampling="4:4:4").jpeg_bytes],
+        [cr.encode_baseline(luma(frames[0]), quality=80).jpeg_bytes,
+         cr.encode_baseline(luma(frames[1]), quality=95,
+                            restart_interval=3).jpeg_bytes],
     ]
     for blobs_s in groups:
         exp = np.concatenate([cr.undiff_dc(img, cr.decode_coefficients(img))
                               for img in map(cr.parse_jpeg, blobs_s)])
         base = np.stack([cr.decode_baseline(b) for b in blobs_s])
-        for fuse in ("post", "full"):
-            out = decode_batch(blobs_s, chunk_bits=256, fuse=fuse)
-            check(out.converged, f"small batch did not converge ({fuse})")
+        gray = base.ndim == 3
+        kind = "grayscale" if gray else "color"
+        for sync, fuse in runs:
+            what = f"{len(blobs_s)} {kind} images, sync={sync} fuse={fuse}"
+            out = decode_batch(blobs_s, chunk_bits=256, sync=sync, fuse=fuse)
+            check_flags(out, fuse, gray, what)
+            check(out.converged, f"{what}: did not converge")
             check(np.array_equal(out.coeffs.cpu().numpy(), exp),
-                  f"coefficients differ from the oracle ({fuse})")
+                  f"{what}: coefficients differ from the oracle")
             d = np.abs(out.rgb.cpu().numpy().astype(int) - base.astype(int))
-            check(d.max() <= 1, f"RGB differs from the oracle by {d.max()} "
-                  f"({fuse})")
-            print(f"[oracle] {len(blobs_s)} images, fuse={fuse}: "
-                  f"coefficients equal, RGB max diff {d.max()} "
-                  f"({int((d == 1).sum())} samples off by one), "
+            check(d.max() <= 1, f"{what}: RGB differs from the oracle by "
+                  f"{d.max()}")
+            print(f"[oracle] {what}: coefficients equal, RGB max diff "
+                  f"{d.max()} ({int((d == 1).sum())} samples off by one), "
                   f"{out.sync_rounds} rounds", flush=True)
 
-    # -- 4. the main path at full width ---------------------------------------
-    counted = (HK.decode_exits, HK.decode_streams, FS.decode_coeffs_store,
-               FP.fused_pixels)
-    for fn in counted:
-        fn.launches = 0
-    outs = {fuse: decode_batch(blobs, chunk_bits=args.chunk_bits, fuse=fuse)
-            for fuse in ("post", "full")}
-    torch.cuda.synchronize()
-    launches = [fn.launches for fn in counted]
-    for rec, n in zip(kernels, launches):
-        rec["launches"] = n
-    print(f"[main] launches: " + ", ".join(
-        f"{r['name']} {n}" for r, n in zip(kernels, launches)))
-    check(all(n > 0 for n in launches), "a kernel of the main path was "
-          "never launched")
-    plain = decode_batch(blobs, chunk_bits=args.chunk_bits, backend="torch",
-                         device=gpu)
-    for fuse, out in outs.items():
-        check(out.store_fused == (fuse == "full") and out.pixels_fused,
-              f"fuse={fuse} did not run its kernels")
-        check(out.converged and plain.converged, "full batch did not converge")
-        check(out.sync_rounds == plain.sync_rounds,
-              f"sync_rounds {out.sync_rounds} != plain {plain.sync_rounds}")
-        check(torch.equal(out.coeffs, plain.coeffs),
-              f"coefficients differ from the plain path ({fuse})")
-        check(tuple(out.rgb.shape) == (len(blobs), args.height, args.width, 3),
-              f"rgb shape {tuple(out.rgb.shape)}")
-        d = (out.rgb.to(torch.int16) - plain.rgb.to(torch.int16)).abs()
-        check(int(d.max()) <= 1, f"RGB differs from the plain path by "
-              f"{int(d.max())} ({fuse})")
-        print(f"[main] fuse={fuse}: coefficients and {out.sync_rounds} "
-              f"rounds equal the plain path; RGB max diff {int(d.max())} "
-              f"({int((d == 1).sum())} samples off by one)", flush=True)
-    del outs, plain
+    # -- 4. every path at full width -----------------------------------------
+    counters = {"huffman_exits": (HK.decode_exits, "launches"),
+                "huffman_streams": (HK.decode_streams, "launches"),
+                "huffman_store": (FS.decode_coeffs_store, "launches"),
+                "huffman_exits_idx": (HK.decode_exits, "subset_launches"),
+                "fused_pixels": (FP.fused_pixels, "launches"),
+                "idct": (IK.idct_units, "launches"),
+                "color": (CK.upsample_color, "launches")}
+    check(set(counters) == {r["name"] for r in kernels}, "a kernel record "
+          "has no launch counter")
+    exits, streams, store = "huffman_exits", "huffman_streams", "huffman_store"
+    # (label, grayscale batch, sync, fuse, the kernels the path launches)
+    paths = [
+        ("jacobi/post", False, "jacobi", "post",
+         {exits, streams, "fused_pixels"}),
+        ("jacobi/full", False, "jacobi", "full",
+         {exits, store, "fused_pixels"}),
+        ("jacobi/none", False, "jacobi", "none",
+         {exits, streams, "idct", "color"}),
+        ("faithful/post", False, "faithful", "post",
+         {exits, "huffman_exits_idx", streams, "fused_pixels"}),
+        ("specmap/post", False, "specmap", "post",
+         {exits, streams, "fused_pixels"}),
+        ("sequential/full", False, "sequential", "full",
+         {exits, store, "fused_pixels"}),
+        ("gray jacobi/post", True, "jacobi", "post", {exits, streams, "idct"}),
+        ("gray jacobi/none", True, "jacobi", "none", {exits, streams, "idct"}),
+    ]
+    batches = {False: blobs, True: gray_blobs}
+    # the plain path on the card, one per batch: what every path must equal
+    plain = {gray: decode_batch(b, chunk_bits=args.chunk_bits,
+                                backend="torch", device=gpu)
+             for gray, b in batches.items()}
+    check(all(p.converged for p in plain.values()),
+          "the plain path did not converge")
+    sync_stats = {}
+    for label, gray, sync, fuse, expect in paths:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        SY.host_check.count = 0
+        out = decode_batch(batches[gray], chunk_bits=args.chunk_bits,
+                           sync=sync, fuse=fuse)
+        torch.cuda.synchronize()
+        counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        checks = SY.host_check.count
+        for rec in kernels:
+            rec["launches"] += counts[rec["name"]]
+        launched = {k for k, n in counts.items() if n > 0}
+        print(f"[main] {label}: launches " + ", ".join(
+            f"{k} {n}" for k, n in counts.items() if n), flush=True)
+        check(launched == expect, f"{label} launched {sorted(launched)}, "
+              f"expected {sorted(expect)}")
+        check_flags(out, fuse, gray, label)
+        ref = plain[gray]
+        check(out.converged, f"{label}: did not converge")
+        check(sync != "jacobi" or out.sync_rounds == ref.sync_rounds,
+              f"{label}: sync_rounds {out.sync_rounds} != plain "
+              f"{ref.sync_rounds}")
+        check(torch.equal(out.coeffs, ref.coeffs),
+              f"{label}: coefficients differ from the plain path")
+        shape = (len(blobs), args.height, args.width) + (() if gray else (3,))
+        check(tuple(out.rgb.shape) == shape,
+              f"{label}: rgb shape {tuple(out.rgb.shape)}")
+        d = (out.rgb.to(torch.int16) - ref.rgb.to(torch.int16)).abs()
+        check(int(d.max()) <= 1, f"{label}: RGB differs from the plain path "
+              f"by {int(d.max())}")
+        sync_stats[label] = (out.sync_rounds, checks)
+        print(f"[main] {label}: coefficients equal the plain path; "
+              f"{out.sync_rounds} sync rounds (plain jacobi "
+              f"{ref.sync_rounds}), {checks} host checks; RGB max diff "
+              f"{int(d.max())} ({int((d == 1).sum())} samples off by one)",
+              flush=True)
+        del out, d
+    check(all(r["launches"] > 0 for r in kernels), "a kernel of the main "
+          "path was never launched")
+    del plain
+    torch.cuda.empty_cache()
 
     planned_ms = {}
-    for fuse in ("post", "full"):
-        dec = ParallelDecoder.from_bytes(blobs, chunk_bits=args.chunk_bits,
-                                         fuse=fuse)
+    for label, gray, sync, fuse, _ in paths:
+        main_path = label in ("jacobi/post", "jacobi/full")
+        batch = batches[gray]
+        dec = ParallelDecoder.from_bytes(batch, chunk_bits=args.chunk_bits,
+                                         sync=sync, fuse=fuse)
         device_ms = []
-        for _ in range(args.reps + 1):
+        runs_n = args.reps + 1 if main_path else max(2, args.reps // 2) + 1
+        for _ in range(runs_n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             dec.decode()
             torch.cuda.synchronize()
             device_ms.append((time.perf_counter() - t0) * 1e3)
-        e2e_ms = []
-        for _ in range(max(2, args.reps // 2)):
-            t0 = time.perf_counter()
-            decode_batch(blobs, chunk_bits=args.chunk_bits, fuse=fuse)
-            torch.cuda.synchronize()
-            e2e_ms.append((time.perf_counter() - t0) * 1e3)
-        med = planned_ms[fuse] = statistics.median(device_ms[1:])
-        e2e = statistics.median(e2e_ms)
-        print(f"[main] fuse={fuse}: warm decode of a planned batch "
-              f"{med:.2f} ms median ({len(blobs) / med * 1e3:.1f} images/s, "
-              f"{mb / med * 1e3:.1f} MB/s compressed); decode_batch from "
-              f"bytes {e2e:.1f} ms ({len(blobs) / e2e * 1e3:.1f} images/s)",
-              flush=True)
         del dec
+        med = planned_ms[label] = statistics.median(device_ms[1:])
+        mbx = sum(map(len, batch)) / 1e6
+        rounds, checks = sync_stats[label]
+        line = (f"[main] {label}: warm decode of a planned batch "
+                f"{med:.2f} ms median ({len(batch) / med * 1e3:.1f} images/s, "
+                f"{mbx / med * 1e3:.1f} MB/s compressed), {rounds} sync "
+                f"rounds, {checks} host checks")
+        if main_path:
+            e2e_ms = []
+            for _ in range(max(2, args.reps // 2)):
+                t0 = time.perf_counter()
+                decode_batch(batch, chunk_bits=args.chunk_bits, fuse=fuse)
+                torch.cuda.synchronize()
+                e2e_ms.append((time.perf_counter() - t0) * 1e3)
+            e2e = statistics.median(e2e_ms)
+            line += (f"; decode_batch from bytes {e2e:.1f} ms "
+                     f"({len(batch) / e2e * 1e3:.1f} images/s)")
+        print(line, flush=True)
 
     # where the device time of one warm planned decode goes: the kernels'
     # own rows of the profile (the rows of the aten ops that launched them
     # repeat their time), against the unprofiled median wall time above
-    for fuse in ("post", "full"):
-        dec = ParallelDecoder.from_bytes(blobs, chunk_bits=args.chunk_bits,
-                                         fuse=fuse)
+    for label, gray, sync, fuse, _ in paths:
+        dec = ParallelDecoder.from_bytes(batches[gray],
+                                         chunk_bits=args.chunk_bits,
+                                         sync=sync, fuse=fuse)
         dec.decode()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
@@ -417,14 +586,14 @@ def main() -> None:
                 and device_us(e) > 0]
         busy = sum(r[1] for r in rows)
         if busy:
-            wall = planned_ms[fuse]
-            print(f"[profile] fuse={fuse} planned decode: device busy "
+            wall = planned_ms[label]
+            print(f"[profile] {label} planned decode: device busy "
                   f"{busy:.2f} ms of {wall:.2f} ms wall, idle share "
                   f"{max(0.0, 1 - busy / wall):.3f}")
-            for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
+            for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
                 print(f"[profile]   {ms:9.3f} ms {n:5d}x  {key[:100]}")
         else:
-            print(f"[profile] fuse={fuse}: the profiler saw no device time: "
+            print(f"[profile] {label}: the profiler saw no device time: "
                   f"not measured")
         del dec
 

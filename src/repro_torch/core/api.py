@@ -5,25 +5,31 @@ Usage:
     dec = ParallelDecoder.from_bytes(blobs, chunk_bits=1024)
     out = dec.decode(emit="rgb")
 
-The port of the JAX package's ``core/api.py`` main path: host parse and
-plan (numpy), then on the device the Jacobi sync (cold speculative decode,
-then rounds to the fixed point), the segmented prefix sum for the write
-bases, the write pass, DC undiff and the pixel stage.
+The port of the JAX package's ``core/api.py``: host parse and plan
+(numpy), then on the device the sync (a speculative decode of every
+chunk, then rounds to the fixed point), the segmented prefix sum for the
+write bases, the write pass, DC undiff and the pixel stage.
 
 ``device`` defaults to ``"cuda"``: without a card the call raises, and the
 decoder runs on the CPU only when the caller passes ``device="cpu"``.
 ``backend`` is ``"cuda"`` (the hand-written kernels) or ``"torch"`` (their
 plain versions); it defaults to ``"cuda"`` on a CUDA device and to
-``"torch"`` on the CPU, and ``"cuda"`` on the CPU raises. ``fuse`` (kernels
-only, default ``"post"``): ``"post"`` runs the write pass as the stream
-kernel plus a scatter and the pixel stage as the fused pixel kernel;
-``"full"`` runs the write pass as the store kernel instead. The plain
-backend runs the unfused chain (``fuse="none"``).
+``"torch"`` on the CPU, and ``"cuda"`` on the CPU raises.
 
-Not in this port yet, and refused with ``NotImplementedError``: the
-``faithful``, ``specmap`` and ``sequential`` syncs (ROADMAP A4), and on the
-kernels ``fuse="none"`` and grayscale pixels, which need the ``fused_idct``
-kernel (ROADMAP B5).
+``sync`` picks the schedule (``core/sync.py``): ``"jacobi"`` (default),
+``"faithful"`` (the paper's Algorithm 3), ``"specmap"`` (phase-map
+composition) or ``"sequential"`` (one chunk per entropy segment, sized by
+:func:`sequential_chunk_bits`, so the cold decode is exact: the
+per-image baseline). All four give bit-identical coefficients.
+
+``fuse`` (kernels only, default ``"post"``): ``"post"`` runs the write
+pass as the stream kernel plus a scatter and the pixel stage as the fused
+pixel kernel; ``"full"`` runs the write pass as the store kernel instead;
+``"none"`` runs the stream write pass and the unfused pixel chain: the
+IDCT kernel, plane assembly (torch indexing) and the color kernel. A
+grayscale batch runs the IDCT kernel, plane assembly and a crop under
+every mode. The plain backend runs the unfused chain (``fuse="none"``).
+``DecodeOutput`` says which of the kernels ran.
 """
 from __future__ import annotations
 
@@ -33,13 +39,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import decode as D
-from .bitstream import (BatchPlan, PlanShape, build_batch_plan,
-                        build_plan_data, dev_from_numpy, plan_shape)
-from .sync import chain_entries, jacobi_sync
+from .bitstream import (MAX_UPM, BatchPlan, PlanShape, bucket_capacity,
+                        build_batch_plan, build_plan_data, dev_from_numpy,
+                        plan_shape)
+from .state import DecodeState
+from .sync import (SyncResult, chain_entries, faithful_sync, jacobi_sync,
+                   specmap_sync)
+from ..jpeg.format import parse_jpeg, segment_byte_bounds, unstuff_scan
+from ..kernels.color.ops import upsample_color, upsample_color_plain
 from ..kernels.fused.ops import decode_pixels_fused, pixels_fusible
 from ..kernels.fused.store import (decode_coeffs_store,
                                   decode_coeffs_store_plain)
 from ..kernels.huffman import ops as HK
+from ..kernels.idct.ops import idct_units, idct_units_plain
 
 BACKENDS = ("cuda", "torch")
 FUSE_MODES = ("none", "post", "full")
@@ -55,26 +67,47 @@ class DecodeOutput:
     sync_rounds: int
     converged: bool
     plan: BatchPlan
-    # which kernels ran: the store kernel for the write pass (fuse="full")
-    # and the fused pixel kernel for the pixel stage
+    # which kernels ran: the store kernel for the write pass (fuse="full"),
+    # and for the pixel stage either the fused pixel kernel or the IDCT
+    # kernel followed by the color kernel (three planes)
     store_fused: bool = False
     pixels_fused: bool = False
+    idct_kernel: bool = False
+    color_kernel: bool = False
 
 
 def check_sync(sync: str) -> str:
     if sync not in SYNCS:
         raise ValueError(f"unknown sync {sync!r}; expected one of {SYNCS}")
-    if sync != "jacobi":
-        raise NotImplementedError(
-            f"sync={sync!r} is not ported yet (ROADMAP A4); use 'jacobi'")
     return sync
+
+
+def sequential_chunk_bits(unstuffed, bucket: bool = True) -> int:
+    """Chunk size that makes every entropy *segment* a single chunk.
+
+    Sized from the unstuffed scans' longest segment (restart intervals
+    split a scan into many short segments), not from whole-file bytes, so
+    ``s_max`` stays as small as the batch allows. ``unstuffed`` is a list
+    of ``unstuff_scan`` results, shared with the plan builder so each scan
+    is unstuffed once. With ``bucket`` the size is rounded up the capacity
+    ladder before word alignment, as the JAX package does.
+    """
+    worst = 32
+    for clean, rst_bits in unstuffed:
+        bounds = segment_byte_bounds(clean, rst_bits)
+        longest = max(b - a for a, b in zip(bounds, bounds[1:]))
+        worst = max(worst, longest * 8)
+    if bucket:
+        worst = bucket_capacity(worst)
+    return -(-worst // 32) * 32
 
 
 def resolve_options(sync: str, backend: Optional[str], fuse: Optional[str],
                     device) -> Tuple[torch.device, str, str]:
     """Validate the knobs and resolve their defaults: (device, backend, fuse).
 
-    What the port cannot do yet is refused before the device is looked at.
+    Unknown or conflicting knobs are refused before the device is looked
+    at.
     """
     check_sync(sync)
     if backend is not None and backend not in BACKENDS:
@@ -116,10 +149,6 @@ def resolve_fuse(fuse: Optional[str], backend: str) -> str:
             raise ValueError(f"fuse={fuse!r} requires backend='cuda'; the "
                              f"plain backend runs the unfused chain")
         return "none"
-    if fuse == "none":
-        raise NotImplementedError(
-            "fuse='none' on the kernels needs the fused_idct kernel, which "
-            "is not ported yet (ROADMAP B5); use fuse='post' or 'full'")
     return fuse or "post"
 
 
@@ -154,15 +183,22 @@ class ParallelDecoder:
                    device="cuda") -> "ParallelDecoder":
         """Parse and plan one batch, and put the plan on ``device``."""
         resolve_options(sync, backend, fuse, device)
+        images = [parse_jpeg(b) for b in blobs]
+        unstuffed = None
+        if sync == "sequential":
+            unstuffed = [unstuff_scan(img.scan_data) for img in images]
+            chunk_bits = sequential_chunk_bits(unstuffed, bucket=bucket)
         plan = build_batch_plan(blobs, chunk_bits=chunk_bits,
-                                seq_chunks=seq_chunks)
+                                seq_chunks=seq_chunks, parsed=images,
+                                unstuffed=unstuffed)
         return cls(plan, sync=sync, backend=backend, bucket=bucket,
                    fuse=fuse, device=device)
 
     def coefficients(self) -> DecodeOutput:
         """Entropy stage: sync, write bases, write pass, DC undiff."""
         coeffs, rounds, converged = decode_coefficients(
-            self.dev, self.shape, backend=self.backend, fuse=self.fuse)
+            self.dev, self.shape, backend=self.backend, fuse=self.fuse,
+            sync=self.sync)
         return DecodeOutput(coeffs[:self.plan.total_units], None, None,
                             rounds, converged, self.plan,
                             store_fused=self.backend == "cuda"
@@ -172,36 +208,66 @@ class ParallelDecoder:
         if emit not in EMITS:
             raise ValueError(f"emit must be one of {EMITS}, got {emit!r}")
         plan = self.plan
-        if emit == "rgb":
-            if not plan.uniform:
-                raise NotImplementedError(
-                    "pixel stage requires a geometry-uniform batch; decode "
-                    "images with mixed geometry with emit='coeffs'")
-            if self.backend == "cuda" and not pixels_fusible(plan.geometry):
-                raise NotImplementedError(
-                    "grayscale pixels on the kernels need the fused_idct "
-                    "kernel, which is not ported yet (ROADMAP B5)")
+        if emit == "rgb" and not plan.uniform:
+            raise NotImplementedError(
+                "pixel stage requires a geometry-uniform batch; decode "
+                "images with mixed geometry with emit='coeffs'")
         out = self.coefficients()
         if emit == "coeffs":
             return out
         g, dev = plan.geometry, self.dev
         mrow = dev["unit_mrow"][:plan.total_units]
-        if self.backend == "cuda":
+        kernels = self.backend == "cuda"
+        if kernels and self.fuse != "none" and pixels_fusible(g):
             rgb = decode_pixels_fused(out.coeffs, dev["m_matrices_t"], mrow,
                                       geometry=g, n_images=plan.n_images)
             return dataclasses.replace(out, rgb=rgb, pixels_fused=True)
-        pixels = D.idct_units_folded(out.coeffs, dev["m_matrices"], mrow)
+        # the unfused chain: IDCT, plane assembly, then color or, for one
+        # plane, a crop and cast
+        idct = idct_units if kernels else idct_units_plain
+        pixels = idct(out.coeffs, dev["m_matrices_t"], mrow)
         comp_grid = [(g.mcus_y * v, g.mcus_x * h)
                      for h, v in zip(g.comp_h, g.comp_v)]
         planes = D.assemble_planes(pixels, plan.n_images, self._comp_unit_idx,
                                    self._comp_block_idx, comp_grid)
-        rgb = D.upsample_color(planes, g.comp_h, g.comp_v, g.h_max, g.v_max,
-                               g.height, g.width)
-        return dataclasses.replace(out, planes=planes, rgb=rgb)
+        geo = (g.comp_h, g.comp_v, g.h_max, g.v_max, g.height, g.width)
+        if len(planes) == 1:
+            rgb = D.upsample_color(planes, *geo)
+        else:
+            color = upsample_color if kernels else upsample_color_plain
+            rgb = color(planes, *geo)
+        return dataclasses.replace(out, planes=planes, rgb=rgb,
+                                   idct_kernel=kernels,
+                                   color_kernel=kernels and len(planes) > 1)
+
+
+def run_sync(dev: Dict[str, torch.Tensor], shape: PlanShape, sync: str,
+             decode_exits) -> SyncResult:
+    """Run schedule ``sync`` with the bounds the JAX package gives it.
+
+    Every bound is a capacity: inert lanes are stable from round 0.
+    """
+    sh = shape
+    if sync == "jacobi":
+        return jacobi_sync(dev, max_rounds=sh.n_chunks + 2,
+                           decode_exits=decode_exits, permuted=sh.permuted)
+    if sync == "specmap":
+        # the hypothesis decodes count as rounds, so the verify budget adds
+        # them to the longest truth-propagation chain
+        return specmap_sync(dev, max_upm=MAX_UPM,
+                            max_verify=sh.n_chunks + MAX_UPM + 2,
+                            decode_exits=decode_exits, permuted=sh.permuted)
+    if sync == "faithful":
+        return faithful_sync(dev, seq_chunks=sh.seq_chunks,
+                             max_outer=sh.n_sequences + 2,
+                             decode_exits=decode_exits, permuted=sh.permuted)
+    # sequential: one chunk per segment, so the cold decode is exact
+    exits = decode_exits(dev, DecodeState.cold(dev["chunk_start"]))
+    return SyncResult(exits, 1, True)
 
 
 def decode_coefficients(dev: Dict[str, torch.Tensor], shape: PlanShape, *,
-                        backend: str, fuse: str
+                        backend: str, fuse: str, sync: str = "jacobi"
                         ) -> Tuple[torch.Tensor, int, bool]:
     """The entropy stage on a padded plan's tensors.
 
@@ -215,12 +281,10 @@ def decode_coefficients(dev: Dict[str, torch.Tensor], shape: PlanShape, *,
     kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
     exits_fn = HK.decode_exits if kernels else HK.decode_exits_plain
 
-    def decode_exits(d, entry):
-        return exits_fn(d, meta, entry, **kw)
+    def decode_exits(d, entry, idx=None):
+        return exits_fn(d, meta, entry, idx, **kw)
 
-    # the round bound is a capacity: inert lanes are stable from round 0
-    res = jacobi_sync(dev, max_rounds=sh.n_chunks + 2,
-                      decode_exits=decode_exits, permuted=sh.permuted)
+    res = run_sync(dev, sh, check_sync(sync), decode_exits)
     # Output placement (Alg. 1 lines 7-8) and write pass (lines 9-15).
     # The final segment's write clamp is units_end, the real batch's
     # coefficient count; pad segments carry the same value.

@@ -527,11 +527,14 @@ def build_batch_plan(
     chunk_bits: int = 1024,
     seq_chunks: int = 32,
     parsed: Optional[Sequence[JpegImage]] = None,
+    unstuffed: Optional[Sequence] = None,
 ) -> BatchPlan:
     """Parse + frame a batch of JPEG files into a device-ready plan.
 
-    ``parsed`` lets a caller that already parsed the headers share that
-    work instead of redoing it here.
+    ``parsed`` / ``unstuffed`` let a caller that already parsed the headers
+    or unstuffed the scans (``unstuff_scan`` results, one per image, as
+    the sequential schedule's chunk sizing does) share that work instead
+    of redoing it here.
     """
     assert chunk_bits % 32 == 0, "chunk size must be a multiple of 32 bits"
     images = list(parsed) if parsed is not None else [parse_jpeg(b) for b in blobs]
@@ -602,7 +605,8 @@ def build_batch_plan(
     geometry = geoms[0] if uniform else None
 
     for ii, img in enumerate(images):
-        clean, rst_bits = unstuff_scan(img.scan_data)
+        clean, rst_bits = (unstuffed[ii] if unstuffed is not None
+                           else unstuff_scan(img.scan_data))
         # segment boundaries in the clean stream (byte aligned)
         bounds = segment_byte_bounds(clean, rst_bits)
         ts = tableset_for(img)

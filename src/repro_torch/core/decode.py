@@ -271,10 +271,10 @@ def folded_product(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """``x @ m.T`` for (U, 64) ``x``, summed over j = 0..63 in order.
 
     One rounding per multiply and one per add, with no fused multiply-add:
-    the pixel kernel (``kernels/csrc/pixels.cu``) sums in exactly this
-    order, so the two agree bit for bit on any device. A library matrix
-    product would sum in its own order, and a pixel whose sum lands within
-    rounding of a half would round the other way.
+    the pixel and IDCT kernels (``kernels/csrc/idct.cuh``) sum in exactly
+    this order, so they agree with it bit for bit on any device. A library
+    matrix product would sum in its own order, and a pixel whose sum lands
+    within rounding of a half would round the other way.
     """
     acc = torch.zeros_like(x)
     for j in range(64):
@@ -322,8 +322,9 @@ def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor,
                  cr: torch.Tensor) -> torch.Tensor:
     """BT.601 color convert of full-size float planes, then clip(round).
 
-    The arithmetic and its order are the JAX package's; the pixel kernel
-    writes each multiply and add with its own rounding in the same order.
+    The arithmetic and its order are the JAX package's; the pixel and
+    color kernels write each multiply and add with its own rounding in
+    the same order.
     Returns the three channels stacked on a new last axis, as uint8.
     """
     cb, cr = cb - 128.0, cr - 128.0

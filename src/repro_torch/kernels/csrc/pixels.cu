@@ -28,11 +28,14 @@
 //     multiply and add is written as __fmul_rn / __fadd_rn so that nvcc
 //     does not contract them into FMAs; rintf rounds half to even like
 //     torch.round and jnp.round (roundf would round half away from zero).
+//     The IDCT sample is idct.cuh's, shared with the IDCT kernel.
 //
 // Output: (n_mcus, 8*v_max, 8*h_max, 3) uint8; the wrapper reshapes and
 // crops it to (B, H, W, 3).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "idct.cuh"
 
 namespace {
 
@@ -85,14 +88,7 @@ pixels_kernel(const int32_t* __restrict__ coeffs,
   // IDCT: px[u, k] = clip(rint(sum_j x[u, j] * M[q_u][k, j] + 128), 0, 255)
   for (int i = threadIdx.x; i < nu * 64; i += blockDim.x) {
     const int u = i >> 6, k = i & 63;
-    const float* xu = xs + u * 64;
-    const float* mq = mt + (int64_t)rows[u] * 4096 + k;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < 64; ++j) {
-      acc = __fadd_rn(acc, __fmul_rn(xu[j], __ldg(mq + j * 64)));
-    }
-    px[i] = fminf(fmaxf(rintf(__fadd_rn(acc, 128.f)), 0.f), 255.f);
+    px[i] = rt::idct_sample(xs + u * 64, mt + (int64_t)rows[u] * 4096 + k);
   }
   __syncthreads();
 

@@ -1,9 +1,10 @@
 """The exit and stream-write kernels: wrappers, plain versions, scatter.
 
-:func:`decode_exits` is the sync-phase decode (one call per Jacobi
-round) and :func:`decode_streams` the write pass of ``fuse="post"``: per
-lane and per symbol step, the local zig-zag offset and the coefficient,
-which :func:`scatter_streams` places. The kernels are
+:func:`decode_exits` is the sync-phase decode (one call per sync round,
+over every lane or, for faithful sync's chains, a gathered subset) and
+:func:`decode_streams` the write pass of ``fuse="post"``: per lane and
+per symbol step, the local zig-zag offset and the coefficient, which
+:func:`scatter_streams` places. The kernels are
 ``csrc/huffman.cu``; each wrapper takes its plain version only for
 tensors on the CPU and otherwise launches the kernel or raises.
 
@@ -15,7 +16,7 @@ lanes' entry state.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -64,32 +65,54 @@ def lane_args(dev: Dev, meta: Dev, entry: DecodeState) -> list:
 # Exit decode (sync phase)
 # ---------------------------------------------------------------------------
 
-def decode_exits_plain(dev: Dev, meta: Dev, entry: DecodeState, *,
-                       s_max: int, min_code_bits: int) -> DecodeState:
-    """Exit (p, u, z, n) of every lane: ``core.decode.decode_span``."""
-    st, _ = D.decode_span(dev, entry, meta["word_base"], meta["limit"],
-                          meta["ts"], meta["upm"], s_max=s_max,
-                          min_code_bits=min_code_bits)
+def lane_subset(meta: Dev, idx: Optional[torch.Tensor]) -> Dev:
+    """``meta`` gathered at the lanes ``idx`` (all lanes for ``None``):
+    the same values as ``core.decode.chunk_meta(dev, idx)``."""
+    if idx is None:
+        return meta
+    idx = idx.to(torch.int64)
+    return {k: v[idx] for k, v in meta.items()}
+
+
+def decode_exits_plain(dev: Dev, meta: Dev, entry: DecodeState,
+                       idx: Optional[torch.Tensor] = None, *, s_max: int,
+                       min_code_bits: int) -> DecodeState:
+    """Exit (p, u, z, n) of every lane, or of the lanes ``idx`` (one per
+    entry, repeats allowed): ``core.decode.decode_span``."""
+    m = lane_subset(meta, idx)
+    st, _ = D.decode_span(dev, entry, m["word_base"], m["limit"], m["ts"],
+                          m["upm"], s_max=s_max, min_code_bits=min_code_bits)
     return st
 
 
-def decode_exits(dev: Dev, meta: Dev, entry: DecodeState, *, s_max: int,
+def decode_exits(dev: Dev, meta: Dev, entry: DecodeState,
+                 idx: Optional[torch.Tensor] = None, *, s_max: int,
                  min_code_bits: int) -> DecodeState:
-    """Exit (p, u, z, n) of every lane, by the exit kernel on the card."""
+    """:func:`decode_exits_plain`, by the exit kernel on the card.
+
+    The ``idx`` form (faithful sync's ``decode_at``) runs the same kernel
+    over ``len(idx)`` lanes whose metadata is gathered at ``idx``, as the
+    JAX wrapper's ``_lane_meta`` does. ``launches`` counts the full-lane
+    form and ``subset_launches`` the ``idx`` form, each only its own.
+    """
     if dev["words"].device.type == "cpu":
-        return decode_exits_plain(dev, meta, entry, s_max=s_max,
+        return decode_exits_plain(dev, meta, entry, idx, s_max=s_max,
                                   min_code_bits=min_code_bits)
-    args = lane_args(dev, meta, entry)
+    args = lane_args(dev, lane_subset(meta, idx), entry)
     c = entry.p.shape[0]
     out = DecodeState(*(torch.empty_like(entry.p) for _ in range(4)))
     B.check(kernel_fn("rt_decode_exits")(
         *args, *(B.ptr(t) for t in out), c, s_max, min_code_bits,
         B.stream_of(entry.p)), "rt_decode_exits")
-    decode_exits.launches += 1
+    if idx is None:
+        decode_exits.launches += 1
+    else:
+        decode_exits.subset_launches += 1
     return out
 
 
 decode_exits.launches = 0
+decode_exits.subset_launches = 0
 
 
 # ---------------------------------------------------------------------------

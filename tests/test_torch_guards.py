@@ -1,18 +1,22 @@
-"""What the port refuses: JAX imports, silent CPU fallback, unported paths."""
+"""What the port refuses (JAX imports, silent CPU fallback, the kernels
+without a card), and that every schedule and pixel path it once refused
+now plans and decodes."""
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from repro.jpeg import codec_ref as cr
 import repro_torch
 from repro_torch.core import api
 from repro_torch.core.api import ParallelDecoder
 
-from _torch_corpus import corpus
+from _torch_corpus import corpus, oracle_coeffs
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -62,9 +66,13 @@ def test_kernel_backend_on_cpu_raises():
 
 
 @pytest.mark.parametrize("sync", ["faithful", "specmap", "sequential"])
-def test_unported_sync_raises(sync):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        repro_torch.decode_batch(corpus("420"), sync=sync, device="cpu")
+def test_every_sync_plans_and_decodes_on_the_cpu(sync):
+    blobs = corpus("420")
+    out = repro_torch.decode_batch(blobs, sync=sync, device="cpu")
+    assert out.converged
+    np.testing.assert_array_equal(out.coeffs.numpy(), oracle_coeffs(blobs))
+    base = np.stack([cr.decode_baseline(b) for b in blobs]).astype(int)
+    assert np.abs(out.rgb.numpy().astype(int) - base).max() <= 1
 
 
 def test_unknown_knobs_raise():
@@ -76,16 +84,41 @@ def test_unknown_knobs_raise():
         repro_torch.decode_batch(corpus("420"), emit="planes", device="cpu")
 
 
-def test_fuse_none_on_the_kernels_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+def test_fuse_none_plans_and_decodes_on_the_cpu():
+    assert api.resolve_fuse("none", "cuda") == "none"
+    blobs = corpus("420")
+    out = repro_torch.decode_batch(blobs, fuse="none", device="cpu")
+    np.testing.assert_array_equal(out.coeffs.numpy(), oracle_coeffs(blobs))
+    assert len(out.planes) == 3 and not out.pixels_fused
+
+
+def test_fuse_none_on_the_kernels_needs_a_card(monkeypatch):
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        repro_torch.decode_batch(corpus("420"), backend="cuda", fuse="none",
+                                 device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    planned = []
+    monkeypatch.setattr(api, "build_batch_plan",
+                        lambda *a, **k: planned.append(1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.decode_batch(corpus("420"), backend="cuda", fuse="none")
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        api.resolve_fuse("none", "cuda")
+    assert not planned
 
 
-def test_grayscale_pixels_on_the_kernels_raise():
-    dec = ParallelDecoder.from_bytes(corpus("gray"), chunk_bits=256,
-                                     device="cpu")
-    dec.backend = "cuda"  # as on a card; refused before any decode work
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        dec.decode()
+def test_grayscale_pixels_plan_and_decode_on_the_cpu():
+    blobs = corpus("gray")
+    dec = ParallelDecoder.from_bytes(blobs, chunk_bits=256, device="cpu")
+    dec.backend = "cuda"  # as on a card: the IDCT wrapper, here its plain
+    out = dec.decode()    # version on CPU tensors
+    assert out.idct_kernel and not out.pixels_fused and not out.color_kernel
+    base = np.stack([cr.decode_baseline(b) for b in blobs]).astype(int)
+    assert out.rgb.shape == base.shape
+    assert np.abs(out.rgb.numpy().astype(int) - base).max() <= 1
+
+
+def test_no_refusal_of_a_ported_path_is_left():
+    """No ``NotImplementedError`` names ROADMAP A4 or B5 any more."""
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert "ROADMAP A4" not in text and "ROADMAP B5" not in text, path
