@@ -10,7 +10,10 @@ otherwise. Phases, each of which exits non-zero on failure:
    full-width batch's plan (exits, the exits of a random half of the lanes
    (the ``idx`` form), streams, coefficients and IDCT samples
    bit-identical, RGB within 1), with each one's time, its plain
-   version's time and its bound;
+   version's time and its bound. The exit kernel is held with its tables
+   in shared memory and in global memory (budget 0), over every lane and
+   at the ``idx`` lanes; the IDCT kernel also on partial last tiles, with
+   units that mix matrices and with six matrices;
 3. oracle: small images through ``decode_batch`` with every sync schedule
    and fuse mode, and a grayscale group; coefficients equal the
    sequential oracle, RGB within 1 of it;
@@ -90,20 +93,29 @@ def luma(rgb: np.ndarray) -> np.ndarray:
     return np.clip(np.round(y), 0, 255).astype(np.uint8)
 
 
+# device clocks the card spins before each timed call (about 1 ms), so that
+# the host has queued the call by the time the start event fires and the
+# wrapper's host time is not counted as the kernel's
+SPIN_CYCLES = 2_000_000
+
+
+def event_ms(fn) -> float:
+    """Device time of one call of ``fn`` in ms, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events, after a warm-up."""
+    """Median device time of ``fn`` in ms, after a warm-up."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(event_ms(fn) for _ in range(reps))
 
 
 def max_err(got, exp) -> int:
@@ -245,14 +257,26 @@ def main() -> None:
                       permuted=sh.permuted)
     check(res.converged, "kernel Jacobi sync did not converge")
     entries = chain_entries(dev, res.exits, sh.permuted)
+    # the exit kernel with its tables in shared memory (the wrapper's
+    # budget) and, with a budget of 0, read from global memory
+    table_bytes = HK.exit_table_bytes(dev)
+    check(table_bytes <= HK.EXIT_SMEM_BUDGET, f"the exit kernel's tables "
+          f"({table_bytes} bytes) do not fit its shared-memory budget")
     errs = {}
     for label, entry in (("cold", cold), ("chained", entries)):
-        got = HK.decode_exits(dev, meta, entry, **kw)
         exp = exits_plain(dev, entry)
-        torch.cuda.synchronize()
-        errs[label] = max_err(got, exp)
-        check(errs[label] == 0, f"exit kernel differs from its plain "
-              f"version by {errs[label]} ({label} entries)")
+        for where, got in (
+                ("shared", HK.decode_exits(dev, meta, entry, **kw)),
+                ("global", HK.run_exit_kernel(dev, meta, entry, **kw,
+                                              smem_budget=0))):
+            torch.cuda.synchronize()
+            errs[label, where] = max_err(got, exp)
+            check(errs[label, where] == 0, f"exit kernel ({where} tables) "
+                  f"differs from its plain version by "
+                  f"{errs[label, where]} ({label} entries)")
+    print(f"[parity] exit kernel: shared-memory and global tables "
+          f"bit-identical to the plain version on cold and chained "
+          f"entries; tables {table_bytes} bytes", flush=True)
     # the write pass inputs, from the converged exits
     bases = D.chunk_write_bases(dev, res.exits.n, permuted=sh.permuted)
     seg_end = torch.cat([dev["seg_coeff_base"][1:], dev["units_end"][None]])
@@ -270,13 +294,15 @@ def main() -> None:
     lane_in = [meta[k] for k in ("word_base", "ts", "limit", "upm")] + \
         list(entries[:3])
     tables = [dev["words"], dev["luts"], dev["unit_lut_row"]]
+    # the exit kernel reads its compact tables in place of the LUTs
+    exit_tables = [dev["words"], dev["luts_compact"], dev["unit_lut_off"]]
     ms = cuda_ms(lambda: HK.decode_exits(dev, meta, entries, **kw),
                  args.reps)
     plain_ms = cuda_ms(lambda: exits_plain(dev, entries), 1)
     record("huffman_exits", "src/repro_torch/kernels/csrc/huffman.cu",
            "src/repro/kernels/huffman/huffman.py:261", max(errs.values()),
            ms, plain_ms,
-           nbytes(*tables, *lane_in) + 4 * 4 * entries.p.numel(),
+           nbytes(*exit_tables, *lane_in) + 4 * 4 * entries.p.numel(),
            steps * OPS_PER_SYMBOL_STEP, INT_OPS_PER_S)
     ms = cuda_ms(lambda: HK.decode_streams(dev, meta, entries, **kw),
                  args.reps)
@@ -315,12 +341,16 @@ def main() -> None:
     idx = torch.randperm(sh.n_chunks, generator=gen)[:sh.n_chunks // 2]
     idx = idx.to(torch.int32).to(dev["chunk_start"].device)
     sub = DecodeState(*(f[idx.long()] for f in entries))
-    got = HK.decode_exits(dev, meta, sub, idx, **kw)
     exp = HK.decode_exits_plain(dev, meta, sub, idx, **kw)
-    torch.cuda.synchronize()
-    err = max_err(got, exp)
-    check(err == 0, f"exit kernel at a lane subset differs from its plain "
-          f"version by {err}")
+    err = 0
+    for where, got in (
+            ("shared", HK.decode_exits(dev, meta, sub, idx, **kw)),
+            ("global", HK.run_exit_kernel(dev, meta, sub, idx, **kw,
+                                          smem_budget=0))):
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, exp))
+        check(err == 0, f"exit kernel ({where} tables) at a lane subset "
+              f"differs from its plain version by {err}")
     ms = cuda_ms(lambda: HK.decode_exits(dev, meta, sub, idx, **kw),
                  args.reps)
     plain_ms = cuda_ms(lambda: HK.decode_exits_plain(dev, meta, sub, idx,
@@ -328,7 +358,7 @@ def main() -> None:
     sub_in = list(HK.lane_subset(meta, idx).values()) + list(sub[:3])
     record("huffman_exits_idx", "src/repro_torch/kernels/csrc/huffman.cu",
            "src/repro/kernels/huffman/huffman.py:261", err, ms, plain_ms,
-           nbytes(*tables, idx, *sub_in) + 4 * 4 * idx.numel(),
+           nbytes(*exit_tables, idx, *sub_in) + 4 * 4 * idx.numel(),
            int(lane_steps[idx.long()].sum()) * OPS_PER_SYMBOL_STEP,
            INT_OPS_PER_S)
     del got, exp, sub, sub_in, idx, lane_steps
@@ -360,13 +390,40 @@ def main() -> None:
 
     # the unfused chain: IDCT kernel, plane assembly, color kernel
     m_t = dev["m_matrices_t"]
-    pix = IK.idct_units(units, m_t, mrow)
+    upm = g.units_per_mcu
+    pix = IK.idct_units(units, m_t, mrow, upm)
     pix_p = IK.idct_units_plain(units, m_t, mrow)
     torch.cuda.synchronize()
     err = float((pix - pix_p).abs().max())
     check(torch.equal(pix, pix_p), f"IDCT kernel differs from its plain "
           f"version by {err}")
-    ms = cuda_ms(lambda: IK.idct_units(units, m_t, mrow), args.reps)
+    # a partial last tile (the units' last 2 tiles + 5); a thread's units
+    # taken 1 apart, so that most of them mix matrices; and the matrices
+    # read from global memory (six, more than the kernel stages)
+    n_tail = 2 * IK.tile_units(upm) + 5
+    for n in (n_tail, 5):
+        tail = (units[-n:], m_t, mrow[-n:])
+        check(torch.equal(IK.idct_units(*tail, upm),
+                          IK.idct_units_plain(*tail)),
+              f"IDCT kernel differs from its plain version on {n} units")
+    check(torch.equal(IK.idct_units(units, m_t, mrow, 1), pix_p),
+          "IDCT kernel with mixed matrices differs from its plain version")
+    m_t6 = m_t.repeat(6 // m_t.shape[0] + 1, 1, 1)[:6].contiguous()
+    pix6 = IK.idct_units(units, m_t6, mrow, upm)
+    check(torch.equal(pix6, IK.idct_units_plain(units, m_t6, mrow)),
+          "IDCT kernel with six matrices differs from its plain version")
+    del pix6
+    ms1 = cuda_ms(lambda: IK.idct_units(units, m_t, mrow, 1), args.reps)
+    ms6 = cuda_ms(lambda: IK.idct_units(units, m_t6, mrow, upm), args.reps)
+    ms = cuda_ms(lambda: IK.idct_units(units, m_t, mrow, upm), args.reps)
+    # the floor of a bit-identical product: each multiply-add is a
+    # separate f32 multiply and add, one instruction per lane per clock
+    floor_ms = 2 * units.shape[0] * 64 * 64 / INT_OPS_PER_S * 1e3
+    print(f"[parity] IDCT kernel: equal on {units.shape[0]} units, on "
+          f"{n_tail} and 5 units (partial last tiles), with units mixing "
+          f"matrices ({ms1:.4f} ms) and with six matrices read from global "
+          f"memory ({ms6:.4f} ms); bit-identical floor {floor_ms:.4f} ms",
+          flush=True)
     plain_ms = cuda_ms(lambda: IK.idct_units_plain(units, m_t, mrow), 1)
     # the library yardstick: the product alone, one torch.matmul per
     # distinct matrix over all units (f32, TF32 off), no select or round

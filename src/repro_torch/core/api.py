@@ -167,6 +167,8 @@ class ParallelDecoder:
         self.data = build_plan_data(plan, self.shape)
         self.dev = dev_from_numpy(dict(self.data.arrays,
                                        words=self.data.words), self.device)
+        if self.backend == "cuda":
+            self.dev.update(HK.exit_tables(self.dev))
         if plan.uniform:
             self._comp_unit_idx = [torch.as_tensor(a, dtype=torch.int64,
                                                    device=self.device)
@@ -224,8 +226,11 @@ class ParallelDecoder:
             return dataclasses.replace(out, rgb=rgb, pixels_fused=True)
         # the unfused chain: IDCT, plane assembly, then color or, for one
         # plane, a crop and cast
-        idct = idct_units if kernels else idct_units_plain
-        pixels = idct(out.coeffs, dev["m_matrices_t"], mrow)
+        if kernels:
+            pixels = idct_units(out.coeffs, dev["m_matrices_t"], mrow,
+                                units_per_mcu=g.units_per_mcu)
+        else:
+            pixels = idct_units_plain(out.coeffs, dev["m_matrices_t"], mrow)
         comp_grid = [(g.mcus_y * v, g.mcus_x * h)
                      for h, v in zip(g.comp_h, g.comp_v)]
         planes = D.assemble_planes(pixels, plan.n_images, self._comp_unit_idx,
@@ -273,7 +278,8 @@ def decode_coefficients(dev: Dict[str, torch.Tensor], shape: PlanShape, *,
 
     Returns ``(coeffs, sync_rounds, converged)`` with capacity-sized
     (``shape.n_units``, 64) coefficients. ``dev`` is
-    ``dev_from_numpy(PlanData.arrays + words)`` of either package's plan.
+    ``dev_from_numpy(PlanData.arrays + words)`` of either package's plan,
+    with ``HK.exit_tables(dev)`` added for ``backend="cuda"``.
     """
     sh = shape
     kernels = backend == "cuda"

@@ -8,8 +8,8 @@ under every fuse mode): IDCT, then ``core.decode.assemble_planes``, then
 the color kernel (``kernels/color``) or, for one plane, a crop and cast.
 
 Both take the folded operators transposed, ``m_t[q, j, k] = M_q[k, j]``
-(``dev["m_matrices_t"]``, made once per plan), the layout in which the
-kernel's threads read consecutive words.
+(``dev["m_matrices_t"]``, made once per plan): for each ``j`` the kernel
+reads a run of consecutive ``k`` as 16-byte words.
 """
 from __future__ import annotations
 
@@ -20,7 +20,10 @@ import torch
 from ...core import decode as D
 from .. import build as B
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+_VP = ctypes.c_void_p
+_ARGS = [_VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
+         _VP]
+MAX_UNITS_PER_MCU = 6
 
 
 def idct_units_plain(coeffs: torch.Tensor, m_t: torch.Tensor,
@@ -30,8 +33,19 @@ def idct_units_plain(coeffs: torch.Tensor, m_t: torch.Tensor,
 
 
 def idct_units(coeffs: torch.Tensor, m_t: torch.Tensor,
-               unit_mrow: torch.Tensor) -> torch.Tensor:
-    """:func:`idct_units_plain`, by the IDCT kernel on the card."""
+               unit_mrow: torch.Tensor,
+               units_per_mcu: int = 1) -> torch.Tensor:
+    """:func:`idct_units_plain`, by the IDCT kernel on the card.
+
+    Each thread of the kernel computes 6 units that lie ``units_per_mcu``
+    apart and shares their matrix's words among them when the 6 units
+    share one matrix: give the batch's units per MCU, which makes them
+    the same component of 6 MCUs. Any value in 1..6 gives the same
+    samples.
+    """
+    if not 1 <= units_per_mcu <= MAX_UNITS_PER_MCU:
+        raise ValueError(f"units_per_mcu must be in 1..{MAX_UNITS_PER_MCU}, "
+                         f"got {units_per_mcu}")
     if coeffs.device.type == "cpu":
         return idct_units_plain(coeffs, m_t, unit_mrow)
     dev = coeffs.device
@@ -45,12 +59,22 @@ def idct_units(coeffs: torch.Tensor, m_t: torch.Tensor,
             or m_t.dim() != 3 or m_t.shape[1:] != (64, 64):
         raise ValueError("the IDCT kernel needs coeffs (U, 64), unit_mrow "
                          "(U,) and m_t (NQ, 64, 64)")
+    if coeffs.data_ptr() % 16 or m_t.data_ptr() % 16:
+        raise ValueError("the IDCT kernel reads coeffs and m_t as 16-byte "
+                         "words: they must be 16-byte aligned")
     out = torch.empty((u, 64), dtype=torch.float32, device=dev)
     B.check(B.entry("idct", "rt_idct_units", _ARGS)(
-        B.ptr(coeffs), B.ptr(m_t), B.ptr(unit_mrow), B.ptr(out), u,
-        B.stream_of(out)), "rt_idct_units")
+        B.ptr(coeffs), B.ptr(m_t), m_t.shape[0], B.ptr(unit_mrow),
+        B.ptr(out), u, units_per_mcu, B.stream_of(out)), "rt_idct_units")
     idct_units.launches += 1
     return out
 
 
 idct_units.launches = 0
+
+
+def tile_units(units_per_mcu: int = 1) -> int:
+    """Units per tile of the IDCT kernel (a partial last tile is the edge
+    the card's tests cover)."""
+    return B.entry("idct", "rt_idct_tile_units", [ctypes.c_int])(
+        units_per_mcu)

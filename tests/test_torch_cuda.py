@@ -108,6 +108,61 @@ def test_exit_kernel_at_a_lane_subset_matches_plain(card, name):
         assert torch.equal(g, e)
 
 
+@pytest.mark.parametrize("budget", ["shared", "global"])
+@pytest.mark.parametrize("name", ["420", "optimized", "mixed"])
+def test_exit_kernel_table_sources_match_plain(card, name, budget):
+    """The exit kernel with its tables in shared memory and, with a
+    shared-memory budget of 0, read from global memory by the same kernel;
+    every lane and a lane subset."""
+    dec = ParallelDecoder.from_bytes(corpus(name), chunk_bits=256,
+                                     device=card)
+    dev, sh = dec.dev, dec.shape
+    meta = D.chunk_meta(dev)
+    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
+    smem = HK.exit_table_bytes(dev) if budget == "shared" else 0
+    gen = torch.Generator().manual_seed(5)
+    idx = torch.randperm(sh.n_chunks, generator=gen)[:sh.n_chunks // 3]
+    idx = idx.to(torch.int32).to(card)
+    cold = DecodeState.cold(dev["chunk_start"])
+    for sub in (None, idx):
+        entry = cold if sub is None else \
+            DecodeState(*(f[sub.long()] for f in cold))
+        got = HK.run_exit_kernel(dev, meta, entry, sub, **kw,
+                                 smem_budget=smem)
+        exp = HK.decode_exits_plain(dev, meta, entry, sub, **kw)
+        for g, e in zip(got, exp):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("layout", ["mcu", "random"])
+@pytest.mark.parametrize("units_per_mcu", [1, 3, 6])
+@pytest.mark.parametrize("n_matrices", [2, 6])
+@pytest.mark.parametrize("tail", [1, 77])
+def test_idct_kernel_partial_last_tile(card, tail, n_matrices, units_per_mcu,
+                                       layout):
+    """U = 2 tiles + a tail, not a multiple of the tile: the tail's units
+    are right. Matrix ids in an MCU pattern (a thread's 6 units share one
+    but at an image boundary) and at random (they mix); six matrices are
+    more than the kernel stages in shared memory, so it reads them from
+    global memory."""
+    tile = IK.tile_units(units_per_mcu)
+    u = 2 * tile + tail
+    rng = np.random.default_rng(tail)
+    coeffs = torch.from_numpy(rng.integers(-1024, 1024, (u + 64, 64))
+                              .astype(np.int32)).to(card)[:u]
+    m_t = torch.from_numpy(rng.normal(0, 0.2, (n_matrices, 64, 64))
+                           .astype(np.float32)).to(card)
+    if layout == "mcu":
+        comp = np.minimum(np.arange(u) % units_per_mcu, 1)
+        ids = comp + 2 * (np.arange(u) >= u // 2)  # image 2: other tables
+    else:
+        ids = rng.integers(0, n_matrices, u)
+    mrow = torch.from_numpy((ids % n_matrices).astype(np.int32)).to(card)
+    got = IK.idct_units(coeffs, m_t, mrow, units_per_mcu)
+    assert got.shape == (u, 64)
+    assert torch.equal(got, IK.idct_units_plain(coeffs, m_t, mrow))
+
+
 @pytest.mark.parametrize("name", ["420", "444", "gray"])
 def test_idct_kernel_matches_plain(card, name):
     blobs = corpus(name)
@@ -115,8 +170,10 @@ def test_idct_kernel_matches_plain(card, name):
     coeffs = torch.from_numpy(oracle_coeffs(blobs)).to(card)
     mrow = dec.dev["unit_mrow"][:dec.plan.total_units]
     m_t = dec.dev["m_matrices_t"]
-    assert torch.equal(IK.idct_units(coeffs, m_t, mrow),
-                       IK.idct_units_plain(coeffs, m_t, mrow))
+    upm = dec.plan.geometry.units_per_mcu
+    for hint in sorted({1, upm}):
+        assert torch.equal(IK.idct_units(coeffs, m_t, mrow, hint),
+                           IK.idct_units_plain(coeffs, m_t, mrow))
 
 
 @pytest.mark.parametrize("comp_h,comp_v", [((1, 1, 1), (1, 1, 1)),
