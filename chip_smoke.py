@@ -8,12 +8,17 @@ otherwise. Phases, each of which exits non-zero on failure:
 1. build: compile every kernel source with nvcc for sm_90a, all at once;
 2. kernel parity: each kernel against its plain PyTorch version on the
    full-width batch's plan (exits, the exits of a random half of the lanes
-   (the ``idx`` form), streams, coefficients and IDCT samples
-   bit-identical, RGB within 1), with each one's time, its plain
-   version's time and its bound. The exit kernel is held with its tables
-   in shared memory and in global memory (budget 0), over every lane and
-   at the ``idx`` lanes; the IDCT kernel also on partial last tiles, with
-   units that mix matrices and with six matrices;
+   (the ``idx`` form), streams, coefficients, IDCT samples and the fused
+   pixel kernel's RGB bit-identical, the color kernel's RGB within 1),
+   with each one's time, its plain version's time and its bound. The exit
+   and stream kernels are held with their tables in shared memory and in
+   global memory (budget 0), the exit kernel over every lane and at the
+   ``idx`` lanes; stream kernel + scatter against the plain write pass and
+   the store kernel, with the scatter's time on a line of its own; the
+   fused pixel kernel also on partial last tiles and on 4:2:2 and 4:4:4
+   batches and with six matrices (read from global memory); the IDCT
+   kernel also on partial last tiles, with units that mix matrices and
+   with six matrices;
 3. oracle: small images through ``decode_batch`` with every sync schedule
    and fuse mode, and a grayscale group; coefficients equal the
    sequential oracle, RGB within 1 of it;
@@ -204,6 +209,11 @@ def main() -> None:
                                    subsampling="4:2:0").jpeg_bytes
                 for f in frames]
     blobs = [b for b in distinct for _ in range(args.repeat)]
+    # two frames at 4:2:2 and at 4:4:4, for the fused pixel kernel's
+    # layouts of their own besides 4:2:0
+    layouts = {s: [cr.encode_baseline(f, quality=args.quality,
+                                      subsampling=s).jpeg_bytes
+                   for f in frames[:2]] for s in ("4:2:2", "4:4:4")}
     mb = sum(map(len, blobs)) / 1e6
     print(f"[data] {len(blobs)} frames {args.width}x{args.height} 4:2:0 "
           f"q{args.quality} ({args.distinct} distinct), {mb:.1f} MB "
@@ -282,15 +292,28 @@ def main() -> None:
     seg_end = torch.cat([dev["seg_coeff_base"][1:], dev["units_end"][None]])
     write_max = seg_end[dev["chunk_seg"].to(torch.int64)] - 1
     n_coef = sh.n_units * 64
-    pos, val = HK.decode_streams(dev, meta, entries, **kw)
+    # the stream kernel, its tables in shared memory and in global memory
     pos_p, val_p = HK.decode_streams_plain(dev, meta, entries, **kw)
+    stream_err = 0
+    for where, budget in (("global", 0), ("shared", HK.EXIT_SMEM_BUDGET)):
+        pos, val = HK.run_stream_kernel(dev, meta, entries, **kw,
+                                        smem_budget=budget)
+        torch.cuda.synchronize()
+        stream_err = max(stream_err, max_err((pos, val), (pos_p, val_p)))
+        check(stream_err == 0, f"stream kernel ({where} tables) differs "
+              f"from its plain version by {stream_err}")
+    pos, val = HK.decode_streams(dev, meta, entries, **kw)
     torch.cuda.synchronize()
-    stream_err = max_err((pos, val), (pos_p, val_p))
-    check(stream_err == 0, f"stream kernel differs from its plain version "
-          f"by {stream_err}")
+    check(torch.equal(pos, pos_p) and torch.equal(val, val_p),
+          "stream kernel differs from its plain version")
     lane_steps = (pos >= 0).sum(0)  # symbol steps each lane's data needs
     steps = int(lane_steps.sum())
     del pos_p, val_p
+    ms_global = cuda_ms(lambda: HK.run_stream_kernel(
+        dev, meta, entries, **kw, smem_budget=0), args.reps)
+    print(f"[parity] stream kernel: shared-memory and global tables "
+          f"bit-identical to the plain version; global tables "
+          f"{ms_global:.4f} ms", flush=True)
     lane_in = [meta[k] for k in ("word_base", "ts", "limit", "upm")] + \
         list(entries[:3])
     tables = [dev["words"], dev["luts"], dev["unit_lut_row"]]
@@ -311,9 +334,17 @@ def main() -> None:
     record("huffman_streams", "src/repro_torch/kernels/csrc/huffman.cu",
            "src/repro/kernels/huffman/huffman.py:332", stream_err, ms,
            plain_ms,
-           nbytes(*tables, *lane_in, pos, val),
+           nbytes(*exit_tables, *lane_in, pos, val),
            steps * OPS_PER_SYMBOL_STEP, INT_OPS_PER_S)
+    # the scatter after the stream kernel (torch; not a kernel of the port):
+    # its device time, on a line of its own
     coef_stream = HK.scatter_streams(pos, val, bases, write_max, n_coef)
+    scatter_ms = cuda_ms(lambda: HK.scatter_streams(pos, val, bases,
+                                                    write_max, n_coef),
+                         args.reps)
+    print(f"[scatter] scatter_streams after the stream kernel: "
+          f"{scatter_ms:.4f} ms ({pos.numel()} stream entries, {steps} "
+          f"recorded)", flush=True)
     del pos, val
     coef = FS.decode_coeffs_store(dev, meta, entries, bases, write_max,
                                   n_coef, **kw)
@@ -325,6 +356,8 @@ def main() -> None:
           f"{store_err}")
     check(torch.equal(coef_stream, coef_p), "stream kernel + scatter "
           "differs from the plain write pass")
+    check(torch.equal(coef_stream, coef), "stream kernel + scatter differs "
+          "from the store kernel")
     del coef_stream, coef_p
     ms = cuda_ms(lambda: FS.decode_coeffs_store(
         dev, meta, entries, bases, write_max, n_coef, **kw), args.reps)
@@ -370,27 +403,76 @@ def main() -> None:
     del coef
     geo = dict(comp_h=tuple(g.comp_h), comp_v=tuple(g.comp_v),
                h_max=g.h_max, v_max=g.v_max, upm=g.units_per_mcu)
-    blk = FP.fused_pixels(units, dev["m_matrices_t"], mrow, **geo)
-    blk_p = FP.fused_pixels_plain(units, dev["m_matrices_t"], mrow, **geo)
+    m_t = dev["m_matrices_t"]
+    blk = FP.fused_pixels(units, m_t, mrow, **geo)
+    blk_p = FP.fused_pixels_plain(units, m_t, mrow, **geo)
     torch.cuda.synchronize()
-    diff = (blk.to(torch.int16) - blk_p.to(torch.int16)).abs()
-    err = int(diff.max())
-    print(f"[parity] pixel kernel: {int((diff == 1).sum())} samples off by "
-          f"one, max {err}")
-    check(err <= 1, f"pixel kernel differs from its plain version by {err}")
-    ms = cuda_ms(lambda: FP.fused_pixels(units, dev["m_matrices_t"], mrow,
-                                         **geo), args.reps)
+    err = max_err((blk,), (blk_p,))
+    check(torch.equal(blk, blk_p), f"pixel kernel differs from its plain "
+          f"version by {err}")
+    del blk, blk_p
+    # partial last tiles (the last 2 tiles + 5 MCUs, and 5 MCUs)
+    upm = g.units_per_mcu
+    n_tail = 2 * FP.tile_mcus(upm) + 5
+    for n in (n_tail, 5):
+        tail = (units[-n * upm:], m_t, mrow[-n * upm:])
+        check(torch.equal(FP.fused_pixels(*tail, **geo),
+                          FP.fused_pixels_plain(*tail, **geo)),
+              f"pixel kernel differs from its plain version on {n} MCUs")
+    # the other layouts with a kernel of their own
+    other = []
+    for name, lay_blobs in layouts.items():
+        ldec = ParallelDecoder.from_bytes(lay_blobs,
+                                          chunk_bits=args.chunk_bits,
+                                          device=gpu)
+        lg = ldec.plan.geometry
+        lunits = ldec.coefficients().coeffs
+        lrow = ldec.dev["unit_mrow"][:ldec.plan.total_units]
+        lgeo = dict(comp_h=tuple(lg.comp_h), comp_v=tuple(lg.comp_v),
+                    h_max=lg.h_max, v_max=lg.v_max, upm=lg.units_per_mcu)
+        lm = ldec.dev["m_matrices_t"]
+        check(torch.equal(FP.fused_pixels(lunits, lm, lrow, **lgeo),
+                          FP.fused_pixels_plain(lunits, lm, lrow, **lgeo)),
+              f"pixel kernel differs from its plain version at {name}")
+        lms = cuda_ms(lambda: FP.fused_pixels(lunits, lm, lrow, **lgeo),
+                      args.reps)
+        other.append(f"{name} {lunits.shape[0] // lg.units_per_mcu} MCUs "
+                     f"{lms:.4f} ms")
+        del ldec, lunits, lrow, lm
+    # the matrices read from global memory: six, more than the kernel
+    # stages, as a batch of three qualities has them (image k takes pair
+    # k % 3 of copies of the plan's matrices)
+    n_img = dec.plan.n_images
+    check(units.shape[0] % n_img == 0 and m_t.shape[0] == 2,
+          "the full-width batch is not 2 matrices over whole images")
+    m_t6 = m_t.repeat(3, 1, 1).contiguous()
+    per_img = units.shape[0] // n_img
+    img = torch.arange(units.shape[0], device=gpu) // per_img
+    mrow6 = (mrow + 2 * (img % 3)).to(torch.int32)
+    check(torch.equal(FP.fused_pixels(units, m_t6, mrow6, **geo),
+                      FP.fused_pixels_plain(units, m_t6, mrow6, **geo)),
+          "pixel kernel with six matrices differs from its plain version")
+    ms6 = cuda_ms(lambda: FP.fused_pixels(units, m_t6, mrow6, **geo),
+                  args.reps)
+    other.append(f"with six matrices read from global memory {ms6:.4f} ms")
+    del m_t6, per_img, img, mrow6
+    ms = cuda_ms(lambda: FP.fused_pixels(units, m_t, mrow, **geo), args.reps)
     plain_ms = cuda_ms(lambda: FP.fused_pixels_plain(
-        units, dev["m_matrices_t"], mrow, **geo), 1)
+        units, m_t, mrow, **geo), 1)
+    # the floor of a bit-identical product, as for the IDCT kernel below
+    floor_ms = 2 * units.shape[0] * 64 * 64 / INT_OPS_PER_S * 1e3
+    print(f"[parity] pixel kernel: equal on {units.shape[0] // upm} MCUs, on "
+          f"{n_tail} and 5 MCUs (partial last tiles) and at "
+          f"{', '.join(other)}; bit-identical floor {floor_ms:.4f} ms",
+          flush=True)
+    blk = FP.fused_pixels(units, m_t, mrow, **geo)
     record("fused_pixels", "src/repro_torch/kernels/csrc/pixels.cu",
            "src/repro/kernels/fused/pixels.py:164", err, ms, plain_ms,
-           nbytes(units, mrow, dev["m_matrices_t"], blk),
-           2 * units.shape[0] * 64 * 64, F32_FLOP_PER_S)
-    del blk, blk_p
+           nbytes(units, mrow, m_t, blk), 2 * units.shape[0] * 64 * 64,
+           F32_FLOP_PER_S)
+    del blk
 
     # the unfused chain: IDCT kernel, plane assembly, color kernel
-    m_t = dev["m_matrices_t"]
-    upm = g.units_per_mcu
     pix = IK.idct_units(units, m_t, mrow, upm)
     pix_p = IK.idct_units_plain(units, m_t, mrow)
     torch.cuda.synchronize()

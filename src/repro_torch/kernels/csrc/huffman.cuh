@@ -1,5 +1,5 @@
 // One Huffman symbol step of one chunk lane: the shared body of the exit,
-// stream and store kernels in huffman.cu.
+// stream and store kernels in huffman.cu, and the stream kernel's loop.
 //
 // Counterpart of `_symbol_step` in the JAX package's
 // kernels/huffman/huffman.py and of `decode_symbol` in
@@ -16,15 +16,19 @@
 // Where the step's bits and its table entry come from is a template
 // parameter of symbol_step; the bit operations after them are one body:
 //   * window sources: WordWindow loads the two words at p on every step
-//     (stream and store kernels); BufferedWindow keeps words w and w+1 in
-//     registers and w+2 prefetched, and loads one word when p >> 5 moves on
-//     (exit kernel). A step advances at most 31 bits (clen + size <= 31, or
-//     min_code_bits <= 16), so p >> 5 moves by at most one. Both clamp the
-//     word index exactly as load_word does, so both give the same window;
-//   * tables: FullLut reads the (L, 65536) int32 LUTs (stream and store
-//     kernels); CompactLut reads the two-level uint16 tables that
+//     (store kernel); BufferedWindow keeps words w and w+1 in registers
+//     and w+2 prefetched, and loads one word when p >> 5 moves on (exit
+//     and stream kernels). A step advances at most 31 bits (clen + size <=
+//     31, or min_code_bits <= 16), so p >> 5 moves by at most one. Both
+//     clamp the word index exactly as load_word does, so both give the
+//     same window;
+//   * tables: FullLut reads the (L, 65536) int32 LUTs (store kernel);
+//     CompactLut reads the two-level uint16 tables that
 //     kernels/huffman/ops.compact_luts builds from them, which expand to
 //     the same entry for every window (tests/test_torch_lut.py).
+//
+// stream_lane is the stream kernel's whole loop over one lane, so that the
+// host build runs it as the kernel does.
 //
 // The functions are __host__ __device__ so that a host-only build of this
 // header (g++, see tests/test_torch_symbol_step.py) runs the same code on
@@ -224,6 +228,38 @@ __host__ __device__ __forceinline__ StepOut symbol_step(
     st.n += zstep;
   }
   return o;
+}
+
+// The stream kernel's loop over one lane: s_max steps, step i recording
+// pos[i * stride] = the local zig-zag offset it wrote (-1: nothing) and
+// val[i * stride] = its coefficient (0 where pos is -1). Every step
+// stores, also once the lane has finished, so that the lanes of a warp
+// (stride = C, consecutive lanes) store whole rows together; nothing is
+// stored without `store`. row_done(i) runs after row i on every lane: the
+// kernel's block barrier, nothing on the host.
+template <class Window, class Table, class RowDone>
+__host__ __device__ __forceinline__ void stream_lane(
+    Window& window, const Table& table, int limit, int upm,
+    int min_code_bits, int s_max, LaneState& st, int32_t* pos, int32_t* val,
+    int64_t stride, bool store, RowDone row_done) {
+  for (int i = 0; i < s_max; ++i) {
+    int p = -1, v = 0;
+    const bool active = st.p < limit;
+    if (active) {
+      const int n = st.n;
+      const StepOut o =
+          symbol_step(window, table, limit, upm, min_code_bits, st);
+      if (!o.invalid) {
+        p = n + o.run_eff;
+        v = o.coef;
+      }
+    }
+    if (store) {
+      pos[i * stride] = p;
+      val[i * stride] = v;
+    }
+    row_done(i);
+  }
 }
 
 // The step from global memory: two word loads and the full LUTs. `rows` is

@@ -53,21 +53,14 @@
 
 namespace {
 
-constexpr int kUnits = 6;            // units of a thread's group
-constexpr int kThreadsPerGroup = 8;  // 8 samples each
-constexpr int kMaxStride = 6;        // units per MCU (bitstream.MAX_UPM)
-constexpr int kMaxGroups = 48;       // per tile
-constexpr int kMaxThreads = kMaxGroups * kThreadsPerGroup;  // 384
-constexpr int kXStride = 65;         // padded row of x
-constexpr int kSharedMatrices = 4;   // JPEG's quantization tables
+using rt::kMaxThreads;
+using rt::kThreadsPerGroup;
+using rt::kUnits;
+using rt::kXStride;
+using rt::groups_for;
 
-// Groups per tile: the most, up to kMaxGroups, that is a multiple of the
-// stride (whole blocks of kUnits * stride units) and fills whole warps.
-int groups_for(int stride) {
-  int groups = kMaxGroups - kMaxGroups % stride;
-  while ((groups * kThreadsPerGroup) % 32 != 0) groups -= stride;
-  return groups;
-}
+constexpr int kMaxStride = 6;        // units per MCU (bitstream.MAX_UPM)
+constexpr int kSharedMatrices = 4;   // JPEG's quantization tables
 
 // Shared memory: the matrices (when staged), then a tile's coefficients
 // as copied (int32) and their matrix ids, then the coefficients as f32 in
@@ -76,35 +69,6 @@ int shared_bytes(bool shared_m, int nq, int tile) {
   return (shared_m ? nq * 64 * 64 * (int)sizeof(float) : 0) +
          tile * 64 * (int)sizeof(int32_t) + tile * (int)sizeof(int32_t) +
          tile * kXStride * (int)sizeof(float) + tile * (int)sizeof(int);
-}
-
-__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void copy_async4(void* smem, const void* gmem) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(gmem));
-}
-
-// Start copying tile `t`'s coefficients and matrix ids into raw, raw_rows.
-__device__ __forceinline__ void fetch_tile(const int32_t* coeffs,
-                                           const int32_t* unit_mrow,
-                                           long long n_units, int tile,
-                                           long long t, int32_t* raw,
-                                           int32_t* raw_rows) {
-  const long long u0 = t * tile;
-  const int nu = (int)min((long long)tile, n_units - u0);
-  for (int i = threadIdx.x; i < nu * 16; i += blockDim.x) {
-    copy_async16(raw + i * 4, coeffs + u0 * 64 + i * 4);
-  }
-  for (int i = threadIdx.x; i < nu; i += blockDim.x) {
-    copy_async4(raw_rows + i, unit_mrow + u0 + i);
-  }
-  asm volatile("cp.async.commit_group;\n");
 }
 
 template <bool kSharedM>
@@ -122,7 +86,8 @@ idct_kernel(const int32_t* __restrict__ coeffs,
   int* rows = reinterpret_cast<int*>(xs + tile * kXStride);
   const long long n_tiles = (n_units + tile - 1) / tile;
   if (blockIdx.x < n_tiles) {
-    fetch_tile(coeffs, unit_mrow, n_units, tile, blockIdx.x, raw, raw_rows);
+    rt::fetch_tile(coeffs, unit_mrow, n_units, tile, blockIdx.x, raw,
+                   raw_rows);
   }
   const float* m = mt;
   if (kSharedM) {
@@ -139,35 +104,15 @@ idct_kernel(const int32_t* __restrict__ coeffs,
     const int nu = (int)min((long long)tile, n_units - u0);
     asm volatile("cp.async.wait_all;\n");
     __syncthreads();  // tile t has landed; the last tile's xs is free
-    for (int i = threadIdx.x; i < nu * 16; i += blockDim.x) {
-      const int4 v = reinterpret_cast<const int4*>(raw)[i];
-      float* x = xs + (i >> 4) * kXStride + (i & 15) * 4;
-      x[0] = (float)v.x;
-      x[1] = (float)v.y;
-      x[2] = (float)v.z;
-      x[3] = (float)v.w;
-    }
-    for (int i = threadIdx.x; i < nu; i += blockDim.x) rows[i] = raw_rows[i];
+    rt::convert_tile(raw, raw_rows, nu, xs, rows);
     __syncthreads();  // xs ready, raw free
     if (t + gridDim.x < n_tiles) {  // the next tile lands while this computes
-      fetch_tile(coeffs, unit_mrow, n_units, tile, t + gridDim.x, raw,
-                 raw_rows);
+      rt::fetch_tile(coeffs, unit_mrow, n_units, tile, t + gridDim.x, raw,
+                     raw_rows);
     }
     if (a < nu) {
-      // units past the tile's end compute on unit a and are not stored
-      const float* xu[kUnits];
-      const float* mqk[kUnits];
-      bool same_q = true;
-      const int q0 = rows[a];
-#pragma unroll
-      for (int i = 0; i < kUnits; ++i) {
-        const int u = a + i * stride < nu ? a + i * stride : a;
-        xu[i] = xs + u * kXStride;
-        mqk[i] = m + rows[u] * 4096 + k0;
-        same_q = same_q && rows[u] == q0;
-      }
       float s[kUnits][8];
-      rt::idct_group<kUnits>(xu, mqk, same_q, s);
+      rt::idct_tile_group(xs, rows, m, a, stride, nu, k0, s);
 #pragma unroll
       for (int i = 0; i < kUnits; ++i) {
         if (a + i * stride < nu) {

@@ -1,6 +1,7 @@
 // The folded IDCT of pixel samples: the shared bodies of the IDCT kernel
 // (idct.cu) and of the pixel kernel's first stage (pixels.cu), so that the
-// two compute the same value by construction.
+// two compute the same value by construction, and the tile staging both
+// kernels use.
 //
 // sample = clip(rint(sum_{j=0..63} x[j] * M[k][j] + 128), 0, 255), with M
 // read transposed, mt[q][j][k] = M_q[k][j] (made once per plan).
@@ -10,8 +11,8 @@
 // contract them into FMAs, and rintf rounds half to even like torch.round
 // and jnp.round (roundf would round half away from zero).
 //
-// idct_sample computes one sample k (mtk = &mt[q][0][k]; the pixel
-// kernel's threads take consecutive k, so a warp reads consecutive words).
+// idct_sample computes one sample k (mtk = &mt[q][0][k]; consecutive
+// threads take consecutive k, so a warp reads consecutive words).
 // idct_group computes a register tile: 8 samples, k0..k0+3 and
 // k0+32..k0+35, of each of U units. Every sample has its own accumulator,
 // summed over j = 0..63 in order with the same intrinsics and the same
@@ -20,6 +21,8 @@
 // for 8U multiplies and 8U adds; when the U units share one matrix it
 // reads M once for all of them, else once per unit.
 #pragma once
+
+#include <stdint.h>
 
 namespace rt {
 
@@ -92,6 +95,97 @@ __device__ __forceinline__ void idct_group(const float* const (&xu)[U],
 #pragma unroll
     for (int r = 0; r < 8; ++r) out[i][r] = idct_round(acc[i][r]);
   }
+}
+
+// -- a tile of units, as the IDCT and pixel kernels stage and compute it --
+//
+// A thread group of kThreadsPerGroup threads computes kUnits units that lie
+// `stride` units apart (idct_group): group g of a tile takes units
+// a + i * stride, i < kUnits, a = (g / stride) * kUnits * stride +
+// g % stride, and thread t of the group samples k0 = 4 t .. +3 and
+// k0 + 32 .. +35. A tile of groups * kUnits units (groups a multiple of
+// stride) is then covered once. The tile's coefficients are copied with
+// cp.async (fetch_tile) and converted to f32 rows of kXStride floats
+// (convert_tile), padded so that the groups of a warp read distinct banks.
+
+constexpr int kUnits = 6;            // units of a thread's group
+constexpr int kThreadsPerGroup = 8;  // 8 samples each
+constexpr int kMaxGroups = 48;       // per tile
+constexpr int kMaxThreads = kMaxGroups * kThreadsPerGroup;  // 384
+constexpr int kXStride = 65;         // padded row of x
+
+// Groups per tile: the most, up to kMaxGroups, that is a multiple of the
+// stride (whole blocks of kUnits * stride units) and fills whole warps.
+inline int groups_for(int stride) {
+  int groups = kMaxGroups - kMaxGroups % stride;
+  while ((groups * kThreadsPerGroup) % 32 != 0) groups -= stride;
+  return groups;
+}
+
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void copy_async4(void* smem, const void* gmem) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+// Start copying tile `t`'s coefficients and matrix ids into raw, raw_rows.
+__device__ __forceinline__ void fetch_tile(const int32_t* coeffs,
+                                           const int32_t* unit_mrow,
+                                           long long n_units, int tile,
+                                           long long t, int32_t* raw,
+                                           int32_t* raw_rows) {
+  const long long u0 = t * tile;
+  const int nu = (int)min((long long)tile, n_units - u0);
+  for (int i = threadIdx.x; i < nu * 16; i += blockDim.x) {
+    copy_async16(raw + i * 4, coeffs + u0 * 64 + i * 4);
+  }
+  for (int i = threadIdx.x; i < nu; i += blockDim.x) {
+    copy_async4(raw_rows + i, unit_mrow + u0 + i);
+  }
+  asm volatile("cp.async.commit_group;\n");
+}
+
+// The landed tile's nu units as f32 rows of kXStride, and their ids.
+__device__ __forceinline__ void convert_tile(const int32_t* raw,
+                                             const int32_t* raw_rows, int nu,
+                                             float* xs, int* rows) {
+  for (int i = threadIdx.x; i < nu * 16; i += blockDim.x) {
+    const int4 v = reinterpret_cast<const int4*>(raw)[i];
+    float* x = xs + (i >> 4) * kXStride + (i & 15) * 4;
+    x[0] = (float)v.x;
+    x[1] = (float)v.y;
+    x[2] = (float)v.z;
+    x[3] = (float)v.w;
+  }
+  for (int i = threadIdx.x; i < nu; i += blockDim.x) rows[i] = raw_rows[i];
+}
+
+// The samples of group unit a's kUnits units (a < nu) from the converted
+// tile; m: the matrices (shared or global). Units past the tile's end
+// compute on unit a; the caller does not store them.
+__device__ __forceinline__ void idct_tile_group(const float* xs,
+                                                const int* rows,
+                                                const float* m, int a,
+                                                int stride, int nu, int k0,
+                                                float (&s)[kUnits][8]) {
+  const float* xu[kUnits];
+  const float* mqk[kUnits];
+  bool same_q = true;
+  const int q0 = rows[a];
+#pragma unroll
+  for (int i = 0; i < kUnits; ++i) {
+    const int u = a + i * stride < nu ? a + i * stride : a;
+    xu[i] = xs + u * kXStride;
+    mqk[i] = m + rows[u] * 4096 + k0;
+    same_q = same_q && rows[u] == q0;
+  }
+  idct_group<kUnits>(xu, mqk, same_q, s);
 }
 
 }  // namespace rt

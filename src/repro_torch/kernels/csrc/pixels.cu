@@ -7,150 +7,350 @@
 // assembly, replicate chroma upsample and BT.601 color convert. The
 // intermediate unit pixels and YCbCr planes live only in shared memory.
 //
-// What bounds it on this card: it sits at the f32 ridge. Per 4:2:0 MCU it
-// reads 6*64 int32 coefficients (1536 B) and writes 16*16*3 uint8 (768 B),
-// and does 6*64*64 multiply-adds (49 kFLOP): about 21 FLOP per byte,
-// against a ridge of 20 (67 TFLOP/s f32 over 3.35 TB/s). The products run
-// as plain f32 instructions, not on the tensor cores, and as a separate
-// multiply and add (see below), which halves the f32 peak; no library is
-// called.
+// What bounds it on this card: the f32 pipes, as for the IDCT kernel
+// (idct.cu). Per 4:2:0 MCU it reads 6*64 int32 coefficients (1536 B) and
+// writes 16*16*3 uint8 (768 B), and does 6*64*64 multiply-adds. Bit parity
+// with the plain version (core/decode.folded_product and ycbcr_to_rgb)
+// rules out FMA contraction, TF32 and tensor cores, so each multiply-add is
+// a separate f32 multiply and add: two instructions a lane a clock, twice
+// the f32 FMA bound. No library is called.
 //
-// Design:
-//   * one block per tile of whole MCUs; the block stages the tile's
-//     coefficients (as f32) and each unit's matrix row id in shared memory;
-//   * each thread computes output samples as 64-term dot products, with
-//     M read transposed (mt[q][j][k], made once per plan) so that the
-//     threads of a warp, which take consecutive k, read consecutive words;
-//   * the TPU kernel's two-unit pairing (to fill a 128-wide matrix unit)
-//     is gone;
-//   * bit-exact with the plain version (core/decode.folded_product and
-//     ycbcr_to_rgb): each sum runs over j = 0..63 in order, and every
-//     multiply and add is written as __fmul_rn / __fadd_rn so that nvcc
-//     does not contract them into FMAs; rintf rounds half to even like
-//     torch.round and jnp.round (roundf would round half away from zero).
-//     The IDCT sample is idct.cuh's, shared with the IDCT kernel.
+// Design: the IDCT kernel's, with a color stage behind it.
+//   * First stage: the register tile of idct.cuh (idct_tile_group), 6
+//     units x 8 samples a thread, over units one MCU apart (stride = the
+//     units per MCU), which share a matrix; the folded matrices staged in
+//     shared memory when NQ <= kSharedMatrices, else read through L1; each
+//     tile's coefficients copied with cp.async while the tile before is
+//     computed. A tile is whole MCUs (groups * 6 units, groups a multiple
+//     of the units per MCU). Every sample is rt::idct_sample's: the sum
+//     runs over j = 0..63 in order with __fmul_rn / __fadd_rn, and rintf
+//     rounds half to even like torch.round.
+//   * The unit pixels, exact integers in 0..255, are kept in shared memory
+//     as uint8 (a quarter of f32's room), 4 samples a 32-bit store.
+//   * Second stage: each thread takes 16 consecutive output pixels of an
+//     MCU (its chunk; the same chunk of every MCU it visits), as two runs
+//     of 8 pixels in one output row. A run reads one 8-sample unit row of
+//     each component (pixels.cuh: row_source, col_source) as one 8-byte
+//     load, with no integer division: the mapping folds into shifts for
+//     the layouts with a kernel of their own (4:2:0, 4:2:2, 4:4:4) and is
+//     a multiply and a shift for the generic one. The color arithmetic is
+//     ycbcr_to_rgb's, in its order, each multiply and add rounded on its
+//     own. The chunk's 48 bytes go out as three 16-byte stores: a tile's
+//     MCUs are contiguous in `out`, and a chunk starts at a multiple of 48
+//     bytes.
 //
 // Output: (n_mcus, 8*v_max, 8*h_max, 3) uint8; the wrapper reshapes and
 // crops it to (B, H, W, 3).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "idct.cuh"
+#include "pixels.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using rt::kMaxThreads;
+using rt::kThreadsPerGroup;
+using rt::kUnits;
+using rt::kXStride;
+using rt::McuLayout;
 
-struct Geometry {
-  int upm;           // data units per MCU
-  int comp_h[3];
-  int comp_v[3];
-  int comp_off[3];   // first unit of each component within the MCU
-  int h_max, v_max;
-};
+constexpr int kMaxUpm = 6;          // units per MCU (bitstream.MAX_UPM)
+// matrices staged in shared memory: with the uint8 unit pixels, four would
+// pass the 227 KB a block may have at the largest tile
+constexpr int kSharedMatrices = 3;
 
-__device__ __forceinline__ float sample(const float* px, const Geometry& g,
-                                        int m, int ci, int y, int x) {
-  // replicate upsample: full-resolution (y, x) -> component sample
-  const int ys = y / (g.v_max / g.comp_v[ci]);
-  const int xs = x / (g.h_max / g.comp_h[ci]);
-  const int unit = g.comp_off[ci] + (ys >> 3) * g.comp_h[ci] + (xs >> 3);
-  return px[(m * g.upm + unit) * 64 + (ys & 7) * 8 + (xs & 7)];
+// Shared memory: the matrices (when staged), a tile's coefficients as
+// copied (int32) and their matrix ids, the coefficients as f32 in padded
+// rows and the ids, then the unit pixels (uint8). Every part is a multiple
+// of 8 bytes (a tile is a multiple of 6 units), so the unit pixels' rows
+// are 8-byte aligned.
+int shared_bytes(bool shared_m, int nq, int tile) {
+  return (shared_m ? nq * 64 * 64 * (int)sizeof(float) : 0) +
+         tile * 64 * (int)sizeof(int32_t) + tile * (int)sizeof(int32_t) +
+         tile * kXStride * (int)sizeof(float) + tile * (int)sizeof(int) +
+         tile * 64;
 }
 
-__device__ __forceinline__ uint8_t to_u8(float v) {
-  return (uint8_t)fminf(fmaxf(rintf(v), 0.f), 255.f);
+int tile_units(int upm) { return rt::groups_for(upm) * kUnits; }
+
+__device__ __forceinline__ uint32_t to_u8(float v) {
+  return (uint32_t)fminf(fmaxf(rintf(v), 0.f), 255.f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-pixels_kernel(const int32_t* __restrict__ coeffs,
-              const float* __restrict__ mt,         // (NQ, 64 j, 64 k)
-              const int32_t* __restrict__ unit_mrow,
-              uint8_t* __restrict__ out, Geometry g, int n_mcus,
-              int tile_m) {
-  extern __shared__ float smem[];
-  const int m0 = blockIdx.x * tile_m;
-  const int tm = min(tile_m, n_mcus - m0);
-  const int nu = tm * g.upm;
-  float* xs = smem;                          // (nu, 64) coefficients
-  float* px = xs + tile_m * g.upm * 64;      // (nu, 64) unit pixels
-  int* rows = reinterpret_cast<int*>(px + tile_m * g.upm * 64);
+// Four samples (integers in 0..255) as the bytes of one word.
+__device__ __forceinline__ uint32_t pack4(float a, float b, float c,
+                                          float d) {
+  return __float2uint_rz(a) | __float2uint_rz(b) << 8 |
+         __float2uint_rz(c) << 16 | __float2uint_rz(d) << 24;
+}
 
-  const int64_t u0 = (int64_t)m0 * g.upm;
-  for (int i = threadIdx.x; i < nu * 64; i += blockDim.x) {
-    xs[i] = (float)coeffs[u0 * 64 + i];
-  }
-  for (int i = threadIdx.x; i < nu; i += blockDim.x) {
-    rows[i] = unit_mrow[u0 + i];
-  }
-  __syncthreads();
+// Byte `col` of an 8-sample row.
+__device__ __forceinline__ float byte_of(unsigned long long row, int col) {
+  return (float)(uint32_t)((row >> (8 * col)) & 0xFFu);
+}
 
-  // IDCT: px[u, k] = clip(rint(sum_j x[u, j] * M[q_u][k, j] + 128), 0, 255)
-  for (int i = threadIdx.x; i < nu * 64; i += blockDim.x) {
-    const int u = i >> 6, k = i & 63;
-    px[i] = rt::idct_sample(xs + u * 64, mt + (int64_t)rows[u] * 4096 + k);
+// One run of 8 output pixels (y, x0..x0+7) of an MCU whose unit pixels
+// are `px`, as 24 RGB bytes into words w[12] from byte `b0` (0 or 24).
+template <int kB0>
+__device__ __forceinline__ void color_run(const McuLayout& l,
+                                          const uint8_t* px, int y, int x0,
+                                          uint32_t (&w)[12]) {
+  unsigned long long row[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    row[c] = *reinterpret_cast<const unsigned long long*>(
+        px + rt::row_source(l, c, y, x0));
   }
-  __syncthreads();
-
-  // plane assembly + replicate upsample + color, one output pixel each
-  const int mh = 8 * g.v_max, mw = 8 * g.h_max;
   const float c_r = (float)1.402, c_gb = (float)0.344136286,
               c_gr = (float)0.714136286, c_b = (float)1.772;
-  for (int i = threadIdx.x; i < tm * mh * mw; i += blockDim.x) {
-    const int m = i / (mh * mw);
-    const int y = (i / mw) % mh, x = i % mw;
-    const float Y = sample(px, g, m, 0, y, x);
-    const float cb = __fsub_rn(sample(px, g, m, 1, y, x), 128.f);
-    const float cr = __fsub_rn(sample(px, g, m, 2, y, x), 128.f);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int x = x0 + i;
+    const float Y = byte_of(row[0], rt::col_source(l, 0, x));
+    const float cb = __fsub_rn(byte_of(row[1], rt::col_source(l, 1, x)),
+                               128.f);
+    const float cr = __fsub_rn(byte_of(row[2], rt::col_source(l, 2, x)),
+                               128.f);
     const float r = __fadd_rn(Y, __fmul_rn(cr, c_r));
-    const float gg = __fsub_rn(__fsub_rn(Y, __fmul_rn(cb, c_gb)),
-                               __fmul_rn(cr, c_gr));
+    const float g = __fsub_rn(__fsub_rn(Y, __fmul_rn(cb, c_gb)),
+                              __fmul_rn(cr, c_gr));
     const float b = __fadd_rn(Y, __fmul_rn(cb, c_b));
-    uint8_t* o = out + ((int64_t)(m0 + m) * mh * mw + y * mw + x) * 3;
-    o[0] = to_u8(r);
-    o[1] = to_u8(gg);
-    o[2] = to_u8(b);
+    const uint32_t rgb[3] = {to_u8(r), to_u8(g), to_u8(b)};
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const int byte = kB0 + 3 * i + ch;
+      w[byte >> 2] |= rgb[ch] << (8 * (byte & 3));
+    }
   }
+}
+
+template <bool kSharedM, int kKind>
+__global__ void __launch_bounds__(kMaxThreads)
+pixels_kernel(const int32_t* __restrict__ coeffs,
+              const float* __restrict__ mt,  // (NQ, 64 j, 64 k)
+              int nq, const int32_t* __restrict__ unit_mrow,
+              uint8_t* __restrict__ out, McuLayout layout, long long n_mcus,
+              int tile_mcus) {
+  // a standard layout is a constant, so its mapping folds into shifts
+  constexpr McuLayout kFixed =
+      rt::standard_layout(kKind == rt::kGeneric ? rt::k444 : kKind);
+  const McuLayout l = kKind == rt::kGeneric ? layout : kFixed;
+  extern __shared__ __align__(16) float smem[];
+  const int tile = tile_mcus * l.upm;  // units
+  float* ms = smem;
+  int32_t* raw = reinterpret_cast<int32_t*>(smem + (kSharedM ? nq * 4096 : 0));
+  int32_t* raw_rows = raw + tile * 64;
+  float* xs = reinterpret_cast<float*>(raw_rows + tile);
+  int* rows = reinterpret_cast<int*>(xs + tile * kXStride);
+  uint8_t* px = reinterpret_cast<uint8_t*>(rows + tile);
+  const long long n_units = n_mcus * l.upm;
+  const long long n_tiles = (n_mcus + tile_mcus - 1) / tile_mcus;
+  if (blockIdx.x < n_tiles) {
+    rt::fetch_tile(coeffs, unit_mrow, n_units, tile, blockIdx.x, raw,
+                   raw_rows);
+  }
+  const float* m = mt;
+  if (kSharedM) {
+    const float4* src = reinterpret_cast<const float4*>(mt);
+    float4* dst = reinterpret_cast<float4*>(ms);
+    for (int i = threadIdx.x; i < nq * 1024; i += blockDim.x) dst[i] = src[i];
+    m = ms;  // the first tile's barrier orders these stores
+  }
+  // first stage: group g's units a + i * upm
+  const int g = threadIdx.x / kThreadsPerGroup;
+  const int k0 = (threadIdx.x % kThreadsPerGroup) * 4;
+  const int a = (g / l.upm) * kUnits * l.upm + g % l.upm;
+  // second stage: chunk c (16 pixels) of MCUs mc, mc + mstep, ...; its two
+  // runs start at pixels 16 c and 16 c + 8 of the MCU, row-major
+  const int mw = 8 * l.h_max;
+  const int cpm = 4 * l.h_max * l.v_max;  // chunks per MCU
+  const int mstep = blockDim.x / cpm;
+  const int mc = threadIdx.x / cpm, c = threadIdx.x % cpm;
+  const int y0 = 16 * c / mw, x0 = 16 * c % mw;
+  const int y1 = (16 * c + 8) / mw, x1 = (16 * c + 8) % mw;
+  const int mcu_bytes = 8 * l.v_max * mw * 3;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long m0 = t * tile_mcus;
+    const int tm = (int)min((long long)tile_mcus, n_mcus - m0);
+    const int nu = tm * l.upm;
+    asm volatile("cp.async.wait_all;\n");
+    __syncthreads();  // tile t has landed; xs and px are free
+    rt::convert_tile(raw, raw_rows, nu, xs, rows);
+    __syncthreads();  // xs ready, raw free
+    if (t + gridDim.x < n_tiles) {  // the next tile lands while this computes
+      rt::fetch_tile(coeffs, unit_mrow, n_units, tile, t + gridDim.x, raw,
+                     raw_rows);
+    }
+    if (a < nu) {
+      float s[kUnits][8];
+      rt::idct_tile_group(xs, rows, m, a, l.upm, nu, k0, s);
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i) {
+        if (a + i * l.upm < nu) {
+          uint32_t* dst =
+              reinterpret_cast<uint32_t*>(px + (a + i * l.upm) * 64 + k0);
+          dst[0] = pack4(s[i][0], s[i][1], s[i][2], s[i][3]);
+          dst[8] = pack4(s[i][4], s[i][5], s[i][6], s[i][7]);  // k0 + 32
+        }
+      }
+    }
+    __syncthreads();  // the tile's unit pixels are ready
+    if (mc < mstep) {
+      for (int mm = mc; mm < tm; mm += mstep) {
+        const uint8_t* pm = px + mm * l.upm * 64;
+        uint32_t w[12] = {};
+        color_run<0>(l, pm, y0, x0, w);
+        color_run<24>(l, pm, y1, x1, w);
+        uint4* dst = reinterpret_cast<uint4*>(
+            out + (m0 + mm) * mcu_bytes + 48 * c);
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+        dst[2] = make_uint4(w[8], w[9], w[10], w[11]);
+      }
+    }
+  }
+}
+
+// The blocks that fit the card at once (SMs x blocks an SM) for a kernel
+// form, device, layout and NQ, worked out at the first launch of each and
+// kept, with the shared-memory opt-in (once per form and device, to the
+// most any layout and NQ <= kSharedMatrices take): host calls whose
+// answers do not change.
+constexpr int kMaxDevices = 64;
+
+template <bool kSharedM, int kKind>
+cudaError_t resident_blocks(int upm, int nq, int* slots) {
+  static std::mutex mu;
+  static bool opted_in[kMaxDevices];
+  static int cache[kMaxDevices][kMaxUpm + 1][kSharedMatrices + 1];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  const int q = kSharedM ? nq : 0;  // the global form's bytes ignore NQ
+  std::lock_guard<std::mutex> lock(mu);
+  int& cached = cache[device][upm][q];
+  if (cached > 0) {
+    *slots = cached;
+    return cudaSuccess;
+  }
+  auto kernel = pixels_kernel<kSharedM, kKind>;
+  if (!opted_in[device]) {
+    int most = 0;
+    for (int u = 3; u <= kMaxUpm; ++u) {
+      const int b = shared_bytes(kSharedM, kSharedMatrices, tile_units(u));
+      most = b > most ? b : most;
+    }
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    opted_in[device] = true;
+  }
+  const int threads = rt::groups_for(upm) * kThreadsPerGroup;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, shared_bytes(kSharedM, q, tile_units(upm)));
+  }
+  if (err != cudaSuccess) return err;
+  *slots = cached = sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+template <bool kSharedM, int kKind>
+cudaError_t launch(const int32_t* coeffs, const float* mt, int nq,
+                   const int32_t* unit_mrow, uint8_t* out,
+                   const McuLayout& l, long long n_mcus,
+                   cudaStream_t stream) {
+  const int tile = tile_units(l.upm);
+  const int tile_mcus = tile / l.upm;
+  int slots = 0;
+  const cudaError_t err = resident_blocks<kSharedM, kKind>(l.upm, nq, &slots);
+  if (err != cudaSuccess) return err;
+  const long long n_tiles = (n_mcus + tile_mcus - 1) / tile_mcus;
+  const int blocks = (int)(n_tiles < slots ? n_tiles : slots);
+  pixels_kernel<kSharedM, kKind>
+      <<<blocks, rt::groups_for(l.upm) * kThreadsPerGroup,
+         shared_bytes(kSharedM, nq, tile), stream>>>(
+          coeffs, mt, nq, unit_mrow, out, l, n_mcus, tile_mcus);
+  return cudaGetLastError();
+}
+
+template <int kKind>
+cudaError_t launch_kind(const int32_t* coeffs, const float* mt, int nq,
+                        const int32_t* unit_mrow, uint8_t* out,
+                        const McuLayout& l, long long n_mcus,
+                        cudaStream_t stream) {
+  return nq <= kSharedMatrices
+             ? launch<true, kKind>(coeffs, mt, nq, unit_mrow, out, l, n_mcus,
+                                   stream)
+             : launch<false, kKind>(coeffs, mt, nq, unit_mrow, out, l,
+                                    n_mcus, stream);
+}
+
+bool same_layout(const McuLayout& a, const McuLayout& b) {
+  for (int c = 0; c < 3; ++c) {
+    if (a.comp_h[c] != b.comp_h[c] || a.comp_off[c] != b.comp_off[c] ||
+        a.recip_h[c] != b.recip_h[c] || a.recip_v[c] != b.recip_v[c]) {
+      return false;
+    }
+  }
+  return a.upm == b.upm && a.h_max == b.h_max && a.v_max == b.v_max;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory a block of `tile_m` MCUs needs.
-long long rt_pixels_smem_bytes(int tile_m, int upm) {
-  return (long long)tile_m * upm * (2 * 64 * sizeof(float) + sizeof(int));
+// MCUs per tile of a layout with `upm` units per MCU, for the tests of a
+// partial last tile.
+int rt_pixels_tile_mcus(int upm) {
+  if (upm < 3 || upm > kMaxUpm) return -1;
+  return tile_units(upm) / upm;
 }
 
-int rt_fused_pixels(const void* coeffs, const void* mt, const void* unit_mrow,
-                    void* out, int n_mcus, int upm, const int* comp_h,
-                    const int* comp_v, int h_max, int v_max, int tile_m,
-                    void* stream) {
+// comp_h, comp_v: the three components' sampling factors; each must divide
+// the largest, and the units per MCU be at most 6.
+int rt_fused_pixels(const void* coeffs, const void* mt, int nq,
+                    const void* unit_mrow, void* out, long long n_mcus,
+                    const int* comp_h, const int* comp_v, void* stream) {
   if (n_mcus <= 0) return cudaSuccess;
-  Geometry g;
-  g.upm = upm;
-  int off = 0;
+  // the factors are checked before make_layout divides by them
+  int h_max = 0, v_max = 0, upm = 0;
   for (int c = 0; c < 3; ++c) {
-    g.comp_h[c] = comp_h[c];
-    g.comp_v[c] = comp_v[c];
-    g.comp_off[c] = off;
-    off += comp_h[c] * comp_v[c];
+    if (comp_h[c] < 1 || comp_v[c] < 1 || comp_h[c] > kMaxUpm ||
+        comp_v[c] > kMaxUpm) {
+      return cudaErrorInvalidValue;
+    }
+    h_max = comp_h[c] > h_max ? comp_h[c] : h_max;
+    v_max = comp_v[c] > v_max ? comp_v[c] : v_max;
+    upm += comp_h[c] * comp_v[c];
   }
-  g.h_max = h_max;
-  g.v_max = v_max;
-  const long long smem = rt_pixels_smem_bytes(tile_m, upm);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pixels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+  for (int c = 0; c < 3; ++c) {
+    if (h_max % comp_h[c] || v_max % comp_v[c]) return cudaErrorInvalidValue;
   }
-  const int blocks = (n_mcus + tile_m - 1) / tile_m;
-  pixels_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(coeffs), static_cast<const float*>(mt),
-      static_cast<const int32_t*>(unit_mrow), static_cast<uint8_t*>(out), g,
-      n_mcus, tile_m);
-  return cudaGetLastError();
+  if (upm > kMaxUpm || nq < 1) return cudaErrorInvalidValue;
+  const McuLayout l = rt::make_layout(comp_h[0], comp_v[0], comp_h[1],
+                                      comp_v[1], comp_h[2], comp_v[2]);
+  auto c = static_cast<const int32_t*>(coeffs);
+  auto m = static_cast<const float*>(mt);
+  auto r = static_cast<const int32_t*>(unit_mrow);
+  auto o = static_cast<uint8_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (same_layout(l, rt::standard_layout(rt::k420))) {
+    return launch_kind<rt::k420>(c, m, nq, r, o, l, n_mcus, s);
+  }
+  if (same_layout(l, rt::standard_layout(rt::k422))) {
+    return launch_kind<rt::k422>(c, m, nq, r, o, l, n_mcus, s);
+  }
+  if (same_layout(l, rt::standard_layout(rt::k444))) {
+    return launch_kind<rt::k444>(c, m, nq, r, o, l, n_mcus, s);
+  }
+  return launch_kind<rt::kGeneric>(c, m, nq, r, o, l, n_mcus, s);
 }
 
 }  // extern "C"

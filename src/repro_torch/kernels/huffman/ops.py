@@ -9,10 +9,10 @@ per symbol step, the local zig-zag offset and the coefficient, which
 tensors on the CPU and otherwise launches the kernel or raises.
 
 Operands: ``dev`` holds ``words`` (int32 bits of the uint32 words),
-``luts`` and ``unit_lut_row``, and for the exit kernel its compact
-tables ``luts_compact`` and ``unit_lut_off`` (:func:`exit_tables`, added
-once per plan by ``core.api.ParallelDecoder`` on the kernel backend);
-``meta`` is
+``luts`` and ``unit_lut_row``, and for the exit and stream kernels their
+compact tables ``luts_compact`` and ``unit_lut_off`` (:func:`exit_tables`,
+added once per plan by ``core.api.ParallelDecoder`` on the kernel
+backend); ``meta`` is
 ``core.decode.chunk_meta(dev)`` (per-lane ``word_base``, ``limit``,
 ``ts``, ``upm``); ``entry`` is the lanes' entry state.
 """
@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ...core import decode as D
+from ...core.contracts import INT32_MAX
 from ...core.state import DecodeState
 from .. import build as B
 
@@ -33,15 +34,17 @@ _LANE_ARGS = [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP]
 _SIGNATURES = {
     "rt_decode_exits": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 11 + [_I] * 4
     + [_VP],
-    "rt_decode_streams": _LANE_ARGS + [_VP] * 2 + [_I, _I, _I, _VP],
+    "rt_decode_streams": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 9
+    + [_I] * 4 + [_VP],
     "rt_decode_store": _LANE_ARGS + [_VP] * 3 + [_LL, _I, _I, _I, _VP],
 }
 
-# The shared memory the exit kernel may give its tables (bytes). The four
-# standard tables of a color batch take about 7 KB; at its 256 threads a
-# block the registers let an SM hold 8 blocks, and 8 x 24 KB still fits its
-# 228 KB of shared memory, so tables within the budget cost no occupancy.
-# Larger tables are read from global memory by the same kernel.
+# The shared memory the exit and stream kernels may give their tables
+# (bytes). The four standard tables of a color batch take about 7 KB; the
+# registers let an SM hold 8 exit-kernel blocks of 256 threads (2 stream
+# blocks of 1024), and 8 x 24 KB still fits its 228 KB of shared memory,
+# so tables within the budget cost no occupancy. Larger tables are read
+# from global memory by the same kernel.
 EXIT_SMEM_BUDGET = 24 * 1024
 
 # compact tables: the window's top 9 bits index a row's primary table; a
@@ -124,7 +127,7 @@ def _checked_ptrs(words: torch.Tensor, tables: list, dtypes: list,
 
 
 def lane_args(dev: Dev, meta: Dev, entry: DecodeState) -> list:
-    """The stream and store kernels' operands, checked, as C arguments."""
+    """The store kernel's operands, checked, as C arguments."""
     words, luts, rows = dev["words"], dev["luts"], dev["unit_lut_row"]
     tables, lane = _checked_ptrs(words, [luts, rows], [torch.int32] * 2,
                                  meta, entry)
@@ -134,11 +137,12 @@ def lane_args(dev: Dev, meta: Dev, entry: DecodeState) -> list:
 
 
 def exit_args(dev: Dev, meta: Dev, entry: DecodeState) -> list:
-    """The exit kernel's operands, checked, as C arguments: its compact
-    tables in place of the LUTs."""
+    """The exit and stream kernels' operands, checked, as C arguments:
+    their compact tables in place of the LUTs."""
     if "luts_compact" not in dev:
-        raise ValueError("the exit kernel needs its compact tables: add "
-                         "exit_tables(dev) to the plan's tensors once")
+        raise ValueError("the exit and stream kernels need their compact "
+                         "tables: add exit_tables(dev) to the plan's "
+                         "tensors once")
     words, tab, off = dev["words"], dev["luts_compact"], dev["unit_lut_off"]
     (tab_p, off_p), lane = _checked_ptrs(
         words, [tab, off], [torch.int16, torch.int32], meta, entry)
@@ -151,8 +155,8 @@ def exit_args(dev: Dev, meta: Dev, entry: DecodeState) -> list:
 
 
 def exit_table_bytes(dev: Dev) -> int:
-    """Shared memory the exit kernel's tables take: compact tables and
-    row starts."""
+    """Shared memory the exit and stream kernels' tables take: compact
+    tables and row starts."""
     return 2 * dev["luts_compact"].numel() + 4 * dev["unit_lut_off"].numel()
 
 
@@ -249,21 +253,36 @@ def decode_streams_plain(dev: Dev, meta: Dev, entry: DecodeState, *,
     return torch.stack(pos), torch.stack(val)
 
 
+def run_stream_kernel(dev: Dev, meta: Dev, entry: DecodeState, *,
+                      s_max: int, min_code_bits: int, smem_budget: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the stream kernel (``rt_decode_streams``), uncounted.
+
+    Its tables go to shared memory when :func:`exit_table_bytes` is at
+    most ``smem_budget``, else the kernel reads them from global memory.
+    :func:`decode_streams` passes ``EXIT_SMEM_BUDGET``.
+    """
+    args = exit_args(dev, meta, entry)
+    c = entry.p.shape[0]
+    pos = torch.empty((s_max, c), dtype=torch.int32, device=entry.p.device)
+    val = torch.empty_like(pos)
+    B.check(kernel_fn("rt_decode_streams")(
+        *args, B.ptr(pos), B.ptr(val), c, s_max, min_code_bits, smem_budget,
+        B.stream_of(pos)), "rt_decode_streams")
+    return pos, val
+
+
 def decode_streams(dev: Dev, meta: Dev, entry: DecodeState, *, s_max: int,
                    min_code_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`decode_streams_plain`, by the stream kernel on the card."""
     if dev["words"].device.type == "cpu":
         return decode_streams_plain(dev, meta, entry, s_max=s_max,
                                     min_code_bits=min_code_bits)
-    args = lane_args(dev, meta, entry)
-    c = entry.p.shape[0]
-    pos = torch.empty((s_max, c), dtype=torch.int32, device=entry.p.device)
-    val = torch.empty_like(pos)
-    B.check(kernel_fn("rt_decode_streams")(
-        *args, B.ptr(pos), B.ptr(val), c, s_max, min_code_bits,
-        B.stream_of(pos)), "rt_decode_streams")
+    out = run_stream_kernel(dev, meta, entry, s_max=s_max,
+                            min_code_bits=min_code_bits,
+                            smem_budget=EXIT_SMEM_BUDGET)
     decode_streams.launches += 1
-    return pos, val
+    return out
 
 
 decode_streams.launches = 0
@@ -276,13 +295,22 @@ def scatter_streams(pos: torch.Tensor, val: torch.Tensor,
     and the target is within the lane's clamp ``write_max``.
 
     Targets are unique by construction (positions strictly increase within
-    a lane; lanes own disjoint ranges), and every dropped write goes to one
-    sentinel slot past the end that is sliced off.
+    a lane; lanes own disjoint ranges). A dropped write of lane ``j`` goes
+    to its own sentinel slot ``n_coef + j`` past the end, sliced off, so
+    that the dropped writes of a warp's consecutive lanes fall on
+    consecutive words instead of all on one. The target is computed once,
+    in int32 where ``n_coef + C`` fits (the planner keeps ``write_base +
+    pos`` within int32 for every recorded step: ``contracts.
+    checked_coeff_capacity``); ``index_put`` widens it to int64 itself,
+    which measured cheaper than computing it in int64 (PERF.md).
     """
-    tgt = write_base[None, :].to(torch.int64) + pos
-    ok = (pos >= 0) & (tgt <= write_max[None, :])
-    tgt = torch.where(ok, tgt, n_coef)
-    out = torch.zeros(n_coef + 1, dtype=torch.int32, device=pos.device)
+    c = pos.shape[1]
+    dt = torch.int32 if n_coef + c <= INT32_MAX else torch.int64
+    base = write_base.to(dt)
+    room = (write_max - write_base).to(dt)  # the last in-range pos
+    sentinel = torch.arange(n_coef, n_coef + c, dtype=dt, device=pos.device)
+    tgt = torch.where((pos >= 0) & (pos <= room), pos + base, sentinel)
+    out = torch.zeros(n_coef + c, dtype=torch.int32, device=pos.device)
     out[tgt.reshape(-1)] = val.reshape(-1)
     return out[:n_coef]
 

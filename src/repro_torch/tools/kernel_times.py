@@ -5,7 +5,8 @@ Run as a file from the root of a checkout, on a machine with one card::
 
     python3 src/repro_torch/tools/kernel_times.py \\
         --tree parent=build/parent/src --tree change=src \\
-        --exit-threads 128,256,512
+        [--exit-threads 128,256,512] [--scatter-parts] \\
+        [--stream-variants "kStreamThreads=256;kStreamBarrierRows=8"]
 
 Each ``--tree LABEL=DIR`` loads ``DIR/repro_torch`` under a name of its
 own (its kernels build into that checkout's ``build/``), plans the same
@@ -13,10 +14,12 @@ batch as ``chip_smoke.py`` (the ``newyork`` setting: 32 x 1920x1080 4:2:0
 q95, chunk_bits 1024, from ``--seed``) and times every kernel on the same
 inputs as ``chip_smoke.py``'s phase 2: the exit kernel on the converged
 entries (all lanes, and the ``idx`` form at a seeded random half; where
-the tree's exit kernel has a global-table form, that too), the
-stream and store kernels, the fused pixel kernel, the IDCT kernel (with
-the batch's layout hint where the tree's wrapper takes one), its library
-yardstick (``torch.matmul``, TF32 off) and the color kernel. Every time is
+the tree's exit or stream kernel has a global-table form, that too), the
+stream and store kernels, the torch scatter after the stream kernel
+(``scatter_streams``, on the tree's own streams), the fused pixel
+kernel, the IDCT kernel (with the batch's layout hint where the tree's
+wrapper takes one), its library yardstick (``torch.matmul``, TF32 off)
+and the color kernel. Every time is
 ``chip_smoke.event_ms``'s (the card spins before each call, so the
 wrapper's host time is not counted), and the trees take turns call by
 call, so that a drift of the card's clock falls on all of them alike.
@@ -26,6 +29,12 @@ Each kernel must give the same output in every tree.
 per block size, with ``kExitThreads`` set to it, times each build's exit
 kernel in the same turns (tables in shared memory) and prints the blocks
 an SM holds at that size (the CUDA occupancy calculator).
+``--stream-variants`` does the same for the stream kernel, one build per
+';'-separated spec of other values of constants of ``huffman.cu`` (say
+``kStreamThreads=512,kStreamBarrierRows=4``), and times a plain fill of
+the streams' bytes beside them. ``--scatter-parts`` profiles one call of
+each tree's scatter, printing its device time by kernel: the elementwise
+passes and the ``index_put``.
 
 The line before the last is the card's name and power limit; the last is
 one JSON object with every median time in ms.
@@ -49,15 +58,19 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[3]
 
-# appended to a block-size variant of huffman.cu: the exit kernel's blocks
-# per SM with its tables in shared memory
+# a block-size variant of huffman.cu: (constant, kernel, entry point);
+# the variant appends the kernel's blocks per SM with its tables in shared
+# memory
+VARIANTS = {"exit": ("kExitThreads", "exits_kernel", "rt_decode_exits"),
+            "stream": ("kStreamThreads", "streams_kernel",
+                       "rt_decode_streams")}
 _OCCUPANCY = """
-extern "C" int kt_exit_blocks_per_sm(int smem_bytes) {
+extern "C" int kt_blocks_per_sm(int smem_bytes) {{
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, exits_kernel<true>, kExitThreads, smem_bytes);
+      &blocks, {kernel}<true>, {const}, smem_bytes);
   return err == cudaSuccess ? blocks : -(int)err;
-}
+}}
 """
 
 
@@ -114,6 +127,7 @@ def tree_kernels(pkg: str, blobs, args, gpu):
             if "units_per_mcu" in inspect.signature(IK.idct_units).parameters
             else {})
     pix = IK.idct_units(units, m_t, mrow, **hint)
+    pos, val = HK.decode_streams(dev, meta, entries, **kw)
     comp_grid = [(g.mcus_y * v, g.mcus_x * h)
                  for h, v in zip(g.comp_h, g.comp_v)]
     planes = D.assemble_planes(pix, plan.n_images, dec._comp_unit_idx,
@@ -125,6 +139,8 @@ def tree_kernels(pkg: str, blobs, args, gpu):
                                                      **kw),
         "huffman_streams": lambda: HK.decode_streams(dev, meta, entries,
                                                      **kw),
+        "scatter": lambda: HK.scatter_streams(pos, val, bases, write_max,
+                                              n_coef),
         "huffman_store": lambda: FS.decode_coeffs_store(
             dev, meta, entries, bases, write_max, n_coef, **kw),
         "fused_pixels": lambda: FP.fused_pixels(units, m_t, mrow, **geo),
@@ -134,6 +150,9 @@ def tree_kernels(pkg: str, blobs, args, gpu):
     if hasattr(HK, "run_exit_kernel"):  # its tables read from global memory
         fns["huffman_exits_global"] = lambda: HK.run_exit_kernel(
             dev, meta, entries, **kw, smem_budget=0)
+    if hasattr(HK, "run_stream_kernel"):
+        fns["huffman_streams_global"] = lambda: HK.run_stream_kernel(
+            dev, meta, entries, **kw, smem_budget=0)
     x = units.to(torch.float32)
     library = lambda: [torch.matmul(x, m_t[q])  # noqa: E731
                        for q in range(plan.m_matrices.shape[0])]
@@ -141,42 +160,49 @@ def tree_kernels(pkg: str, blobs, args, gpu):
     return fns, library, exit_op
 
 
-def build_exit_variants(threads_list, build):
-    """This checkout's huffman.cu built once per block size: {threads:
-    loaded library}. The builds run at once."""
+def build_variants(kind, specs, build):
+    """This checkout's huffman.cu built once per spec, a {constant: value}
+    dict (at least the ``kind`` kernel's block size, ``VARIANTS``):
+    {label: loaded library}. The builds run at once."""
+    threads, kernel, _ = VARIANTS[kind]
     src = (build.CSRC / "huffman.cu").read_text()
-    pattern = r"constexpr int kExitThreads = \d+;"
-    if len(re.findall(pattern, src)) != 1:
-        raise SystemExit("huffman.cu has no single kExitThreads constant")
-    out_dir = build.BUILD_DIR / "exit_threads"
+    out_dir = build.BUILD_DIR / f"{kind}_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for t in threads_list:
-        cu = out_dir / f"huffman_t{t}.cu"
-        cu.write_text(re.sub(pattern, f"constexpr int kExitThreads = {t};",
-                             src) + _OCCUPANCY)
-        so = out_dir / f"libhuffman_t{t}.so"
-        procs[t] = (subprocess.Popen(
+    for n, spec in enumerate(specs):
+        text = src
+        for const, value in spec.items():
+            pattern = rf"constexpr int {const} = \d+;"
+            if len(re.findall(pattern, text)) != 1:
+                raise SystemExit(f"huffman.cu has no single {const} constant")
+            text = re.sub(pattern, f"constexpr int {const} = {value};", text)
+        cu = out_dir / f"huffman_v{n}.cu"
+        cu.write_text(text + _OCCUPANCY.format(kernel=kernel, const=threads))
+        so = out_dir / f"libhuffman_v{n}.so"
+        label = ",".join(f"{k}={v}" for k, v in spec.items())
+        procs[label] = (subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
              str(so), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), so)
     libs = {}
-    for t, (proc, so) in procs.items():
+    for label, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {t} threads:\n{log}")
-        libs[t] = ctypes.CDLL(str(so))
+            raise SystemExit(f"nvcc failed for {kind} {label}:\n{log}")
+        libs[label] = ctypes.CDLL(str(so))
     return libs
 
 
-def exit_variant_call(lib, exit_op):
-    """A call of a variant library's exit kernel, tables in shared memory,
-    on the converged entries; returns (call, blocks per SM)."""
+def variant_call(kind, lib, exit_op):
+    """A call of a variant library's exit or stream kernel, tables in
+    shared memory, on the converged entries; returns (call, blocks per
+    SM)."""
     HK, dev, meta, entries, kw = exit_op
-    fn = lib.rt_decode_exits
-    fn.argtypes = HK._SIGNATURES["rt_decode_exits"]
+    name = VARIANTS[kind][2]
+    fn = getattr(lib, name)
+    fn.argtypes = HK._SIGNATURES[name]
     fn.restype = ctypes.c_int
-    occ = lib.kt_exit_blocks_per_sm
+    occ = lib.kt_blocks_per_sm
     occ.argtypes, occ.restype = [ctypes.c_int], ctypes.c_int
     args = HK.exit_args(dev, meta, entries)
     c = entries.p.shape[0]
@@ -184,13 +210,35 @@ def exit_variant_call(lib, exit_op):
     stream = HK.B.stream_of(entries.p)
 
     def call():
-        out = [torch.empty_like(entries.p) for _ in range(4)]
+        if kind == "exit":
+            out = [torch.empty_like(entries.p) for _ in range(4)]
+        else:
+            out = [torch.empty((kw["s_max"], c), dtype=torch.int32,
+                               device=entries.p.device) for _ in range(2)]
         err = fn(*args, *(HK.B.ptr(t) for t in out), c, kw["s_max"],
                  kw["min_code_bits"], smem, stream)
-        HK.B.check(err, "rt_decode_exits")
+        HK.B.check(err, name)
         return tuple(out)
 
     return call, occ(smem)
+
+
+def scatter_parts(fn) -> list:
+    """Device time of one call of ``fn`` by kernel: [(name, ms, count)]."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1])
 
 
 def flat(out):
@@ -207,6 +255,12 @@ def main() -> None:
     ap.add_argument("--exit-threads", default="",
                     help="block sizes of this checkout's exit kernel to "
                     "time, comma-separated")
+    ap.add_argument("--stream-variants", default="",
+                    help="builds of this checkout's stream kernel with other "
+                    "constants of huffman.cu, ';'-separated specs of "
+                    "comma-separated CONST=VALUE")
+    ap.add_argument("--scatter-parts", action="store_true",
+                    help="profile each tree's scatter by kernel")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
@@ -251,23 +305,45 @@ def main() -> None:
                                  f"output than tree {next(iter(pkgs))}")
     calls.append(("idct_library", "torch", library))
     occupancy = {}
-    threads_list = [int(t) for t in args.exit_threads.split(",") if t]
-    if threads_list:
+    specs = {"exit": [{"kExitThreads": int(t)}
+                      for t in args.exit_threads.split(",") if t],
+             "stream": [dict(kv.split("=") for kv in v.split(","))
+                        for v in args.stream_variants.split(";") if v]}
+    for kind, kind_specs in specs.items():
+        if not kind_specs:
+            continue
         this = [lb for lb, d in trees
                 if (ROOT / d).resolve() == (ROOT / "src").resolve()]
         if not this:
-            raise SystemExit("--exit-threads needs this checkout's src "
-                             "among the trees")
+            raise SystemExit(f"variants of the {kind} kernel need this "
+                             f"checkout's src among the trees")
         build = importlib.import_module(f"{pkgs[this[0]]}.kernels.build")
-        for t, lib in build_exit_variants(threads_list, build).items():
-            call, blocks = exit_variant_call(lib, exit_ops[this[0]])
-            if not all(torch.equal(a, b) for a, b in
-                       zip(flat(call()), outs["huffman_exits"])):
-                raise SystemExit(f"the exit kernel at {t} threads gives "
-                                 f"another output")
-            occupancy[t] = blocks
-            calls.append(("huffman_exits", f"{this[0]} {t} threads", call))
+        ref = outs[f"huffman_{kind}s"]
+        for label, lib in build_variants(kind, kind_specs, build).items():
+            call, blocks = variant_call(kind, lib, exit_ops[this[0]])
+            if not all(torch.equal(a, b) for a, b in zip(flat(call()), ref)):
+                raise SystemExit(f"the {kind} kernel {label} gives another "
+                                 f"output")
+            occupancy[f"{kind} {label}"] = blocks
+            calls.append((f"huffman_{kind}s", f"{this[0]} {label}", call))
+        if kind == "stream":  # the streams' bytes written in order
+            shape = ref[0].shape
+            calls.append(("streams_fill", "torch", lambda: [
+                torch.full(shape, f, dtype=torch.int32, device=gpu)
+                for f in (-1, 0)]))
     del outs
+    if args.scatter_parts:
+        for name, label, fn in calls:
+            if name != "scatter":
+                continue
+            label = f"{label} {name}"
+            rows = scatter_parts(fn)
+            total = sum(r[1] for r in rows)
+            print(f"[scatter] {label}: device {total:.4f} ms in "
+                  f"{sum(r[2] for r in rows)} kernels", flush=True)
+            for key, ms, n in rows:
+                print(f"[scatter]   {ms:9.4f} ms {n:3d}x  {key[:90]}",
+                      flush=True)
 
     for _, _, fn in calls:  # warm-up
         fn()
@@ -281,15 +357,14 @@ def main() -> None:
         med = result.setdefault(name, {})[label] = statistics.median(ts)
         print(f"[times] {name:20s} {label:20s} {med:.4f} ms "
               f"(min {min(ts):.4f}, max {max(ts):.4f})", flush=True)
-    for t, blocks in occupancy.items():
-        print(f"[times] exit kernel at {t} threads: {blocks} blocks an SM "
-              f"({blocks * t // 32} of 64 warps)", flush=True)
+    for key, blocks in occupancy.items():
+        print(f"[times] {key}: {blocks} blocks an SM", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ms": result, "reps": args.reps,
-                      "exit_blocks_per_sm": occupancy}))
+                      "blocks_per_sm": occupancy}))
 
 
 if __name__ == "__main__":

@@ -33,6 +33,9 @@ def corpus(name: str):
     if name == "420":
         return [_enc(synth_image(48, 64, seed=s), quality=q)
                 for s, q in ((0, 70), (1, 90))]
+    if name == "422":
+        return [_enc(synth_image(40, 64, seed=7), quality=85,
+                     subsampling="4:2:2")]
     if name == "444":
         return [_enc(synth_image(40, 48, seed=2), quality=85,
                      subsampling="4:4:4")]

@@ -3,6 +3,8 @@
 Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with one: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +14,7 @@ from repro_torch.core import decode as D
 from repro_torch.core.api import ParallelDecoder
 from repro_torch.core.state import DecodeState
 from repro_torch.core.sync import chain_entries, jacobi_sync
+from repro_torch.kernels import build as B
 from repro_torch.kernels.color import ops as CK
 from repro_torch.kernels.fused import pixels as FP
 from repro_torch.kernels.fused import store as FS
@@ -59,7 +62,7 @@ def test_huffman_kernels_match_plain(card, name):
                                      **kw))
 
 
-@pytest.mark.parametrize("name", ["420", "444"])
+@pytest.mark.parametrize("name", ["420", "422", "444"])
 def test_pixel_kernel_matches_plain(card, name):
     blobs = corpus(name)
     dec = ParallelDecoder.from_bytes(blobs, device=card)
@@ -220,3 +223,102 @@ def test_unfused_and_grayscale_pixels_on_the_card(card, name, fuse):
     assert got.color_kernel == (unfused and name != "gray")
     assert torch.equal(got.coeffs, exp.coeffs)
     assert torch.equal(got.rgb, exp.rgb)
+
+
+@pytest.mark.parametrize("budget", ["shared", "global"])
+@pytest.mark.parametrize("name", ["420", "optimized", "mixed", "restart"])
+def test_stream_kernel_table_sources_match_plain(card, name, budget):
+    """The stream kernel with its tables in shared memory and, with a
+    shared-memory budget of 0, read from global memory; cold and converged
+    entries."""
+    dec = ParallelDecoder.from_bytes(corpus(name), chunk_bits=256,
+                                     device=card)
+    dev, sh = dec.dev, dec.shape
+    meta = D.chunk_meta(dev)
+    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
+    smem = HK.exit_table_bytes(dev) if budget == "shared" else 0
+    res = jacobi_sync(dev, max_rounds=sh.n_chunks + 2, permuted=False,
+                      decode_exits=lambda d, e: HK.decode_exits(d, meta, e,
+                                                                **kw))
+    for entry in (DecodeState.cold(dev["chunk_start"]),
+                  chain_entries(dev, res.exits, False)):
+        got = HK.run_stream_kernel(dev, meta, entry, **kw, smem_budget=smem)
+        for g, e in zip(got, HK.decode_streams_plain(dev, meta, entry,
+                                                     **kw)):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("name", ["420", "restart", "mixed"])
+def test_scatter_on_the_card_matches_the_store_kernel(card, name):
+    """Stream kernel + scatter on the card: the plain write pass's and the
+    store kernel's coefficients, and the oracle's."""
+    blobs = corpus(name)
+    dec = ParallelDecoder.from_bytes(blobs, chunk_bits=256, device=card)
+    dev, sh = dec.dev, dec.shape
+    meta = D.chunk_meta(dev)
+    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
+    res = jacobi_sync(dev, max_rounds=sh.n_chunks + 2, permuted=False,
+                      decode_exits=lambda d, e: HK.decode_exits(d, meta, e,
+                                                                **kw))
+    entries = chain_entries(dev, res.exits, False)
+    bases = D.chunk_write_bases(dev, res.exits.n, permuted=False)
+    seg_end = torch.cat([dev["seg_coeff_base"][1:], dev["units_end"][None]])
+    wmax = seg_end[dev["chunk_seg"].long()] - 1
+    n = sh.n_units * 64
+    got = HK.decode_coeffs(dev, meta, entries, bases, wmax, n, **kw)
+    assert torch.equal(got, FS.decode_coeffs_store_plain(
+        dev, meta, entries, bases, wmax, n, **kw))
+    assert torch.equal(got, FS.decode_coeffs_store(
+        dev, meta, entries, bases, wmax, n, **kw))
+    coeffs = D.undiff_dc(dev, got.reshape(-1, 64))[:dec.plan.total_units]
+    np.testing.assert_array_equal(coeffs.cpu().numpy(), oracle_coeffs(blobs))
+
+
+@pytest.mark.parametrize("tail", [1, 7])
+@pytest.mark.parametrize("n_matrices", [2, 5])
+@pytest.mark.parametrize("comp_h,comp_v", [((2, 1, 1), (2, 1, 1)),
+                                           ((2, 1, 1), (1, 1, 1)),
+                                           ((1, 1, 1), (1, 1, 1)),
+                                           ((1, 1, 1), (2, 1, 1)),
+                                           ((4, 1, 1), (1, 1, 1)),
+                                           ((3, 1, 1), (1, 1, 1)),
+                                           ((1, 2, 1), (1, 2, 1))])
+def test_pixel_kernel_layouts_and_partial_tiles(card, comp_h, comp_v,
+                                                n_matrices, tail):
+    """Each layout with a kernel of its own (4:2:0, 4:2:2, 4:4:4) and
+    generic ones (4:4:0, 4:1:1, a factor of 3, chroma larger than luma),
+    over 2 tiles + a tail of MCUs, with matrices staged in shared memory
+    (2) and read from global memory (5): torch.equal to the plain
+    version."""
+    upm = sum(h * v for h, v in zip(comp_h, comp_v))
+    n_mcus = 2 * FP.tile_mcus(upm) + tail
+    u = n_mcus * upm
+    rng = np.random.default_rng(tail + 10 * n_matrices)
+    coeffs = torch.from_numpy(rng.integers(-512, 512, (u, 64))
+                              .astype(np.int32)).to(card)
+    m_t = torch.from_numpy(rng.normal(0, 0.05, (n_matrices, 64, 64))
+                           .astype(np.float32)).to(card)
+    mrow = torch.from_numpy(rng.integers(0, n_matrices, u)
+                            .astype(np.int32)).to(card)
+    geo = dict(comp_h=comp_h, comp_v=comp_v, h_max=max(comp_h),
+               v_max=max(comp_v), upm=upm)
+    got = FP.fused_pixels(coeffs, m_t, mrow, **geo)
+    assert got.shape == (n_mcus, 8 * max(comp_v), 8 * max(comp_h), 3)
+    assert torch.equal(got, FP.fused_pixels_plain(coeffs, m_t, mrow, **geo))
+
+
+@pytest.mark.parametrize("comp_h,comp_v", [((0, 1, 1), (1, 1, 1)),
+                                           ((2, 1, 1), (2, 0, 1)),
+                                           ((2, 3, 1), (1, 1, 1)),
+                                           ((2, 1, 1), (2, 2, 2)),
+                                           ((-2, 1, 1), (1, 1, 1))])
+def test_pixel_entry_point_refuses_bad_factors(card, comp_h, comp_v):
+    """The C entry point refuses a zero or negative factor, one that does
+    not divide the largest, or more than 6 units an MCU, with
+    cudaErrorInvalidValue (1) and no launch, before any division."""
+    ints3 = ctypes.c_int * 3
+    buf = torch.zeros(64 * 64, dtype=torch.int32, device=card)
+    err = B.entry("pixels", "rt_fused_pixels", FP._ARGS)(
+        B.ptr(buf), B.ptr(buf), 1, B.ptr(buf), B.ptr(buf), 1,
+        ints3(*comp_h), ints3(*comp_v), B.stream_of(buf))
+    assert err == 1
