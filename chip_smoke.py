@@ -9,16 +9,18 @@ otherwise. Phases, each of which exits non-zero on failure:
 2. kernel parity: each kernel against its plain PyTorch version on the
    full-width batch's plan (exits, the exits of a random half of the lanes
    (the ``idx`` form), streams, coefficients, IDCT samples and the fused
-   pixel kernel's RGB bit-identical, the color kernel's RGB within 1),
-   with each one's time, its plain version's time and its bound. The exit
-   and stream kernels are held with their tables in shared memory and in
-   global memory (budget 0), the exit kernel over every lane and at the
-   ``idx`` lanes; stream kernel + scatter against the plain write pass and
-   the store kernel, with the scatter's time on a line of its own; the
-   fused pixel kernel also on partial last tiles and on 4:2:2 and 4:4:4
-   batches and with six matrices (read from global memory); the IDCT
-   kernel also on partial last tiles, with units that mix matrices and
-   with six matrices;
+   pixel and color kernels' RGB bit-identical), with each one's time, its
+   plain version's time and its bound. The exit, stream and store kernels
+   are held with their tables in shared memory and in global memory
+   (budget 0), the exit kernel over every lane and at the ``idx`` lanes,
+   the store kernel also on a plan of the same frames at chunk_bits=256
+   (most units split between lanes); stream kernel + scatter against the
+   plain write pass and the store kernel, with the scatter's time on a
+   line of its own; the fused pixel and color kernels also on 4:2:2 and
+   4:4:4 batches, the pixel kernel on partial last tiles and with six
+   matrices (read from global memory), the color kernel on a crop whose
+   width is not a multiple of its run; the IDCT kernel also on partial
+   last tiles, with units that mix matrices and with six matrices;
 3. oracle: small images through ``decode_batch`` with every sync schedule
    and fuse mode, and a grayscale group; coefficients equal the
    sequential oracle, RGB within 1 of it;
@@ -346,19 +348,61 @@ def main() -> None:
           f"{scatter_ms:.4f} ms ({pos.numel()} stream entries, {steps} "
           f"recorded)", flush=True)
     del pos, val
-    coef = FS.decode_coeffs_store(dev, meta, entries, bases, write_max,
-                                  n_coef, **kw)
+    # the store kernel, its tables in shared memory and in global memory
     coef_p = FS.decode_coeffs_store_plain(dev, meta, entries, bases,
                                           write_max, n_coef, **kw)
-    torch.cuda.synchronize()
-    store_err = max_err((coef,), (coef_p,))
-    check(store_err == 0, f"store kernel differs from its plain version by "
-          f"{store_err}")
+    store_err = 0
+    for where, coef in (
+            ("global", FS.run_store_kernel(dev, meta, entries, bases,
+                                           write_max, n_coef, **kw,
+                                           smem_budget=0)),
+            ("shared", FS.decode_coeffs_store(dev, meta, entries, bases,
+                                              write_max, n_coef, **kw))):
+        torch.cuda.synchronize()
+        store_err = max(store_err, max_err((coef,), (coef_p,)))
+        check(torch.equal(coef, coef_p), f"store kernel ({where} tables) "
+              f"differs from its plain version by {store_err}")
     check(torch.equal(coef_stream, coef_p), "stream kernel + scatter "
           "differs from the plain write pass")
     check(torch.equal(coef_stream, coef), "stream kernel + scatter differs "
           "from the store kernel")
     del coef_stream, coef_p
+    ms_global = cuda_ms(lambda: FS.run_store_kernel(
+        dev, meta, entries, bases, write_max, n_coef, **kw, smem_budget=0),
+        args.reps)
+    # the same frames at 256-bit chunks: most units split between lanes
+    dec256 = ParallelDecoder.from_bytes(blobs, chunk_bits=256, device=gpu)
+    sh256, dev256 = dec256.shape, dec256.dev
+    meta256 = D.chunk_meta(dev256)
+    kw256 = dict(s_max=sh256.s_max, min_code_bits=sh256.min_code_bits)
+    res256 = jacobi_sync(dev256, max_rounds=sh256.n_chunks + 2,
+                         decode_exits=lambda d, e: HK.decode_exits(
+                             d, meta256, e, **kw256),
+                         permuted=sh256.permuted)
+    check(res256.converged, "kernel Jacobi sync at 256-bit chunks did not "
+          "converge")
+    w256 = (dev256, meta256,
+            chain_entries(dev256, res256.exits, sh256.permuted),
+            D.chunk_write_bases(dev256, res256.exits.n,
+                                permuted=sh256.permuted))
+    seg_end256 = torch.cat([dev256["seg_coeff_base"][1:],
+                            dev256["units_end"][None]])
+    w256 += (seg_end256[dev256["chunk_seg"].to(torch.int64)] - 1,
+             sh256.n_units * 64)
+    coef256 = FS.decode_coeffs_store(*w256, **kw256)
+    coef256_p = FS.decode_coeffs_store_plain(*w256, **kw256)
+    torch.cuda.synchronize()
+    store_err = max(store_err, max_err((coef256,), (coef256_p,)))
+    check(torch.equal(coef256, coef256_p), f"store kernel at 256-bit chunks "
+          f"differs from its plain version by {store_err}")
+    ms256 = cuda_ms(lambda: FS.decode_coeffs_store(*w256, **kw256),
+                    args.reps)
+    print(f"[parity] store kernel: shared-memory and global tables "
+          f"bit-identical to the plain version; global tables "
+          f"{ms_global:.4f} ms; at 256-bit chunks ({dec256.plan.n_chunks} "
+          f"lanes, {res256.rounds} rounds) bit-identical, {ms256:.4f} ms",
+          flush=True)
+    del dec256, dev256, meta256, res256, w256, coef256, coef256_p
     ms = cuda_ms(lambda: FS.decode_coeffs_store(
         dev, meta, entries, bases, write_max, n_coef, **kw), args.reps)
     plain_ms = cuda_ms(lambda: FS.decode_coeffs_store_plain(
@@ -420,7 +464,7 @@ def main() -> None:
                           FP.fused_pixels_plain(*tail, **geo)),
               f"pixel kernel differs from its plain version on {n} MCUs")
     # the other layouts with a kernel of their own
-    other = []
+    other, color_cases = [], {}
     for name, lay_blobs in layouts.items():
         ldec = ParallelDecoder.from_bytes(lay_blobs,
                                           chunk_bits=args.chunk_bits,
@@ -438,6 +482,14 @@ def main() -> None:
                       args.reps)
         other.append(f"{name} {lunits.shape[0] // lg.units_per_mcu} MCUs "
                      f"{lms:.4f} ms")
+        # the color kernel's planes of this layout, for its check below
+        lgrid = [(lg.mcus_y * v, lg.mcus_x * h)
+                 for h, v in zip(lg.comp_h, lg.comp_v)]
+        color_cases[name] = (D.assemble_planes(
+            IK.idct_units(lunits, lm, lrow, lg.units_per_mcu),
+            ldec.plan.n_images, ldec._comp_unit_idx, ldec._comp_block_idx,
+            lgrid), (lg.comp_h, lg.comp_v, lg.h_max, lg.v_max, lg.height,
+                     lg.width))
         del ldec, lunits, lrow, lm
     # the matrices read from global memory: six, more than the kernel
     # stages, as a batch of three qualities has them (image k takes pair
@@ -526,11 +578,23 @@ def main() -> None:
     rgb = CK.upsample_color(planes, *cgeo)
     rgb_p = CK.upsample_color_plain(planes, *cgeo)
     torch.cuda.synchronize()
-    diff = (rgb.to(torch.int16) - rgb_p.to(torch.int16)).abs()
-    err = int(diff.max())
-    print(f"[parity] color kernel: {int((diff == 1).sum())} samples off by "
-          f"one, max {err}")
-    check(err <= 1, f"color kernel differs from its plain version by {err}")
+    err = max_err((rgb,), (rgb_p,))
+    check(torch.equal(rgb, rgb_p), f"color kernel differs from its plain "
+          f"version by {err}")
+    del rgb_p
+    # a crop whose width is not a multiple of the kernel's run (rows of
+    # 1918 x 3 bytes are not 16-byte aligned), and the other layouts
+    color_cases["crop"] = (planes, cgeo[:4] + (g.height - 2, g.width - 2))
+    other = []
+    for name, (cplanes, ccgeo) in color_cases.items():
+        got = CK.upsample_color(cplanes, *ccgeo)
+        check(torch.equal(got, CK.upsample_color_plain(cplanes, *ccgeo)),
+              f"color kernel differs from its plain version at {name}")
+        cms = cuda_ms(lambda: CK.upsample_color(cplanes, *ccgeo), args.reps)
+        other.append(f"{name} {ccgeo[5]}x{ccgeo[4]} {cms:.4f} ms")
+    del color_cases, got
+    print(f"[parity] color kernel: equal on {rgb.shape[0]} {g.width}x"
+          f"{g.height} images and at {', '.join(other)}", flush=True)
     ms = cuda_ms(lambda: CK.upsample_color(planes, *cgeo), args.reps)
     plain_ms = cuda_ms(lambda: CK.upsample_color_plain(planes, *cgeo), 1)
     # bytes: only the samples the cropped image reads (the planes are
@@ -542,7 +606,7 @@ def main() -> None:
     record("color", "src/repro_torch/kernels/csrc/color.cu",
            "src/repro/kernels/color/color.py:74", err, ms, plain_ms,
            read + nbytes(rgb), 10 * rgb.numel() // 3, F32_FLOP_PER_S)
-    del units, pix, planes, rgb, rgb_p, diff, dec, dev, meta, entries, res
+    del units, pix, planes, rgb, dec, dev, meta, entries, res
     torch.cuda.empty_cache()
 
     # -- 3. small images against the sequential oracle ------------------------

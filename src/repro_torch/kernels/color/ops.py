@@ -1,11 +1,12 @@
 """The color kernel: three component planes to (B, H, W, 3) uint8 RGB.
 
-:func:`upsample_color` runs ``csrc/color.cu`` on the card; its plain
-version :func:`upsample_color_plain` is ``core.decode.upsample_color``
-for three planes (replicate upsample, then ``ycbcr_to_rgb``), whose
-arithmetic the kernel repeats with one rounding per operation, so the two
-agree bit for bit. The last stage of the unfused pixel chain
-(``fuse="none"``).
+:func:`upsample_color` runs ``csrc/color.cu`` on the card (a run of
+consecutive pixels of one row a thread, its body in ``csrc/color.cuh``);
+its plain version :func:`upsample_color_plain` is
+``core.decode.upsample_color`` for three planes (replicate upsample, then
+``ycbcr_to_rgb``), whose arithmetic the kernel repeats with one rounding
+per operation, so the two agree bit for bit. The last stage of the
+unfused pixel chain (``fuse="none"``).
 
 Each component ``c`` is upsampled by ``v_max // comp_v[c]`` rows and
 ``h_max // comp_h[c]`` columns, the factors the geometry gives, so every

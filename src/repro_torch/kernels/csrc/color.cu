@@ -11,60 +11,75 @@
 //
 // What bounds it on this card: bytes. Per output pixel it reads one luma
 // sample and, for 4:2:0, a quarter of a chroma sample of each plane (f32),
-// and writes 3 bytes; a handful of f32 operations each.
+// and writes 3 bytes; a handful of f32 operations each. One thread per
+// pixel, finding its samples with 64-bit divisions and remainders by the
+// width and height and six divisions by run-time factors, would spend a
+// few hundred instructions a pixel and be bound by instruction issue.
 //
-// Design: one thread per output pixel, in row-major order, so a warp reads
-// 32 consecutive luma words and writes 96 consecutive bytes; the chroma
-// reads of neighbouring threads fall on the same words. Bit-exact with
-// the plain version (core/decode.ycbcr_to_rgb): the transform is written
-// in the JAX order with __fmul_rn / __fadd_rn / __fsub_rn, because nvcc
-// would otherwise contract y + 1.402f * cr into an FMA (one rounding
-// instead of two), and rintf rounds half to even like torch.round.
+// Design: a thread colors a run of kColorRun consecutive pixels of one
+// row (rt::color_run, color.cuh: no division inside the run, 16-byte
+// loads) and stores its 3 kColorRun bytes with 8- or 16-byte stores where
+// every output row is aligned to them; otherwise the warp's 32 runs,
+// consecutive in one row, are staged in shared memory and written out by
+// the warp together with 4-byte stores (rt::copy_span), so that a width
+// such as 1918 costs no byte-wise stores. The grid lies over (runs of a
+// row, rows, images): a block is kRunsX = 32 runs (a warp) across x
+// kRowsY rows, and rows and images are stride loops, so no grid dimension
+// grows past its limit with the batch and no thread divides by the width
+// or the height. The layout's factors are template constants for the
+// standard forms (color.cuh's with_form). kColorRun = 8 (8-byte stores)
+// and kRowsY = 8 measured best of runs of 8 and 16 and 2 to 8 rows, by
+// 1-3% (PERF.md, tools/kernel_times.py --color-variants). Bit-exact with
+// the plain version (core/decode.ycbcr_to_rgb; see color.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "color.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kColorRun = 8;   // pixels a thread
+constexpr int kRunsX = 32;     // a block: a warp of kRunsX runs across ...
+constexpr int kRowsY = 8;      // ... x kRowsY rows
+constexpr int kMaxGrid = 65535;
+constexpr int kWords = 3 * kColorRun / 4;  // a run's RGB bytes, as words
+static_assert(kRunsX == 32, "a warp stages the runs of one row");
 
-struct Planes {
-  const float* p[3];  // (B, h[c], w[c]) f32 each
-  int h[3], w[3];
-  int fv[3], fh[3];   // replicate factors: output row y reads row y / fv
-};
-
-__device__ __forceinline__ uint8_t to_u8(float v) {
-  return (uint8_t)fminf(fmaxf(rintf(v), 0.f), 255.f);
-}
-
-__global__ void __launch_bounds__(kThreads)
-color_kernel(Planes pl, uint8_t* __restrict__ out, int height, int width,
-             long long n_pixels) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pixels) return;
-  const int x = (int)(i % width);
-  const int64_t row = i / width;
-  const int y = (int)(row % height);
-  const int64_t b = row / height;
-  float s[3];
+template <int kFh, int kFv>
+__global__ void __launch_bounds__(kRunsX * kRowsY)
+color_kernel(rt::ColorPlanes pl, uint8_t* __restrict__ out, int n_images,
+             int height, int width, bool store_vec) {
+  __shared__ uint32_t stage[kRowsY][kRunsX * kWords + 1];
+  const int x_w = blockIdx.x * kRunsX * kColorRun;  // the warp's first x
+  const int x0 = x_w + threadIdx.x * kColorRun;
+  const bool active = x0 < width;
+  if (store_vec && !active) return;  // the staged path needs every lane
+  const int n = width - x0 < kColorRun ? width - x0 : kColorRun;
+  const int nbytes = rt::span_bytes<kColorRun, kRunsX>(x_w, width);
+  uint32_t* own = stage[threadIdx.y];
+  for (int b = blockIdx.z; b < n_images; b += gridDim.z) {
+    for (int y = blockIdx.y * kRowsY + threadIdx.y; y < height;
+         y += gridDim.y * kRowsY) {
+      uint32_t words[kWords];
+      if (active) {
+        rt::color_run<kColorRun, kFh, kFv>(pl, b, y, x0, n, words);
+      }
+      uint8_t* row = rt::row_out(out, b, y, height, width);
+      if (store_vec) {
+        rt::store_run<kColorRun>(row + 3 * x0, words);
+      } else {
+        if (active) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const int64_t at = (b * pl.h[c] + y / pl.fv[c]) * pl.w[c] + x / pl.fh[c];
-    s[c] = __ldg(pl.p[c] + at);
+          for (int i = 0; i < kWords; ++i) {
+            own[threadIdx.x * kWords + i] = words[i];
+          }
+        }
+        __syncwarp();
+        rt::copy_span<kRunsX>(row + 3 * x_w, own, nbytes, threadIdx.x);
+        __syncwarp();
+      }
+    }
   }
-  const float c_r = (float)1.402, c_gb = (float)0.344136286,
-              c_gr = (float)0.714136286, c_b = (float)1.772;
-  const float Y = s[0];
-  const float cb = __fsub_rn(s[1], 128.f);
-  const float cr = __fsub_rn(s[2], 128.f);
-  const float r = __fadd_rn(Y, __fmul_rn(cr, c_r));
-  const float g = __fsub_rn(__fsub_rn(Y, __fmul_rn(cb, c_gb)),
-                            __fmul_rn(cr, c_gr));
-  const float bl = __fadd_rn(Y, __fmul_rn(cb, c_b));
-  uint8_t* o = out + i * 3;
-  o[0] = to_u8(r);
-  o[1] = to_u8(g);
-  o[2] = to_u8(bl);
 }
 
 }  // namespace
@@ -74,20 +89,31 @@ extern "C" {
 int rt_upsample_color(const void* const* planes, const int* h, const int* w,
                       const int* fv, const int* fh, void* out, int n_images,
                       int height, int width, void* stream) {
-  const long long n_pixels = (long long)n_images * height * width;
-  if (n_pixels <= 0) return cudaSuccess;
-  Planes pl;
+  if (n_images <= 0 || height <= 0 || width <= 0) return cudaSuccess;
+  rt::ColorPlanes pl;
   for (int c = 0; c < 3; ++c) {
     pl.p[c] = static_cast<const float*>(planes[c]);
     pl.h[c] = h[c];
     pl.w[c] = w[c];
     pl.fv[c] = fv[c];
     pl.fh[c] = fh[c];
+    if (fv[c] <= 0 || fh[c] <= 0) return cudaErrorInvalidValue;
   }
-  const long long blocks = (n_pixels + kThreads - 1) / kThreads;
-  color_kernel<<<(unsigned)blocks, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      pl, static_cast<uint8_t*>(out), height, width, n_pixels);
+  pl.vec_w = rt::vector_width(pl);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const bool store_vec = rt::rows_aligned<kColorRun>(o, width);
+  const int runs = (width + kColorRun - 1) / kColorRun;
+  const int rows = (height + kRowsY - 1) / kRowsY;
+  const dim3 grid((runs + kRunsX - 1) / kRunsX,
+                  rows < kMaxGrid ? rows : kMaxGrid,
+                  n_images < kMaxGrid ? n_images : kMaxGrid);
+  const dim3 block(kRunsX, kRowsY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rt::with_form(pl, [&](auto form) {
+    using F = decltype(form);
+    color_kernel<F::fh, F::fv><<<grid, block, 0, s>>>(
+        pl, o, n_images, height, width, store_vec);
+  });
   return cudaGetLastError();
 }
 

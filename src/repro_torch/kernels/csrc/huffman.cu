@@ -49,9 +49,27 @@
 // same row, so each row is written in runs of 4 KB (kStreamThreads = 1024
 // lanes): 1.65 -> 0.65 ms; both constants measured best of the variants in
 // PERF.md (tools/kernel_times.py --stream-variants).
-// The store kernel (fuse="full") still reads two words and one full-LUT
-// entry per step through the cache (rt::WordWindow, rt::FullLut). It
-// needs no atomics: once the entries have converged the lanes'
+// The store kernel (fuse="full") decodes from the same sources and stores
+// its coefficients itself (rt::store_lane). One 4-byte store per recorded
+// step (44.8 M of them over the 401 MB coefficient buffer of 32 1080p
+// frames, 8x the L2) would put each store instruction of a warp on 32
+// lines and write sectors in pieces (2.0 ms on the H100, against 0.16
+// for the same decode in the exit kernel). So each lane collects the unit
+// it decodes in a slot of shared memory, and a unit it decoded whole goes
+// out at once, the entries not recorded as 0; the units it enters or
+// leaves midway go out entry by entry. Written by each lane itself (16
+// stores of 16 bytes), the whole units kept the warp waiting while its
+// lanes wrote theirs one lane at a time (0.80 ms); written by the warp
+// together (WarpUnits below), each as one coalesced 256-byte store, 0.67
+// (both with the caller's 0.13 ms zero fill; PERF.md). The warp's votes
+// cost every step, though: with 32 long lanes (sequential sync) the
+// kernel waits on each step's latency, and there the lanes' own writes
+// are faster (482 against 569 ms), so the launch takes them below a warp
+// of lanes an SM. Slots take 264 bytes a thread (kStoreSlotBytes), before
+// the tables in the block's shared memory: 3 blocks of kStoreThreads =
+// 256 an SM, as fast as 128 threads and faster than 512; int16 slots (5
+// blocks an SM) were no faster (tools/kernel_times.py --store-variants).
+// It needs no atomics: once the entries have converged the lanes'
 // coefficient ranges are disjoint and positions within a lane strictly
 // increase (the scatter-race proof, docs/KERNELS.md).
 //
@@ -63,17 +81,21 @@
 
 namespace {
 
-constexpr int kThreads = 128;         // store kernel
 constexpr int kExitThreads = 256;     // exit kernel
 constexpr int kStreamThreads = 1024;  // stream kernel
 constexpr int kStreamBarrierRows = 1;  // its rows between block barriers
+constexpr int kStoreThreads = 256;   // store kernel
 constexpr int kSlots = 2 * rt::kMaxUpm;  // LUT slots per tableset
+// the store kernel's unit slots: 64 int32 a thread, kSlotStride apart
+// (a thread's slot row by row, [thread][k]; 66 keeps rows 8-byte aligned
+// and moves each row two banks on from the last one's)
+constexpr int kSlotStride = 66;
+constexpr int kStoreSlotBytes = kSlotStride * (int)sizeof(int32_t) *
+                                kStoreThreads;
 
 struct LaneInputs {
   const uint32_t* words;
   int n_words;
-  const int32_t* luts;      // (L, 65536)
-  const int32_t* lut_rows;  // (TS, kMaxUpm, 2) unit_lut_row
   const int32_t* word_base; // (C,) segment word base per lane
   const int32_t* ts;        // (C,) tableset per lane
   const int32_t* limit;     // (C,) segment-relative end bit
@@ -86,7 +108,7 @@ struct LaneInputs {
   int min_code_bits;
 };
 
-// The exit and stream kernels' tables: the compact tables and, per
+// The kernels' tables: the compact tables and, per
 // tableset slot, the start of its row in them.
 struct CompactTables {
   const uint16_t* tab;  // (n_tab,), n_tab a multiple of 128
@@ -97,14 +119,6 @@ struct CompactTables {
 
 int shared_bytes(const CompactTables& t) {
   return t.n_tab * (int)sizeof(uint16_t) + t.n_offs * (int)sizeof(int32_t);
-}
-
-__device__ __forceinline__ rt::StepOut step(const LaneInputs& a,
-                                            const int32_t* rows, int wb,
-                                            int limit, int upm,
-                                            rt::LaneState& st) {
-  return rt::symbol_step(a.words, a.n_words, a.luts, rows, wb, limit, upm,
-                         a.min_code_bits, st);
 }
 
 // The compact tables as the kernel reads them: copied into the block's
@@ -185,41 +199,86 @@ streams_kernel(LaneInputs a, CompactTables t, int32_t* __restrict__ pos,
                   });
 }
 
+// store_lane's whole units written by the warp together (WarpUnits): at
+// each step, the lanes with a whole unit to write are found by a ballot,
+// and for each of them the 32 lanes read two entries each from its slot
+// in shared memory ([thread][k]: one 256-byte row, read as 8-byte words
+// free of bank conflicts) and store them, so that every unit goes out as
+// one coalesced 256-byte store, and no lane waits for its neighbours to
+// write theirs one by one.
+struct WarpUnits {
+  const int32_t* warp_slots;  // the slot of the warp's lane 0
+
+  __device__ __forceinline__ bool any(bool active) const {
+    return __any_sync(0xffffffffu, active);
+  }
+  __device__ __forceinline__ void write(bool ready, int n0, uint64_t rec,
+                                        const int32_t*,
+                                        const rt::CoefStore& out) const {
+    unsigned m = __ballot_sync(0xffffffffu, ready);
+    const int lane = threadIdx.x & 31;
+    const int t_own = out.base + n0;
+    while (m != 0) {
+      const int j = __ffs(m) - 1;
+      m &= m - 1;
+      const int t0 = __shfl_sync(0xffffffffu, t_own, j);
+      const uint32_t lo = __shfl_sync(0xffffffffu, (uint32_t)rec, j);
+      const uint32_t hi = __shfl_sync(0xffffffffu, (uint32_t)(rec >> 32), j);
+      const uint32_t bits = ((lane < 16 ? lo : hi) >> (2 * (lane & 15))) & 3u;
+      const int2 v = *reinterpret_cast<const int2*>(
+          warp_slots + j * kSlotStride + 2 * lane);
+      *reinterpret_cast<int2*>(out.coef + t0 + 2 * lane) =
+          make_int2(bits & 1u ? v.x : 0, bits & 2u ? v.y : 0);
+    }
+  }
+};
+
 // Stores each recorded coefficient at write_base + n + run_eff into `coef`
 // (zeroed by the caller), under the mask of the JAX store kernel:
 // recorded step, pos >= 0, 0 <= target <= write_max; targets past the
-// buffer are dropped as well.
-__global__ void __launch_bounds__(kThreads)
-store_kernel(LaneInputs a, const int32_t* __restrict__ write_base,
+// buffer are dropped as well. The exit kernel's sources; the loop is
+// rt::store_lane, whose unit slots lie in the first kStoreSlotBytes of
+// the block's shared memory, the tables after them. kWarpUnits: the warp
+// writes the whole units (WarpUnits), else each lane its own
+// (rt::LaneUnits). A thread past the last lane runs the loop with nothing
+// to decode, for its warp's votes.
+template <bool kShared, bool kWarpUnits>
+__global__ void __launch_bounds__(kStoreThreads)
+store_kernel(LaneInputs a, CompactTables t,
+             const int32_t* __restrict__ write_base,
              const int32_t* __restrict__ write_max,
              int32_t* __restrict__ coef, int64_t n_coef) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint16_t* tab;
+  const int32_t* offs;
+  stage_tables<kShared>(t, smem + kStoreSlotBytes, tab, offs);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.n_lanes) return;
-  const int32_t* rows = a.lut_rows + (int64_t)a.ts[lane] * kSlots;
-  const int wb = a.word_base[lane], limit = a.limit[lane], upm = a.upm[lane];
-  const int base = write_base[lane], wmax = write_max[lane];
-  rt::LaneState st{a.in_p[lane], a.in_u[lane], a.in_z[lane], 0};
-  for (int i = 0; i < a.s_max && st.p < limit; ++i) {
-    const int n = st.n;
-    const rt::StepOut o = step(a, rows, wb, limit, upm, st);
-    const int p = n + o.run_eff;
-    const int tgt = base + p;
-    if (!o.invalid && p >= 0 && tgt >= 0 && tgt <= wmax && tgt < n_coef) {
-      coef[tgt] = o.coef;
-    }
+  const bool real = lane < a.n_lanes;
+  const int l = real ? lane : a.n_lanes - 1;
+  const rt::CompactLut<!kShared> table{tab, offs + a.ts[l] * kSlots};
+  rt::LaneState st{a.in_p[l], a.in_u[l], a.in_z[l], 0};
+  rt::BufferedWindow window(a.words, a.n_words, a.word_base[l], st.p);
+  const rt::CoefStore out{coef, n_coef, write_base[l], write_max[l]};
+  int32_t* slots = reinterpret_cast<int32_t*>(smem);
+  int32_t* slot = slots + threadIdx.x * kSlotStride;
+  const int limit = real ? a.limit[l] : 0;
+  if constexpr (kWarpUnits) {
+    const WarpUnits units{slots + (threadIdx.x & ~31) * kSlotStride};
+    rt::store_lane(window, table, limit, a.upm[l], a.min_code_bits,
+                   a.s_max, st, out, slot, units);
+  } else {
+    rt::store_lane(window, table, limit, a.upm[l], a.min_code_bits,
+                   a.s_max, st, out, slot, rt::LaneUnits{});
   }
 }
 
-LaneInputs lane_inputs(const void* words, int n_words, const void* luts,
-                       const void* lut_rows, const void* word_base,
+LaneInputs lane_inputs(const void* words, int n_words, const void* word_base,
                        const void* ts, const void* limit, const void* upm,
                        const void* in_p, const void* in_u, const void* in_z,
                        int n_lanes, int s_max, int min_code_bits) {
   LaneInputs a;
   a.words = static_cast<const uint32_t*>(words);
   a.n_words = n_words;
-  a.luts = static_cast<const int32_t*>(luts);
-  a.lut_rows = static_cast<const int32_t*>(lut_rows);
   a.word_base = static_cast<const int32_t*>(word_base);
   a.ts = static_cast<const int32_t*>(ts);
   a.limit = static_cast<const int32_t*>(limit);
@@ -237,6 +296,18 @@ int blocks_for(int n_lanes, int threads) {
   return (n_lanes + threads - 1) / threads;
 }
 
+// The SMs of the current device (asked once per device).
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) {
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  }
+  return counts[dev];
+}
+
 // Shared memory beyond 48 KB needs the kernel's opt-in first.
 template <class Kernel>
 cudaError_t allow_shared(Kernel kernel, int bytes) {
@@ -248,18 +319,23 @@ cudaError_t allow_shared(Kernel kernel, int bytes) {
 
 // One launch of a kernel over the compact tables: its shared-memory form
 // when the tables take at most `smem_budget` bytes, else its global one.
+// `slot_bytes` of shared memory come first in either form (the store
+// kernel's unit slots), the staged tables after them.
 template <int kBlock, class Shared, class Global, class... Args>
 cudaError_t launch_compact(Shared shared, Global global,
                            const CompactTables& t, int n_lanes,
-                           int smem_budget, cudaStream_t s, Args... args) {
+                           int smem_budget, int slot_bytes, cudaStream_t s,
+                           Args... args) {
   const int bytes = shared_bytes(t);
   const int blocks = blocks_for(n_lanes, kBlock);
-  if (bytes <= smem_budget) {
-    const cudaError_t err = allow_shared(shared, bytes);
-    if (err != cudaSuccess) return err;
-    shared<<<blocks, kBlock, bytes, s>>>(args...);
+  const bool staged = bytes <= smem_budget;
+  const int smem = slot_bytes + (staged ? bytes : 0);
+  const cudaError_t err = allow_shared(staged ? shared : global, smem);
+  if (err != cudaSuccess) return err;
+  if (staged) {
+    shared<<<blocks, kBlock, smem, s>>>(args...);
   } else {
-    global<<<blocks, kBlock, 0, s>>>(args...);
+    global<<<blocks, kBlock, smem, s>>>(args...);
   }
   return cudaGetLastError();
 }
@@ -268,9 +344,8 @@ cudaError_t launch_compact(Shared shared, Global global,
 
 extern "C" {
 
-// The exit and stream kernels: the compact tables go to shared memory
-// when they take at most `smem_budget` bytes, else they are read from
-// global memory.
+// Each kernel's compact tables go to shared memory when they take at most
+// `smem_budget` bytes, else they are read from global memory.
 int rt_decode_exits(const void* words, int n_words, const void* ctab,
                     int n_tab, const void* lut_off, int n_offs,
                     const void* word_base, const void* ts, const void* limit,
@@ -280,13 +355,13 @@ int rt_decode_exits(const void* words, int n_words, const void* ctab,
                     int smem_budget, void* stream) {
   if (n_lanes <= 0) return cudaSuccess;
   if (n_tab % 128 != 0) return cudaErrorInvalidValue;
-  LaneInputs a = lane_inputs(words, n_words, nullptr, nullptr, word_base, ts,
-                             limit, upm, in_p, in_u, in_z, n_lanes, s_max,
+  LaneInputs a = lane_inputs(words, n_words, word_base, ts, limit, upm,
+                             in_p, in_u, in_z, n_lanes, s_max,
                              min_code_bits);
   const CompactTables t{static_cast<const uint16_t*>(ctab),
                         static_cast<const int32_t*>(lut_off), n_tab, n_offs};
   return launch_compact<kExitThreads>(
-      exits_kernel<true>, exits_kernel<false>, t, n_lanes, smem_budget,
+      exits_kernel<true>, exits_kernel<false>, t, n_lanes, smem_budget, 0,
       static_cast<cudaStream_t>(stream), a, t, static_cast<int32_t*>(out_p),
       static_cast<int32_t*>(out_u), static_cast<int32_t*>(out_z),
       static_cast<int32_t*>(out_n));
@@ -301,34 +376,46 @@ int rt_decode_streams(const void* words, int n_words, const void* ctab,
                       int smem_budget, void* stream) {
   if (n_lanes <= 0) return cudaSuccess;
   if (n_tab % 128 != 0) return cudaErrorInvalidValue;
-  LaneInputs a = lane_inputs(words, n_words, nullptr, nullptr, word_base, ts,
-                             limit, upm, in_p, in_u, in_z, n_lanes, s_max,
+  LaneInputs a = lane_inputs(words, n_words, word_base, ts, limit, upm,
+                             in_p, in_u, in_z, n_lanes, s_max,
                              min_code_bits);
   const CompactTables t{static_cast<const uint16_t*>(ctab),
                         static_cast<const int32_t*>(lut_off), n_tab, n_offs};
   return launch_compact<kStreamThreads>(
       streams_kernel<true>, streams_kernel<false>, t, n_lanes, smem_budget,
-      static_cast<cudaStream_t>(stream), a, t, static_cast<int32_t*>(pos),
+      0, static_cast<cudaStream_t>(stream), a, t, static_cast<int32_t*>(pos),
       static_cast<int32_t*>(val));
 }
 
-int rt_decode_store(const void* words, int n_words, const void* luts,
-                    const void* lut_rows, const void* word_base,
-                    const void* ts, const void* limit, const void* upm,
-                    const void* in_p, const void* in_u, const void* in_z,
-                    const void* write_base, const void* write_max, void* coef,
-                    long long n_coef, int n_lanes, int s_max,
-                    int min_code_bits, void* stream) {
+int rt_decode_store(const void* words, int n_words, const void* ctab,
+                    int n_tab, const void* lut_off, int n_offs,
+                    const void* word_base, const void* ts, const void* limit,
+                    const void* upm, const void* in_p, const void* in_u,
+                    const void* in_z, const void* write_base,
+                    const void* write_max, void* coef, long long n_coef,
+                    int n_lanes, int s_max, int min_code_bits,
+                    int smem_budget, void* stream) {
   if (n_lanes <= 0) return cudaSuccess;
-  LaneInputs a = lane_inputs(words, n_words, luts, lut_rows, word_base, ts,
-                             limit, upm, in_p, in_u, in_z, n_lanes, s_max,
+  if (n_tab % 128 != 0) return cudaErrorInvalidValue;
+  LaneInputs a = lane_inputs(words, n_words, word_base, ts, limit, upm,
+                             in_p, in_u, in_z, n_lanes, s_max,
                              min_code_bits);
-  store_kernel<<<blocks_for(n_lanes, kThreads), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int32_t*>(write_base),
-      static_cast<const int32_t*>(write_max), static_cast<int32_t*>(coef),
-      (int64_t)n_coef);
-  return cudaGetLastError();
+  const CompactTables t{static_cast<const uint16_t*>(ctab),
+                        static_cast<const int32_t*>(lut_off), n_tab, n_offs};
+  // the warp writes the whole units when the lanes fill at least a warp an
+  // SM; with fewer, a step's latency bounds the kernel and the warp's
+  // votes would lengthen every step
+  const bool warp = n_lanes >= 32 * sm_count();
+  auto launch = [&](auto shared, auto global) {
+    return launch_compact<kStoreThreads>(
+        shared, global, t, n_lanes, smem_budget, kStoreSlotBytes,
+        static_cast<cudaStream_t>(stream), a, t,
+        static_cast<const int32_t*>(write_base),
+        static_cast<const int32_t*>(write_max), static_cast<int32_t*>(coef),
+        (int64_t)n_coef);
+  };
+  return warp ? launch(store_kernel<true, true>, store_kernel<false, true>)
+              : launch(store_kernel<true, false>, store_kernel<false, false>);
 }
 
 }  // extern "C"

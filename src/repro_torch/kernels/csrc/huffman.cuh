@@ -1,5 +1,6 @@
 // One Huffman symbol step of one chunk lane: the shared body of the exit,
-// stream and store kernels in huffman.cu, and the stream kernel's loop.
+// stream and store kernels in huffman.cu, and the stream and store
+// kernels' loops over a lane.
 //
 // Counterpart of `_symbol_step` in the JAX package's
 // kernels/huffman/huffman.py and of `decode_symbol` in
@@ -14,21 +15,20 @@
 //     the speculative exits and with them the number of Jacobi rounds.
 //
 // Where the step's bits and its table entry come from is a template
-// parameter of symbol_step; the bit operations after them are one body:
-//   * window sources: WordWindow loads the two words at p on every step
-//     (store kernel); BufferedWindow keeps words w and w+1 in registers
-//     and w+2 prefetched, and loads one word when p >> 5 moves on (exit
-//     and stream kernels). A step advances at most 31 bits (clen + size <=
-//     31, or min_code_bits <= 16), so p >> 5 moves by at most one. Both
-//     clamp the word index exactly as load_word does, so both give the
-//     same window;
-//   * tables: FullLut reads the (L, 65536) int32 LUTs (store kernel);
-//     CompactLut reads the two-level uint16 tables that
-//     kernels/huffman/ops.compact_luts builds from them, which expand to
-//     the same entry for every window (tests/test_torch_lut.py).
+// parameter of symbol_step; the bit operations after them are one body.
+// All three kernels take the same sources:
+//   * words: BufferedWindow keeps words w and w+1 in registers and w+2
+//     prefetched, and loads one word when p >> 5 moves on. A step advances
+//     at most 31 bits (clen + size <= 31, or min_code_bits <= 16), so
+//     p >> 5 moves by at most one. It clamps the word index as JAX does;
+//   * tables: CompactLut reads the two-level uint16 tables that
+//     kernels/huffman/ops.compact_luts builds from the (L, 65536) int32
+//     LUTs, which expand to the same entry for every window
+//     (tests/test_torch_lut.py).
 //
-// stream_lane is the stream kernel's whole loop over one lane, so that the
-// host build runs it as the kernel does.
+// stream_lane and store_lane are the stream and store kernels' whole
+// loops over one lane, so that the host build runs them as the kernels
+// do.
 //
 // The functions are __host__ __device__ so that a host-only build of this
 // header (g++, see tests/test_torch_symbol_step.py) runs the same code on
@@ -41,12 +41,6 @@
 #define __host__
 #define __device__
 #define __forceinline__ inline
-#endif
-
-#ifdef __CUDA_ARCH__
-#define RT_LDG(ptr) __ldg(ptr)
-#else
-#define RT_LDG(ptr) (*(ptr))
 #endif
 
 namespace rt {
@@ -71,13 +65,6 @@ struct StepOut {
   bool invalid;  // the window held no codeword (garbage phase)
 };
 
-__host__ __device__ __forceinline__ uint32_t load_word(const uint32_t* words,
-                                                       int n_words,
-                                                       int64_t idx) {
-  idx = idx < 0 ? 0 : (idx >= n_words ? n_words - 1 : idx);
-  return words[idx];
-}
-
 // The window at bit offset `off` (0..31) of the word pair (hi, lo).
 __host__ __device__ __forceinline__ uint32_t window32(uint32_t hi, uint32_t lo,
                                                       uint32_t off) {
@@ -85,23 +72,11 @@ __host__ __device__ __forceinline__ uint32_t window32(uint32_t hi, uint32_t lo,
   return (hi << off) | lo_shift;
 }
 
-// -- window sources: operator()(p) is the 32-bit window at segment bit p ----
-
-struct WordWindow {
-  const uint32_t* words;
-  int n_words;
-  int word_base;
-
-  __host__ __device__ __forceinline__ uint32_t operator()(int p) const {
-    const int64_t w = (int64_t)word_base + (p >> 5);
-    return window32(load_word(words, n_words, w),
-                    load_word(words, n_words, w + 1), (uint32_t)(p & 31));
-  }
-};
+// -- the window source: operator()(p) is the 32-bit window at segment bit p
 
 // Word indices in 32 bits: the planner guarantees n_words * 32 + 63 fits
 // int32 (core/contracts.check_shape_capacities), so word_base + (p >> 5) + 2
-// does too, and load_word32 clamps it as load_word does.
+// does too; load_word32 clamps it to the last word.
 __host__ __device__ __forceinline__ uint32_t load_word32(
     const uint32_t* words, int n_words, int idx) {
   idx = idx < 0 ? 0 : (idx >= n_words ? n_words - 1 : idx);
@@ -138,17 +113,7 @@ struct BufferedWindow {
   }
 };
 
-// -- tables: entry(slot, win16), slot = u * 2 + is_dc of the lane's row ----
-
-struct FullLut {
-  const int32_t* luts;  // (L, 65536)
-  const int32_t* rows;  // the lane's tableset row of unit_lut_row: LUT ids
-
-  __host__ __device__ __forceinline__ int entry(int slot, int win16) const {
-    const int row = RT_LDG(rows + slot);
-    return RT_LDG(luts + (int64_t)row * kLutSize + win16);
-  }
-};
+// -- the table: entry(slot, win16), slot = u * 2 + is_dc of the lane's row
 
 // kLdg: the tables lie in global memory (read through __ldg), else in
 // shared memory. A primary entry whose code length is 0 but which is not 0
@@ -262,16 +227,166 @@ __host__ __device__ __forceinline__ void stream_lane(
   }
 }
 
-// The step from global memory: two word loads and the full LUTs. `rows` is
-// the lane's tableset row of unit_lut_row: 2*kMaxUpm LUT row ids, [u*2 + 0]
-// for AC and [u*2 + 1] for DC.
-__host__ __device__ __forceinline__ StepOut symbol_step(
-    const uint32_t* words, int n_words, const int32_t* luts,
-    const int32_t* rows, int word_base, int limit, int upm,
-    int min_code_bits, LaneState& st) {
-  WordWindow window{words, n_words, word_base};
-  const FullLut table{luts, rows};
-  return symbol_step(window, table, limit, upm, min_code_bits, st);
+// -- the store kernel's loop ---------------------------------------------
+//
+// store_lane decodes one lane as the plain write pass does and stores each
+// recorded coefficient at write_base + n + run_eff under the JAX store
+// kernel's mask (kernels/fused/store.py: a recorded step, pos >= 0,
+// 0 <= target <= write_max; targets past the buffer are dropped too).
+//
+// The coefficients of the unit being decoded go to the lane's slot of 64
+// entries (`slot`), and `rec` holds which of them were recorded. A unit
+// ends when the step that completes it sets z back to 0. A unit is whole
+// when the lane decoded it from z = 0, with no invalid step, ending at
+// exactly 64 coefficients, with all 64 targets within the mask and
+// 16-byte aligned: `units` writes it out whole, the entries not recorded
+// as 0, before the lane's next step (LaneUnits below: the lane itself, as
+// 16 stores of 16 bytes; the kernel's WarpUnits: the warp together).
+// Every other unit (the first when the lane enters at z > 0, the last
+// when it stops inside a unit, one with an invalid step or past the mask)
+// goes out entry by entry under the mask.
+//
+// Every lane runs the loop until units.any() says that no lane of its
+// group is still decoding (on the card: its warp, so that the warp can
+// write units together), each step of a lane that has finished doing
+// nothing.
+//
+// Why this is exact on converged entries: every target the plain pass
+// writes gets the same value; every extra zero falls on a coefficient of
+// a unit that this lane alone decoded, which the caller's fill had zeroed.
+// Returns the number of units stored whole.
+
+#ifdef __CUDACC__
+using Int4 = int4;
+#define RT_UNROLL _Pragma("unroll")
+#else
+struct alignas(16) Int4 {
+  int x, y, z, w;
+};
+#define RT_UNROLL
+#endif
+
+__host__ __device__ __forceinline__ int lowest_bit(uint64_t v) {
+#ifdef __CUDA_ARCH__
+  return __ffsll((long long)v) - 1;
+#else
+  return __builtin_ctzll(v);
+#endif
+}
+
+struct CoefStore {
+  int32_t* coef;   // (n_coef,), zeroed by the caller
+  int64_t n_coef;
+  int base;        // the lane's write_base
+  int wmax;        // and write_max
+
+  // one recorded coefficient at local offset pos, under the mask
+  __host__ __device__ __forceinline__ void entry(int pos, int v) const {
+    const int tgt = base + pos;
+    if (pos >= 0 && tgt >= 0 && tgt <= wmax && tgt < n_coef) coef[tgt] = v;
+  }
+
+  // the recorded entries of a slot (bit k of rec: offset n0 + k)
+  __host__ __device__ __forceinline__ void entries(const int32_t* slot,
+                                                   uint64_t rec,
+                                                   int n0) const {
+    while (rec != 0) {
+      const int k = lowest_bit(rec);
+      rec &= rec - 1;
+      entry(n0 + k, slot[k]);
+    }
+  }
+
+  // whether the unit at local offset n0 may go out whole: its 64 targets
+  // within the mask, 16-byte aligned
+  __host__ __device__ __forceinline__ bool fits(int n0) const {
+    const int t0 = base + n0;
+    return n0 >= 0 && t0 >= 0 && t0 + 63 <= wmax && t0 + 63 < n_coef &&
+           (reinterpret_cast<uintptr_t>(coef + t0) & 15) == 0;
+  }
+
+  // the unit at local offset n0 (fits) as 16 stores of 16 bytes
+  __host__ __device__ __forceinline__ void unit(const int32_t* slot,
+                                                uint64_t rec,
+                                                int n0) const {
+    Int4* dst = reinterpret_cast<Int4*>(coef + base + n0);
+    RT_UNROLL
+    for (int q = 0; q < 16; ++q) {
+      int v[4];
+      RT_UNROLL
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * q + j;
+        v[j] = (rec >> k) & 1u ? slot[k] : 0;
+      }
+      dst[q] = Int4{v[0], v[1], v[2], v[3]};
+    }
+  }
+};
+
+// store_lane's whole units written by the lane itself, at once (the host
+// build; the store kernel's with few lanes)
+struct LaneUnits {
+  __host__ __device__ __forceinline__ bool any(bool active) const {
+    return active;
+  }
+  __host__ __device__ __forceinline__ void write(bool ready, int n0,
+                                                 uint64_t rec,
+                                                 const int32_t* slot,
+                                                 const CoefStore& out) const {
+    if (ready) out.unit(slot, rec, n0);
+  }
+};
+
+template <class Window, class Table, class Units>
+__host__ __device__ __forceinline__ int store_lane(
+    Window& window, const Table& table, int limit, int upm,
+    int min_code_bits, int s_max, LaneState& st, const CoefStore& out,
+    int32_t* slot, const Units& units) {
+  int n_whole = 0;
+  // the unit being decoded: whole so far, its first offset, its entries
+  bool whole = st.z == 0;
+  int n0 = st.n;
+  uint64_t rec = 0;
+  for (int i = 0; i < s_max; ++i) {
+    const bool active = st.p < limit;
+    if (!units.any(active)) break;
+    bool ready = false;  // a whole unit to write out: its offset, entries
+    int ready_n0 = 0;
+    uint64_t ready_rec = 0;
+    if (active) {
+      const int n = st.n;
+      const StepOut o =
+          symbol_step(window, table, limit, upm, min_code_bits, st);
+      const int pos = n + o.run_eff;
+      const int k = pos - n0;
+      if (whole && !o.invalid && k < 64) {
+        slot[k] = o.coef;
+        rec |= (uint64_t)1 << k;
+      } else {
+        if (whole) {  // an invalid step or a run past the unit
+          out.entries(slot, rec, n0);
+          whole = false;
+        }
+        if (!o.invalid) out.entry(pos, o.coef);
+      }
+      if (st.z == 0) {  // this step ended the unit
+        if (whole && st.n - n0 == 64 && out.fits(n0)) {
+          ready = true;
+          ready_n0 = n0;
+          ready_rec = rec;
+          ++n_whole;
+        } else if (whole) {
+          out.entries(slot, rec, n0);
+        }
+        whole = true;
+        n0 = st.n;
+        rec = 0;
+      }
+    }
+    units.write(ready, ready_n0, ready_rec, slot, out);
+  }
+  if (whole) out.entries(slot, rec, n0);
+  return n_whole;
 }
 
 }  // namespace rt

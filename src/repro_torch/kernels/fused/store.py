@@ -2,11 +2,16 @@
 
 The ``fuse="full"`` write pass. Where the stream form
 (``kernels/huffman/ops.py``) writes a (s_max, C) pair of streams for a
-scatter to place, each symbol step of the store kernel stores its
-coefficient at ``write_base + n + run_eff`` itself, under the mask of the
-stream form's scatter, into a buffer the wrapper zeroes. Its source is in
-``csrc/huffman.cu`` (``rt_decode_store``); the JAX package's 4 MiB VMEM
-gate has no counterpart here, so it engages at any size.
+scatter to place, the store kernel stores each recorded coefficient at
+``write_base + n + run_eff`` itself, under the mask of the stream form's
+scatter, into a buffer the wrapper zeroes: a unit a lane decodes whole
+as one 256-byte store by its warp, the units it enters or leaves midway
+entry by entry. It decodes from the exit kernel's sources (the compact
+tables of ``ops.exit_tables``, which the wrapper refuses to go without,
+and a per-lane word buffer). Its source is in ``csrc/huffman.cu``
+(``rt_decode_store``, loop ``rt::store_lane`` in ``csrc/huffman.cuh``);
+the JAX package's VMEM gate has no counterpart here, so it engages at
+any size.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 from ...core import decode as D
 from ...core.state import DecodeState
 from .. import build as B
-from ..huffman.ops import kernel_fn, lane_args
+from ..huffman.ops import EXIT_SMEM_BUDGET, exit_args, kernel_fn
 
 Dev = Dict[str, torch.Tensor]
 
@@ -35,16 +40,17 @@ def decode_coeffs_store_plain(dev: Dev, meta: Dev, entry: DecodeState,
     return out
 
 
-def decode_coeffs_store(dev: Dev, meta: Dev, entry: DecodeState,
-                        write_base: torch.Tensor, write_max: torch.Tensor,
-                        n_coef: int, *, s_max: int,
-                        min_code_bits: int) -> torch.Tensor:
-    """:func:`decode_coeffs_store_plain`, by the store kernel on the card."""
-    if dev["words"].device.type == "cpu":
-        return decode_coeffs_store_plain(
-            dev, meta, entry, write_base, write_max, n_coef, s_max=s_max,
-            min_code_bits=min_code_bits)
-    args = lane_args(dev, meta, entry)
+def run_store_kernel(dev: Dev, meta: Dev, entry: DecodeState,
+                     write_base: torch.Tensor, write_max: torch.Tensor,
+                     n_coef: int, *, s_max: int, min_code_bits: int,
+                     smem_budget: int) -> torch.Tensor:
+    """One launch of the store kernel (``rt_decode_store``), uncounted.
+
+    Its tables go to shared memory when ``ops.exit_table_bytes`` is at
+    most ``smem_budget``, else the kernel reads them from global memory.
+    :func:`decode_coeffs_store` passes ``EXIT_SMEM_BUDGET``.
+    """
+    args = exit_args(dev, meta, entry)
     c = entry.p.shape[0]
     for t in (write_base, write_max):
         if t.dtype != torch.int32 or t.shape != (c,) \
@@ -54,7 +60,23 @@ def decode_coeffs_store(dev: Dev, meta: Dev, entry: DecodeState,
     out = torch.zeros(n_coef, dtype=torch.int32, device=entry.p.device)
     B.check(kernel_fn("rt_decode_store")(
         *args, B.ptr(write_base), B.ptr(write_max), B.ptr(out), n_coef, c,
-        s_max, min_code_bits, B.stream_of(out)), "rt_decode_store")
+        s_max, min_code_bits, smem_budget, B.stream_of(out)),
+        "rt_decode_store")
+    return out
+
+
+def decode_coeffs_store(dev: Dev, meta: Dev, entry: DecodeState,
+                        write_base: torch.Tensor, write_max: torch.Tensor,
+                        n_coef: int, *, s_max: int,
+                        min_code_bits: int) -> torch.Tensor:
+    """:func:`decode_coeffs_store_plain`, by the store kernel on the card."""
+    if dev["words"].device.type == "cpu":
+        return decode_coeffs_store_plain(
+            dev, meta, entry, write_base, write_max, n_coef, s_max=s_max,
+            min_code_bits=min_code_bits)
+    out = run_store_kernel(dev, meta, entry, write_base, write_max, n_coef,
+                           s_max=s_max, min_code_bits=min_code_bits,
+                           smem_budget=EXIT_SMEM_BUDGET)
     decode_coeffs_store.launches += 1
     return out
 

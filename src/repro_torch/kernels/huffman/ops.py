@@ -9,10 +9,10 @@ per symbol step, the local zig-zag offset and the coefficient, which
 tensors on the CPU and otherwise launches the kernel or raises.
 
 Operands: ``dev`` holds ``words`` (int32 bits of the uint32 words),
-``luts`` and ``unit_lut_row``, and for the exit and stream kernels their
+``luts`` and ``unit_lut_row`` (the plain versions'), and the kernels'
 compact tables ``luts_compact`` and ``unit_lut_off`` (:func:`exit_tables`,
 added once per plan by ``core.api.ParallelDecoder`` on the kernel
-backend); ``meta`` is
+backend; the exit, stream and store kernels all read them); ``meta`` is
 ``core.decode.chunk_meta(dev)`` (per-lane ``word_base``, ``limit``,
 ``ts``, ``upm``); ``entry`` is the lanes' entry state.
 """
@@ -30,20 +30,21 @@ from .. import build as B
 
 Dev = Dict[str, torch.Tensor]
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_LANE_ARGS = [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP]
 _SIGNATURES = {
     "rt_decode_exits": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 11 + [_I] * 4
     + [_VP],
     "rt_decode_streams": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 9
     + [_I] * 4 + [_VP],
-    "rt_decode_store": _LANE_ARGS + [_VP] * 3 + [_LL, _I, _I, _I, _VP],
+    "rt_decode_store": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 10
+    + [_LL] + [_I] * 4 + [_VP],
 }
 
-# The shared memory the exit and stream kernels may give their tables
-# (bytes). The four standard tables of a color batch take about 7 KB; the
-# registers let an SM hold 8 exit-kernel blocks of 256 threads (2 stream
-# blocks of 1024), and 8 x 24 KB still fits its 228 KB of shared memory,
-# so tables within the budget cost no occupancy. Larger tables are read
+# The shared memory the exit, stream and store kernels may give their
+# tables (bytes). The four standard tables of a color batch take about
+# 7 KB; the registers let an SM hold 8 exit-kernel blocks of 256 threads
+# (2 stream blocks of 1024), and 8 x 24 KB still fits its 228 KB of
+# shared memory, so tables within the budget cost those two no occupancy
+# (the store kernel's unit slots come on top). Larger tables are read
 # from global memory by the same kernel.
 EXIT_SMEM_BUDGET = 24 * 1024
 
@@ -126,23 +127,13 @@ def _checked_ptrs(words: torch.Tensor, tables: list, dtypes: list,
     return [B.ptr(t) for t in tables], [B.ptr(t) for t in lane]
 
 
-def lane_args(dev: Dev, meta: Dev, entry: DecodeState) -> list:
-    """The store kernel's operands, checked, as C arguments."""
-    words, luts, rows = dev["words"], dev["luts"], dev["unit_lut_row"]
-    tables, lane = _checked_ptrs(words, [luts, rows], [torch.int32] * 2,
-                                 meta, entry)
-    if luts.shape[1:] != (1 << 16,) or rows.shape[1:] != (6, 2):
-        raise ValueError("luts must be (L, 65536) and unit_lut_row (TS, 6, 2)")
-    return [B.ptr(words), int(words.shape[0])] + tables + lane
-
-
 def exit_args(dev: Dev, meta: Dev, entry: DecodeState) -> list:
-    """The exit and stream kernels' operands, checked, as C arguments:
-    their compact tables in place of the LUTs."""
+    """The exit, stream and store kernels' operands, checked, as C
+    arguments: their compact tables in place of the LUTs."""
     if "luts_compact" not in dev:
-        raise ValueError("the exit and stream kernels need their compact "
-                         "tables: add exit_tables(dev) to the plan's "
-                         "tensors once")
+        raise ValueError("the exit, stream and store kernels need their "
+                         "compact tables: add exit_tables(dev) to the "
+                         "plan's tensors once")
     words, tab, off = dev["words"], dev["luts_compact"], dev["unit_lut_off"]
     (tab_p, off_p), lane = _checked_ptrs(
         words, [tab, off], [torch.int16, torch.int32], meta, entry)
@@ -155,8 +146,8 @@ def exit_args(dev: Dev, meta: Dev, entry: DecodeState) -> list:
 
 
 def exit_table_bytes(dev: Dev) -> int:
-    """Shared memory the exit and stream kernels' tables take: compact
-    tables and row starts."""
+    """Shared memory the kernels' tables take: compact tables and row
+    starts."""
     return 2 * dev["luts_compact"].numel() + 4 * dev["unit_lut_off"].numel()
 
 

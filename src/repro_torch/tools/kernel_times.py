@@ -6,7 +6,9 @@ Run as a file from the root of a checkout, on a machine with one card::
     python3 src/repro_torch/tools/kernel_times.py \\
         --tree parent=build/parent/src --tree change=src \\
         [--exit-threads 128,256,512] [--scatter-parts] \\
-        [--stream-variants "kStreamThreads=256;kStreamBarrierRows=8"]
+        [--stream-variants "kStreamThreads=256;kStreamBarrierRows=8"] \\
+        [--store-variants "kStoreThreads=128;kStoreThreads=512"] \\
+        [--color-variants "kColorRun=16;kRowsY=4"]
 
 Each ``--tree LABEL=DIR`` loads ``DIR/repro_torch`` under a name of its
 own (its kernels build into that checkout's ``build/``), plans the same
@@ -32,7 +34,10 @@ an SM holds at that size (the CUDA occupancy calculator).
 ``--stream-variants`` does the same for the stream kernel, one build per
 ';'-separated spec of other values of constants of ``huffman.cu`` (say
 ``kStreamThreads=512,kStreamBarrierRows=4``), and times a plain fill of
-the streams' bytes beside them. ``--scatter-parts`` profiles one call of
+the streams' bytes beside them; ``--store-variants`` for the store kernel
+(``kStoreThreads``),
+``--color-variants`` for the color kernel (constants of ``csrc/color.cu``,
+say ``kColorRun=16,kRowsY=4``). ``--scatter-parts`` profiles one call of
 each tree's scatter, printing its device time by kernel: the elementwise
 passes and the ``index_put``.
 
@@ -58,17 +63,24 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[3]
 
-# a block-size variant of huffman.cu: (constant, kernel, entry point);
-# the variant appends the kernel's blocks per SM with its tables in shared
-# memory
-VARIANTS = {"exit": ("kExitThreads", "exits_kernel", "rt_decode_exits"),
-            "stream": ("kStreamThreads", "streams_kernel",
-                       "rt_decode_streams")}
+# a variant build of a kernel source: kind -> (source, block-size
+# expression, kernel, its dynamic shared memory besides the tables, entry
+# point); the variant appends the kernel's blocks per SM
+VARIANTS = {
+    "exit": ("huffman", "kExitThreads", "exits_kernel<true>", "0",
+             "rt_decode_exits"),
+    "stream": ("huffman", "kStreamThreads", "streams_kernel<true>", "0",
+               "rt_decode_streams"),
+    "store": ("huffman", "kStoreThreads", "store_kernel<true, true>",
+              "kStoreSlotBytes", "rt_decode_store"),
+    "color": ("color", "kRunsX * kRowsY", "color_kernel<2, 2>", "0",
+              "rt_upsample_color"),
+}
 _OCCUPANCY = """
 extern "C" int kt_blocks_per_sm(int smem_bytes) {{
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, {kernel}<true>, {const}, smem_bytes);
+      &blocks, {kernel}, {threads}, {extra} + smem_bytes);
   return err == cudaSuccess ? blocks : -(int)err;
 }}
 """
@@ -90,7 +102,7 @@ def load_tree(label: str, src: Path):
 
 def tree_kernels(pkg: str, blobs, args, gpu):
     """{kernel: a call of it} on one tree's plan of ``blobs``, and the
-    exit kernel's operands for the block-size variants."""
+    kernels' operands for the variant builds."""
     mod = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
     api, D, SY = mod("core.api"), mod("core.decode"), mod("core.sync")
     DecodeState = mod("core.state").DecodeState
@@ -153,19 +165,25 @@ def tree_kernels(pkg: str, blobs, args, gpu):
     if hasattr(HK, "run_stream_kernel"):
         fns["huffman_streams_global"] = lambda: HK.run_stream_kernel(
             dev, meta, entries, **kw, smem_budget=0)
+    if hasattr(FS, "run_store_kernel"):
+        fns["huffman_store_global"] = lambda: FS.run_store_kernel(
+            dev, meta, entries, bases, write_max, n_coef, **kw,
+            smem_budget=0)
     x = units.to(torch.float32)
     library = lambda: [torch.matmul(x, m_t[q])  # noqa: E731
                        for q in range(plan.m_matrices.shape[0])]
-    exit_op = (HK, dev, meta, entries, kw)
-    return fns, library, exit_op
+    ops = dict(HK=HK, CK=CK, dev=dev, meta=meta, entries=entries, kw=kw,
+               bases=bases, write_max=write_max, n_coef=n_coef,
+               planes=planes, cgeo=cgeo)
+    return fns, library, ops
 
 
 def build_variants(kind, specs, build):
-    """This checkout's huffman.cu built once per spec, a {constant: value}
-    dict (at least the ``kind`` kernel's block size, ``VARIANTS``):
-    {label: loaded library}. The builds run at once."""
-    threads, kernel, _ = VARIANTS[kind]
-    src = (build.CSRC / "huffman.cu").read_text()
+    """This checkout's source of the ``kind`` kernel (``VARIANTS``) built
+    once per spec, a {constant: value} dict: {label: loaded library}. The
+    builds run at once."""
+    source, threads, kernel, extra, _ = VARIANTS[kind]
+    src = (build.CSRC / f"{source}.cu").read_text()
     out_dir = build.BUILD_DIR / f"{kind}_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -174,11 +192,13 @@ def build_variants(kind, specs, build):
         for const, value in spec.items():
             pattern = rf"constexpr int {const} = \d+;"
             if len(re.findall(pattern, text)) != 1:
-                raise SystemExit(f"huffman.cu has no single {const} constant")
+                raise SystemExit(f"{source}.cu has no single {const} "
+                                 f"constant")
             text = re.sub(pattern, f"constexpr int {const} = {value};", text)
-        cu = out_dir / f"huffman_v{n}.cu"
-        cu.write_text(text + _OCCUPANCY.format(kernel=kernel, const=threads))
-        so = out_dir / f"libhuffman_v{n}.so"
+        cu = out_dir / f"{source}_v{n}.cu"
+        cu.write_text(text + _OCCUPANCY.format(kernel=kernel, threads=threads,
+                                               extra=extra))
+        so = out_dir / f"lib{source}_v{n}.so"
         label = ",".join(f"{k}={v}" for k, v in spec.items())
         procs[label] = (subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
@@ -193,17 +213,38 @@ def build_variants(kind, specs, build):
     return libs
 
 
-def variant_call(kind, lib, exit_op):
-    """A call of a variant library's exit or stream kernel, tables in
-    shared memory, on the converged entries; returns (call, blocks per
-    SM)."""
-    HK, dev, meta, entries, kw = exit_op
-    name = VARIANTS[kind][2]
+def variant_call(kind, lib, ops):
+    """A call of a variant library's kernel on the tree's operands (the
+    Huffman kernels' tables in shared memory, on the converged entries);
+    returns (call, blocks per SM), the latter a function to call after the
+    first call (which opts the kernel into its shared memory)."""
+    HK, CK, kw = ops["HK"], ops["CK"], ops["kw"]
+    name = VARIANTS[kind][4]
     fn = getattr(lib, name)
-    fn.argtypes = HK._SIGNATURES[name]
+    fn.argtypes = CK._ARGS if kind == "color" else HK._SIGNATURES[name]
     fn.restype = ctypes.c_int
     occ = lib.kt_blocks_per_sm
     occ.argtypes, occ.restype = [ctypes.c_int], ctypes.c_int
+    if kind == "color":
+        planes, cgeo = ops["planes"], ops["cgeo"]
+        fv, fh = CK._check(planes, *cgeo)
+        height, width = cgeo[4], cgeo[5]
+        ints3 = ctypes.c_int * 3
+        n = planes[0].shape[0]
+
+        def call():
+            out = torch.empty((n, height, width, 3), dtype=torch.uint8,
+                              device=planes[0].device)
+            HK.B.check(fn(
+                (ctypes.c_void_p * 3)(*(p.data_ptr() for p in planes)),
+                ints3(*(p.shape[1] for p in planes)),
+                ints3(*(p.shape[2] for p in planes)), ints3(*fv),
+                ints3(*fh), HK.B.ptr(out), n, height, width,
+                HK.B.stream_of(out)), name)
+            return out
+
+        return call, lambda: occ(0)
+    dev, meta, entries = ops["dev"], ops["meta"], ops["entries"]
     args = HK.exit_args(dev, meta, entries)
     c = entries.p.shape[0]
     smem = HK.exit_table_bytes(dev)
@@ -212,15 +253,24 @@ def variant_call(kind, lib, exit_op):
     def call():
         if kind == "exit":
             out = [torch.empty_like(entries.p) for _ in range(4)]
-        else:
+        elif kind == "stream":
             out = [torch.empty((kw["s_max"], c), dtype=torch.int32,
                                device=entries.p.device) for _ in range(2)]
+        else:
+            out = [torch.zeros(ops["n_coef"], dtype=torch.int32,
+                               device=entries.p.device)]
+            err = fn(*args, HK.B.ptr(ops["bases"]),
+                     HK.B.ptr(ops["write_max"]), HK.B.ptr(out[0]),
+                     ops["n_coef"], c, kw["s_max"], kw["min_code_bits"],
+                     smem, stream)
+            HK.B.check(err, name)
+            return tuple(out)
         err = fn(*args, *(HK.B.ptr(t) for t in out), c, kw["s_max"],
                  kw["min_code_bits"], smem, stream)
         HK.B.check(err, name)
         return tuple(out)
 
-    return call, occ(smem)
+    return call, lambda: occ(smem)
 
 
 def scatter_parts(fn) -> list:
@@ -259,6 +309,12 @@ def main() -> None:
                     help="builds of this checkout's stream kernel with other "
                     "constants of huffman.cu, ';'-separated specs of "
                     "comma-separated CONST=VALUE")
+    ap.add_argument("--store-variants", default="",
+                    help="builds of this checkout's store kernel with other "
+                    "constants of huffman.cu, as --stream-variants")
+    ap.add_argument("--color-variants", default="",
+                    help="builds of this checkout's color kernel with other "
+                    "constants of color.cu, as --stream-variants")
     ap.add_argument("--scatter-parts", action="store_true",
                     help="profile each tree's scatter by kernel")
     ap.add_argument("--seed", type=int, default=0)
@@ -292,9 +348,9 @@ def main() -> None:
     del frames
 
     # (kernel, tree, call)
-    calls, outs, exit_ops, library = [], {}, {}, None
+    calls, outs, tree_ops, library = [], {}, {}, None
     for label, pkg in pkgs.items():
-        fns, lib_call, exit_ops[label] = tree_kernels(pkg, blobs, args, gpu)
+        fns, lib_call, tree_ops[label] = tree_kernels(pkg, blobs, args, gpu)
         library = library or lib_call
         for name, fn in fns.items():
             calls.append((name, label, fn))
@@ -305,10 +361,15 @@ def main() -> None:
                                  f"output than tree {next(iter(pkgs))}")
     calls.append(("idct_library", "torch", library))
     occupancy = {}
+    def parse(variants):
+        return [dict(kv.split("=") for kv in v.split(","))
+                for v in variants.split(";") if v]
+
     specs = {"exit": [{"kExitThreads": int(t)}
                       for t in args.exit_threads.split(",") if t],
-             "stream": [dict(kv.split("=") for kv in v.split(","))
-                        for v in args.stream_variants.split(";") if v]}
+             "stream": parse(args.stream_variants),
+             "store": parse(args.store_variants),
+             "color": parse(args.color_variants)}
     for kind, kind_specs in specs.items():
         if not kind_specs:
             continue
@@ -318,14 +379,16 @@ def main() -> None:
             raise SystemExit(f"variants of the {kind} kernel need this "
                              f"checkout's src among the trees")
         build = importlib.import_module(f"{pkgs[this[0]]}.kernels.build")
-        ref = outs[f"huffman_{kind}s"]
+        kernel = {"exit": "huffman_exits", "stream": "huffman_streams",
+                  "store": "huffman_store", "color": "color"}[kind]
+        ref = outs[kernel]
         for label, lib in build_variants(kind, kind_specs, build).items():
-            call, blocks = variant_call(kind, lib, exit_ops[this[0]])
+            call, blocks = variant_call(kind, lib, tree_ops[this[0]])
             if not all(torch.equal(a, b) for a, b in zip(flat(call()), ref)):
                 raise SystemExit(f"the {kind} kernel {label} gives another "
                                  f"output")
-            occupancy[f"{kind} {label}"] = blocks
-            calls.append((f"huffman_{kind}s", f"{this[0]} {label}", call))
+            occupancy[f"{kind} {label}"] = blocks()
+            calls.append((kernel, f"{this[0]} {label}", call))
         if kind == "stream":  # the streams' bytes written in order
             shape = ref[0].shape
             calls.append(("streams_fill", "torch", lambda: [

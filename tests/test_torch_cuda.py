@@ -21,7 +21,7 @@ from repro_torch.kernels.fused import store as FS
 from repro_torch.kernels.huffman import ops as HK
 from repro_torch.kernels.idct import ops as IK
 
-from _torch_corpus import corpus, oracle_coeffs
+from _torch_corpus import _enc, corpus, oracle_coeffs, synth_image
 
 pytestmark = pytest.mark.cuda
 
@@ -192,8 +192,33 @@ def test_color_kernel_matches_plain(card, comp_h, comp_v):
     got = CK.upsample_color(planes, *geo)
     exp = CK.upsample_color_plain(planes, *geo)
     assert got.shape == exp.shape
-    d = (got.to(torch.int16) - exp.to(torch.int16)).abs()
-    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("misalign", [0, 1])
+@pytest.mark.parametrize("comp_h,comp_v", [((2, 1, 1), (2, 1, 1)),
+                                           ((2, 1, 1), (1, 1, 1)),
+                                           ((1, 1, 1), (2, 1, 1)),
+                                           ((4, 1, 1), (1, 1, 1))])
+def test_color_kernel_on_an_odd_crop(card, comp_h, comp_v, misalign):
+    """Planes of a 1080p frame's MCU grid cropped to 1918x1078: the rows'
+    3 x 1918 bytes are not 16-byte aligned and the last run of a row is
+    cut; ``misalign`` starts every plane one float past a 16-byte
+    boundary, so no run loads 16 bytes at once. torch.equal to the plain
+    version, for the standard forms and a generic one (4:1:1)."""
+    h_max, v_max = max(comp_h), max(comp_v)
+    mcus_y, mcus_x = -(-1080 // (8 * v_max)), -(-1920 // (8 * h_max))
+    gen = torch.Generator().manual_seed(1)
+    planes = []
+    for h, v in zip(comp_h, comp_v):
+        n = 2 * mcus_y * 8 * v * mcus_x * 8 * h
+        flat = torch.rand(n + 4, generator=gen).mul(300).sub(20).to(card)
+        planes.append(flat[misalign:misalign + n].view(
+            2, mcus_y * 8 * v, mcus_x * 8 * h))
+    geo = (comp_h, comp_v, h_max, v_max, 1078, 1918)
+    got = CK.upsample_color(planes, *geo)
+    assert got.shape == (2, 1078, 1918, 3)
+    assert torch.equal(got, CK.upsample_color_plain(planes, *geo))
 
 
 @pytest.mark.parametrize("sync", ["jacobi", "faithful", "specmap",
@@ -246,6 +271,71 @@ def test_stream_kernel_table_sources_match_plain(card, name, budget):
         for g, e in zip(got, HK.decode_streams_plain(dev, meta, entry,
                                                      **kw)):
             assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("chunk_bits", [256, 1024])
+@pytest.mark.parametrize("budget", ["shared", "global"])
+@pytest.mark.parametrize("name", ["420", "optimized", "mixed", "restart"])
+def test_store_kernel_table_sources_match_plain(card, name, budget,
+                                                chunk_bits):
+    """The store kernel with its tables in shared memory and, with a
+    shared-memory budget of 0, read from global memory, on converged
+    entries at 256-bit chunks (most units split between lanes) and at
+    1024: torch.equal to the plain write pass, whole units and the units
+    split between lanes alike."""
+    dec = ParallelDecoder.from_bytes(corpus(name), chunk_bits=chunk_bits,
+                                     device=card)
+    dev, sh = dec.dev, dec.shape
+    meta = D.chunk_meta(dev)
+    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
+    smem = HK.exit_table_bytes(dev) if budget == "shared" else 0
+    res = jacobi_sync(dev, max_rounds=sh.n_chunks + 2, permuted=False,
+                      decode_exits=lambda d, e: HK.decode_exits(d, meta, e,
+                                                                **kw))
+    entries = chain_entries(dev, res.exits, False)
+    bases = D.chunk_write_bases(dev, res.exits.n, permuted=False)
+    seg_end = torch.cat([dev["seg_coeff_base"][1:], dev["units_end"][None]])
+    wmax = seg_end[dev["chunk_seg"].long()] - 1
+    n = sh.n_units * 64
+    before = FS.decode_coeffs_store.launches
+    got = FS.run_store_kernel(dev, meta, entries, bases, wmax, n, **kw,
+                              smem_budget=smem)
+    assert FS.decode_coeffs_store.launches == before  # uncounted
+    assert torch.equal(got, FS.decode_coeffs_store_plain(
+        dev, meta, entries, bases, wmax, n, **kw))
+
+
+@pytest.mark.parametrize("budget", ["shared", "global"])
+@pytest.mark.parametrize("many", [False, True])
+def test_store_kernel_lane_and_warp_writes_match_plain(card, many, budget):
+    """The store kernel's whole units go out by each lane itself when the
+    launch has fewer lanes than a warp an SM, by the warp together when it
+    has more: a small batch and one of q95 320x240 frames at 256-bit
+    chunks large enough for the warp's writes, each torch.equal to the
+    plain write pass."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    blobs = corpus("420")
+    if many:
+        blobs = [_enc(synth_image(240, 320, seed=s), quality=95)
+                 for s in range(16)]
+    dec = ParallelDecoder.from_bytes(blobs, chunk_bits=256, device=card)
+    dev, sh = dec.dev, dec.shape
+    assert (sh.n_chunks >= 32 * sms) == many
+    meta = D.chunk_meta(dev)
+    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
+    res = jacobi_sync(dev, max_rounds=sh.n_chunks + 2, permuted=False,
+                      decode_exits=lambda d, e: HK.decode_exits(d, meta, e,
+                                                                **kw))
+    entries = chain_entries(dev, res.exits, False)
+    bases = D.chunk_write_bases(dev, res.exits.n, permuted=False)
+    seg_end = torch.cat([dev["seg_coeff_base"][1:], dev["units_end"][None]])
+    wmax = seg_end[dev["chunk_seg"].long()] - 1
+    n = sh.n_units * 64
+    smem = HK.exit_table_bytes(dev) if budget == "shared" else 0
+    got = FS.run_store_kernel(dev, meta, entries, bases, wmax, n, **kw,
+                              smem_budget=smem)
+    assert torch.equal(got, FS.decode_coeffs_store_plain(
+        dev, meta, entries, bases, wmax, n, **kw))
 
 
 @pytest.mark.parametrize("name", ["420", "restart", "mixed"])

@@ -15,6 +15,7 @@ from repro_torch.core.bitstream import (build_batch_plan, build_plan_data,
                                         dev_from_numpy, plan_shape)
 from repro_torch.core.state import DecodeState
 from repro_torch.jpeg import tables as T
+from repro_torch.kernels.fused import store as FS
 from repro_torch.kernels.huffman import ops as HK
 
 from _torch_corpus import CORPORA, corpus
@@ -137,3 +138,18 @@ def test_exit_kernel_operands_need_the_tables():
         HK.exit_args(dev, meta, entry)
     dev.update(HK.exit_tables(dev))
     assert len(HK.exit_args(dev, meta, entry)) == 13
+
+
+def test_store_kernel_operands_need_the_tables():
+    """The store kernel reads the exit kernel's compact tables: its launch
+    refuses a plan without them before reaching the card."""
+    plan = build_batch_plan(corpus("420"), chunk_bits=256)
+    data = build_plan_data(plan, plan_shape(plan, bucket=True))
+    dev = dev_from_numpy(dict(data.arrays, words=data.words), "cpu")
+    meta = D.chunk_meta(dev)
+    entry = DecodeState.cold(dev["chunk_start"])
+    lanes = entry.p.shape[0]
+    base = torch.zeros(lanes, dtype=torch.int32)
+    with pytest.raises(ValueError, match="compact tables"):
+        FS.run_store_kernel(dev, meta, entry, base, base, 64, s_max=1,
+                            min_code_bits=2, smem_budget=0)
