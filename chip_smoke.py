@@ -30,9 +30,24 @@ otherwise. Phases, each of which exits non-zero on failure:
    "none", faithful and specmap with "post", sequential with "full", and
    the frames' luma as a grayscale batch with "post" and "none". Every
    launch count is set to 0 just before each path and read just after;
-   coefficients equal the plain path's on the card, RGB within 1, and
-   each path launched exactly its kernels. Then each path's warm decode
-   time, sync rounds and host checks, and a profile of its device time.
+   coefficients equal the plain path's on the card, RGB within 1,
+   ``sync_rounds`` the plain path's of the same schedule (sequential: 1),
+   and each path launched exactly its kernels. Then each path's warm
+   decode time, sync rounds and host checks (cold and warm, beside the
+   parent's), and a profile of its device time;
+5. the program cache: 8 batches of 8 of the 32 frames, drawn with
+   ``--seed``, through ``ParallelDecoder`` on jacobi "post", then "full":
+   each key one program allocated once, each batch's coefficients the
+   plain path's for its own frames and its RGB within 1; the warm decode
+   time, host checks and the device bytes the cache holds;
+6. the decode service (``batch_size=8``, ``validate=True``,
+   ``fuse="post"``): the 8 distinct frames 8 times each and 4 damaged
+   requests (a scan cut mid-segment, a flipped bit in the scan, a mangled
+   DQT length, bytes that are not a JPEG), shuffled; each damaged request
+   gets the status ``validate_blob`` gives it, each clean one RGB within 1
+   of its frame's plain decode. Then images/s, p50/p99 latency,
+   occupancy and the cache's allocations at the highest rate the service
+   sustains and at half of it.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -62,6 +77,9 @@ INT_OPS_PER_S = F32_FLOP_PER_S / 2
 # symbol_step (window, LUT lookup, magnitude, state update); a low count,
 # so the bound stays a lower bound
 OPS_PER_SYMBOL_STEP = 40
+# host checks a decode of the default newyork batch made before the sync
+# loops ran in blocks (one a round; PERF.md section 5)
+PARENT_HOST_CHECKS = {"jacobi": 27, "faithful": 54}
 
 
 def fail(msg: str) -> None:
@@ -167,7 +185,9 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
 
     from repro_torch import decode_batch
+    from repro_torch.core import api
     from repro_torch.core import decode as D
+    from repro_torch.core.bitstream import validate_blob
     from repro_torch.core.api import ParallelDecoder
     from repro_torch.core import sync as SY
     from repro_torch.core.state import DecodeState
@@ -179,6 +199,7 @@ def main() -> None:
     from repro_torch.kernels.fused import store as FS
     from repro_torch.kernels.huffman import ops as HK
     from repro_torch.kernels.idct import ops as IK
+    from repro_torch.serve import DecodeService, ServiceConfig, run_open_loop
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -686,12 +707,20 @@ def main() -> None:
         ("gray jacobi/none", True, "jacobi", "none", {exits, streams, "idct"}),
     ]
     batches = {False: blobs, True: gray_blobs}
-    # the plain path on the card, one per batch: what every path must equal
-    plain = {gray: decode_batch(b, chunk_bits=args.chunk_bits,
-                                backend="torch", device=gpu)
-             for gray, b in batches.items()}
-    check(all(p.converged for p in plain.values()),
-          "the plain path did not converge")
+    # the plain path on the card, per batch and schedule: what every path
+    # must equal (sequential is one cold round, so it is held to 1 and to
+    # the jacobi plain path's coefficients)
+    plain = {}
+    for gray, sync in ((False, "jacobi"), (False, "faithful"),
+                       (False, "specmap"), (True, "jacobi")):
+        plain[gray, sync] = decode_batch(
+            batches[gray], chunk_bits=args.chunk_bits, sync=sync,
+            backend="torch", device=gpu, emit="rgb" if sync == "jacobi"
+            else "coeffs")
+        check(plain[gray, sync].converged,
+              f"the plain path ({sync}) did not converge")
+    plain_rgb = {gray: plain[gray, "jacobi"].rgb for gray in batches}
+    api.clear_decode_programs()
     sync_stats = {}
     for label, gray, sync, fuse, expect in paths:
         for fn, attr in counters.values():
@@ -710,32 +739,32 @@ def main() -> None:
         check(launched == expect, f"{label} launched {sorted(launched)}, "
               f"expected {sorted(expect)}")
         check_flags(out, fuse, gray, label)
-        ref = plain[gray]
+        ref = plain.get((gray, sync), plain[gray, "jacobi"])
+        ref_rounds = 1 if sync == "sequential" else ref.sync_rounds
         check(out.converged, f"{label}: did not converge")
-        check(sync != "jacobi" or out.sync_rounds == ref.sync_rounds,
-              f"{label}: sync_rounds {out.sync_rounds} != plain "
-              f"{ref.sync_rounds}")
+        check(out.sync_rounds == ref_rounds, f"{label}: sync_rounds "
+              f"{out.sync_rounds} != the plain path's {ref_rounds}")
         check(torch.equal(out.coeffs, ref.coeffs),
               f"{label}: coefficients differ from the plain path")
         shape = (len(blobs), args.height, args.width) + (() if gray else (3,))
         check(tuple(out.rgb.shape) == shape,
               f"{label}: rgb shape {tuple(out.rgb.shape)}")
-        d = (out.rgb.to(torch.int16) - ref.rgb.to(torch.int16)).abs()
+        d = (out.rgb.to(torch.int16) - plain_rgb[gray].to(torch.int16)).abs()
         check(int(d.max()) <= 1, f"{label}: RGB differs from the plain path "
               f"by {int(d.max())}")
         sync_stats[label] = (out.sync_rounds, checks)
         print(f"[main] {label}: coefficients equal the plain path; "
-              f"{out.sync_rounds} sync rounds (plain jacobi "
-              f"{ref.sync_rounds}), {checks} host checks; RGB max diff "
-              f"{int(d.max())} ({int((d == 1).sum())} samples off by one)",
-              flush=True)
+              f"{out.sync_rounds} sync rounds (plain {sync} {ref_rounds}), "
+              f"{checks} host checks cold; RGB max diff {int(d.max())} "
+              f"({int((d == 1).sum())} samples off by one)", flush=True)
         del out, d
     check(all(r["launches"] > 0 for r in kernels), "a kernel of the main "
           "path was never launched")
+    plain_coeffs = plain[False, "jacobi"].coeffs
     del plain
     torch.cuda.empty_cache()
 
-    planned_ms = {}
+    planned_ms, warm_checks = {}, {}
     for label, gray, sync, fuse, _ in paths:
         main_path = label in ("jacobi/post", "jacobi/full")
         batch = batches[gray]
@@ -749,14 +778,19 @@ def main() -> None:
             dec.decode()
             torch.cuda.synchronize()
             device_ms.append((time.perf_counter() - t0) * 1e3)
+        stats = dec.launch_stats()
+        warm = warm_checks[label] = stats["host_checks"]
         del dec
         med = planned_ms[label] = statistics.median(device_ms[1:])
         mbx = sum(map(len, batch)) / 1e6
-        rounds, checks = sync_stats[label]
+        rounds, cold = sync_stats[label]
+        parent = PARENT_HOST_CHECKS.get(sync) if not gray else None
         line = (f"[main] {label}: warm decode of a planned batch "
                 f"{med:.2f} ms median ({len(batch) / med * 1e3:.1f} images/s, "
                 f"{mbx / med * 1e3:.1f} MB/s compressed), {rounds} sync "
-                f"rounds, {checks} host checks")
+                f"rounds, host checks {cold} cold / {warm} warm (parent "
+                f"{parent if parent is not None else 'not recorded'}), "
+                f"{stats['graph_replays']} CUDA graphs of 2 rounds")
         if main_path:
             e2e_ms = []
             for _ in range(max(2, args.reps // 2)):
@@ -768,6 +802,8 @@ def main() -> None:
             line += (f"; decode_batch from bytes {e2e:.1f} ms "
                      f"({len(batch) / e2e * 1e3:.1f} images/s)")
         print(line, flush=True)
+    check(warm_checks["jacobi/post"] <= 4, f"a warm jacobi decode made "
+          f"{warm_checks['jacobi/post']} host checks")
 
     # where the device time of one warm planned decode goes: the kernels'
     # own rows of the profile (the rows of the aten ops that launched them
@@ -799,6 +835,131 @@ def main() -> None:
             print(f"[profile] {label}: the profiler saw no device time: "
                   f"not measured")
         del dec
+    stats = api.decode_program_stats()
+    print(f"[cache] after phase 4: {stats['programs']} programs, "
+          f"{stats['allocations']} allocations, "
+          f"{stats['device_bytes'] / 1e9:.2f} GB on the card", flush=True)
+    api.clear_decode_programs()
+
+    # -- 5. the program cache: batches of one bucket, each its own frames ----
+    n_img = len(blobs)
+    per_frame = plain_coeffs.shape[0] // n_img
+    pick = np.random.default_rng(args.seed)
+    draws = [pick.permutation(n_img)[:8] for _ in range(8)]
+    for fuse in ("post", "full"):
+        decs = [ParallelDecoder.from_bytes([blobs[j] for j in idx],
+                                           chunk_bits=args.chunk_bits,
+                                           fuse=fuse) for idx in draws]
+        warm_ms, checks = [], []
+        for rep in range(2):
+            for idx, dec in zip(draws, decs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = dec.decode()
+                torch.cuda.synchronize()
+                if rep:
+                    warm_ms.append((time.perf_counter() - t0) * 1e3)
+                    checks.append(dec.launch_stats()["host_checks"])
+                exp = torch.cat([plain_coeffs[j * per_frame:
+                                              (j + 1) * per_frame]
+                                 for j in idx])
+                check(torch.equal(out.coeffs, exp), f"phase 5 {fuse}: a "
+                      f"batch's coefficients differ from its frames' plain "
+                      f"decode")
+                d = (out.rgb.to(torch.int16)
+                     - plain_rgb[False][torch.as_tensor(idx, device=gpu)]
+                     .to(torch.int16)).abs()
+                check(int(d.max()) <= 1, f"phase 5 {fuse}: RGB differs "
+                      f"from the plain path by {int(d.max())}")
+                del out, exp, d
+        progs = [p for p in api.decode_programs() if p.fuse == fuse]
+        check(all(p.allocations == 1 for p in progs),
+              f"phase 5 {fuse}: a program allocated more than once")
+        check(sum(p.decodes for p in progs) == 2 * len(decs),
+              f"phase 5 {fuse}: decodes went outside the cache")
+        stats = api.decode_program_stats()
+        print(f"[cache] jacobi/{fuse}: 8 batches of 8 frames in "
+              f"{len(progs)} bucket(s), {sum(p.allocations for p in progs)} "
+              f"allocation(s), {sum(p.uploads for p in progs)} uploads; each "
+              f"batch equals its frames' plain decode; warm decode "
+              f"{statistics.median(warm_ms):.2f} ms median (upload "
+              f"included), host checks {min(checks)}-{max(checks)}; cache "
+              f"{stats['device_bytes'] / 1e9:.3f} GB on the card",
+              flush=True)
+        del decs
+    api.clear_decode_programs()
+
+    # -- 6. the decode service -----------------------------------------------
+    scan = distinct[0].index(b"\xff\xda")
+    cut = distinct[0][:scan + (len(distinct[0]) - scan) // 2]
+    flipped = bytearray(distinct[1 % len(distinct)])
+    flipped[scan + (len(flipped) - scan) // 3] ^= 0x08
+    dqt = bytearray(distinct[2 % len(distinct)])
+    at = dqt.index(b"\xff\xdb")
+    dqt[at + 2:at + 4] = (0).to_bytes(2, "big")
+    junk = pick.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+    damaged = [cut, bytes(flipped), bytes(dqt), junk]
+    frame_of = {}
+    requests = []
+    for i, b in enumerate(distinct):
+        requests += [b] * 8
+        frame_of[b] = i
+    requests += damaged
+    order = pick.permutation(len(requests))
+    requests = [requests[k] for k in order]
+    cfg = ServiceConfig(batch_size=8, validate=True, fuse="post",
+                        chunk_bits=args.chunk_bits, slo_ms=600_000.0,
+                        max_form_ms=50.0, max_buckets=8)
+    with DecodeService(cfg) as svc:
+        svc.prewarm(distinct)
+        svc.reset_stats()
+        t0 = time.perf_counter()
+        res = [f.result(timeout=600) for f in svc.submit_many(requests)]
+        wall = time.perf_counter() - t0
+        off, worst = 0, 0
+        for b, r in zip(requests, res):
+            if b in frame_of:
+                check(r.status == 0, f"phase 6: a clean request got status "
+                      f"{r.status}")
+                ref = plain_rgb[False][frame_of[b] * args.repeat].cpu()
+                d = (r.rgb.to(torch.int16) - ref.to(torch.int16)).abs()
+                worst, off = max(worst, int(d.max())), off + int((d == 1)
+                                                                  .sum())
+            else:
+                exp = validate_blob(b).status
+                check(r.status == exp, f"phase 6: a damaged request got "
+                      f"status {r.status}, validate_blob gives {exp}")
+        check(worst <= 1, f"phase 6: RGB differs from the plain decode by "
+              f"{worst}")
+        names = ("cut scan", "flipped bit", "DQT length", "not a JPEG")
+        print(f"[serve] {len(requests)} requests in {wall:.2f} s: "
+              f"{len(requests) - len(damaged)} clean within {worst} of the "
+              f"plain decode ({off} samples off by "
+              f"one); damaged: " + ", ".join(
+                  f"{n} status {validate_blob(b).status}"
+                  for n, b in zip(names, damaged)), flush=True)
+        rate = 0.0
+        for _ in range(2):
+            svc.reset_stats()
+            load = run_open_loop(svc, distinct, n_requests=64,
+                                 rate_ips=rate, seed=args.seed,
+                                 timeout_s=600)
+            st = svc.serve_stats()
+            check(load["completed"] == 64 and not load["rejected"],
+                  f"phase 6: {load['rejected']} rejected at "
+                  f"{rate:.1f} images/s")
+            print(f"[serve] offered {'all at once' if not rate else f'{rate:.1f} images/s'}: "
+                  f"{load['ips']:.1f} images/s, p50 {load['p50_ms']:.1f} ms, "
+                  f"p99 {load['p99_ms']:.1f} ms, occupancy "
+                  f"{load['occupancy_mean']:.2f} of 8, {st['batches']} "
+                  f"batches, device stage {st['warm_batch_ms']:.1f} ms a "
+                  f"batch (decode and copy to the host), cache "
+                  f"{st['programs']['programs']} programs "
+                  f"{st['programs']['allocations']} allocations "
+                  f"{st['programs']['device_bytes'] / 1e9:.3f} GB",
+                  flush=True)
+            rate = load["ips"] / 2
+    api.clear_decode_programs()
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Host-side batch planning for the parallel JPEG decoder (numpy).
 
-A copy of the JAX package's ``core/bitstream.py`` planner, without its
-validation, lane-balance and multi-host paths: parse headers, extract
-tables, unstuff the scan, and frame the bitstream into fixed-size
-*subsequences* ("chunks") — only compressed bytes + small metadata cross
-the host->device link, which is the paper's whole point.
+A copy of the JAX package's ``core/bitstream.py`` planner, with its
+non-throwing validation and quarantine lanes and without its lane-balance
+and multi-host paths: parse headers, extract tables, unstuff the scan,
+and frame the bitstream into fixed-size *subsequences* ("chunks") — only
+compressed bytes + small metadata cross the host->device link, which is
+the paper's whole point.
 :func:`dev_from_numpy` turns the planner's numpy arrays into the port's
 tensors.
 
@@ -27,10 +28,202 @@ import torch
 from . import contracts
 from ..jpeg import tables as T
 from ..jpeg.codec_ref import dct_matrix, scan_unit_layout
-from ..jpeg.format import (JpegImage, pack_bits_to_words, parse_jpeg,
-                           segment_byte_bounds, unstuff_scan)
+from ..jpeg.format import (JpegFormatError, JpegImage, pack_bits_to_words,
+                           parse_jpeg, segment_byte_bounds, unstuff_scan)
 
 MAX_UPM = 6  # max data units per MCU we support (4:2:0 -> 4+1+1)
+
+# Per-image decode status (DecodeOutput.status / decode_stats counters).
+STATUS_OK = 0          # clean parse, every restart segment intact
+STATUS_RECOVERED = 1   # damaged scan; surviving restart segments decoded
+STATUS_REJECTED = 2    # nothing decodable; replaced by an inert quarantine lane
+STATUS_NAMES = ("ok", "recovered", "rejected")
+
+
+# ---------------------------------------------------------------------------
+# Non-throwing validation: classify blobs before planning
+# ---------------------------------------------------------------------------
+
+def expected_segments(img: JpegImage) -> int:
+    """Restart segments a complete scan of ``img`` must contain."""
+    if img.restart_interval:
+        return -(-img.n_mcus // img.restart_interval)
+    return 1
+
+
+def _huffman_spec_error(spec, kind: str) -> Optional[str]:
+    """Reject table specs that LUT construction or decoding cannot digest.
+
+    A corrupt DHT parses fine but can carry an overfull code set (Kraft
+    inequality violated — canonical code assignment walks off the 16-bit
+    window) or DC symbols above 15 (the magnitude-category range the LUT
+    entry packs into 4 bits).
+    """
+    counts = np.asarray(spec.bits, dtype=np.int64)
+    kraft = int((counts * (1 << (15 - np.arange(16)))).sum())
+    if kraft > (1 << 16):
+        return (f"{kind} huffman table overfull "
+                f"(kraft sum {kraft} > {1 << 16})")
+    if kind == "dc" and len(spec.vals) and int(np.max(spec.vals)) > 15:
+        return "dc huffman symbol above category 15"
+    return None
+
+
+def _decodable_error(img: JpegImage) -> Optional[str]:
+    """Why a *parsed* image still cannot be decoded, or None if it can.
+
+    ``parse_jpeg`` checks wire structure; this checks semantic
+    completeness — geometry sanity and that every referenced quant /
+    Huffman table actually arrived and is well formed.
+    """
+    if not img.components:
+        return "no components"
+    if img.width <= 0 or img.height <= 0:
+        return f"bad dimensions {img.width}x{img.height}"
+    for c in img.components:
+        if not (1 <= c.h <= 4 and 1 <= c.v <= 4):
+            return (f"component {c.comp_id} has illegal sampling "
+                    f"{c.h}x{c.v}")
+    if img.units_per_mcu > MAX_UPM:
+        return (f"{img.units_per_mcu} data units per MCU exceeds the "
+                f"supported {MAX_UPM}")
+    for c in img.components:
+        if c.quant_id not in img.quant_tables:
+            return f"missing quant table {c.quant_id}"
+        for kind, tid in (("dc", c.dc_table), ("ac", c.ac_table)):
+            spec = img.huffman_specs.get((kind, tid))
+            if spec is None:
+                return f"missing {kind} huffman table {tid}"
+            err = _huffman_spec_error(spec, kind)
+            if err is not None:
+                return err
+    return None
+
+
+@dataclasses.dataclass
+class BlobReport:
+    """Validation verdict for one JPEG blob (never an exception).
+
+    ``status`` is STATUS_OK / STATUS_RECOVERED / STATUS_REJECTED; ``error``
+    carries the diagnostic (with ``error_offset`` / ``error_marker`` byte
+    context when the parser provided it). For decodable blobs the parsed
+    image and the unstuffed scan ride along so the planner never redoes
+    that work, and ``seg_ranges`` / ``seg_valid`` frame the scan into the
+    *expected* restart-segment count: missing segments are empty ranges,
+    ``seg_valid[i]`` marks segments that provably carry their original
+    bits (damaged scans decode their surviving prefix; the suspect tail
+    segment is decoded but masked invalid).
+    """
+
+    status: int
+    error: Optional[str] = None
+    error_offset: Optional[int] = None
+    error_marker: Optional[int] = None
+    image: Optional[JpegImage] = None
+    clean: Optional[np.ndarray] = None       # unstuffed scan bytes (uint8)
+    rst_bits: Optional[np.ndarray] = None    # restart bit offsets in clean
+    seg_ranges: Optional[List[Tuple[int, int]]] = None  # byte spans, S_exp long
+    seg_valid: Optional[np.ndarray] = None   # (S_exp,) bool
+    n_segments_expected: int = 0
+    n_segments_actual: int = 0
+
+
+@dataclasses.dataclass
+class BatchValidation:
+    """Per-blob reports plus batch-level rollups for one batch."""
+
+    reports: List[BlobReport]
+
+    @property
+    def status(self) -> np.ndarray:
+        return np.array([r.status for r in self.reports], dtype=np.int32)
+
+    @property
+    def n_ok(self) -> int:
+        return sum(r.status == STATUS_OK for r in self.reports)
+
+    @property
+    def n_recovered(self) -> int:
+        return sum(r.status == STATUS_RECOVERED for r in self.reports)
+
+    @property
+    def n_rejected(self) -> int:
+        return sum(r.status == STATUS_REJECTED for r in self.reports)
+
+    @property
+    def all_ok(self) -> bool:
+        return all(r.status == STATUS_OK for r in self.reports)
+
+    def errors(self) -> List[Tuple[int, str]]:
+        """(image index, diagnostic) for every non-ok blob."""
+        return [(i, r.error or STATUS_NAMES[r.status])
+                for i, r in enumerate(self.reports)
+                if r.status != STATUS_OK]
+
+
+def validate_blob(blob: bytes) -> BlobReport:
+    """Classify one JPEG blob without ever raising.
+
+    ok        — parses clean, scan complete, all restart segments present.
+    recovered — headers and tables intact but the scan is damaged
+                (truncated, or the restart-segment count is off); the
+                surviving segments are framed for decode with a validity
+                mask over them.
+    rejected  — structurally unparseable, or missing/corrupt tables:
+                nothing decodable. The planner replaces it with an inert
+                quarantine lane.
+    """
+    try:
+        img = parse_jpeg(bytes(blob), allow_truncated=True)
+    except JpegFormatError as e:
+        return BlobReport(status=STATUS_REJECTED, error=str(e),
+                          error_offset=e.offset, error_marker=e.marker)
+    except Exception as e:  # pragma: no cover — hard wall, nothing escapes
+        return BlobReport(status=STATUS_REJECTED,
+                          error=f"{type(e).__name__}: {e}")
+    err = _decodable_error(img)
+    if err is not None:
+        return BlobReport(status=STATUS_REJECTED, error=err)
+    try:
+        clean, rst_bits = unstuff_scan(img.scan_data)
+        bounds = segment_byte_bounds(clean, rst_bits)
+    except Exception as e:  # pragma: no cover — hard wall
+        return BlobReport(status=STATUS_REJECTED,
+                          error=f"{type(e).__name__}: {e}")
+    s_act = len(bounds) - 1
+    s_exp = expected_segments(img)
+    anomalous = img.truncated or s_act != s_exp
+    n_keep = min(s_act, s_exp)
+    if anomalous and len(clean) == 0:
+        return BlobReport(status=STATUS_REJECTED, error="empty scan data",
+                          image=img, n_segments_expected=s_exp,
+                          n_segments_actual=s_act)
+    # Frame to exactly s_exp segments: kept segments take their actual
+    # byte spans, missing ones are empty. When anomalous, every segment up
+    # to (but not including) the last kept one ended at a genuine restart
+    # marker and provably carries its original bits; the final kept
+    # segment is decoded too (its prefix is real data) but masked invalid.
+    seg_ranges = [(bounds[si], bounds[si + 1]) for si in range(n_keep)]
+    seg_ranges += [(int(len(clean)), int(len(clean)))] * (s_exp - n_keep)
+    ok_upto = s_exp if not anomalous else max(0, n_keep - 1)
+    seg_valid = np.arange(s_exp) < ok_upto
+    error = None
+    if anomalous:
+        what = "truncated scan" if img.truncated else "restart structure"
+        error = (f"{what}: {s_act}/{s_exp} restart segments present, "
+                 f"{ok_upto} intact")
+    return BlobReport(
+        status=STATUS_OK if not anomalous else STATUS_RECOVERED,
+        error=error, image=img, clean=clean, rst_bits=rst_bits,
+        seg_ranges=seg_ranges, seg_valid=seg_valid,
+        n_segments_expected=s_exp, n_segments_actual=s_act,
+    )
+
+
+def validate_batch(blobs: Sequence[bytes]) -> BatchValidation:
+    """Non-throwing classification of a whole batch (tentpole entry point)."""
+    return BatchValidation([validate_blob(b) for b in blobs])
+
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +345,16 @@ class BatchPlan:
     comp_unit_idx: Optional[List[np.ndarray]]   # per comp: (Uc,) unit ids in image
     comp_block_idx: Optional[List[np.ndarray]]  # per comp: (Uc,) raster block ids
     comp_grid: Optional[List[Tuple[int, int]]]  # per comp: (blocks_y, blocks_x)
+
+    # --- resilience (host-side, set when planned from a BatchValidation) ------
+    # These never ship to the device and never enter PlanShape — quarantine
+    # is pure PlanData (zero-bit segments), so it cannot mint compile keys.
+    image_status: Optional[np.ndarray] = None  # (B,) int32 STATUS_* per image
+    seg_valid: Optional[np.ndarray] = None     # (S,) bool segment carries
+                                               #   its original bits
+    unit_valid: Optional[np.ndarray] = None    # (U,) bool unit's coefficients
+                                               #   are trustworthy
+
 
     # --- lane layout -----------------------------------------------------------
     # Mesh-lane blocks the lane axis is laid out for: lane balancing produces
@@ -300,6 +503,14 @@ class PlanShape:
     n_images: int
     uniform: bool
     geometry: Optional[ImageGeometry]
+
+    def label(self) -> str:
+        """Compact human-readable bucket id for logs/stats."""
+        geo = (f"{self.geometry.width}x{self.geometry.height}"
+               if self.geometry is not None else "mixed")
+        return (f"b{self.n_images}:{geo}:w{self.n_words}:s{self.n_segments}"
+                f":c{self.n_lanes}x{self.block}:q{self.n_sequences}"
+                f":u{self.n_units}:cb{self.chunk_bits}")
 
     @property
     def block(self) -> int:
@@ -478,6 +689,68 @@ def build_plan_data(plan: BatchPlan, shape: PlanShape) -> PlanData:
 
 
 # ---------------------------------------------------------------------------
+# Pinning a plan to a given shape
+# ---------------------------------------------------------------------------
+#
+# A caller may pin the shape a plan decodes under (``ParallelDecoder(shape=)``:
+# the decode service pins an admitted bucket). Two of its constants may
+# relax soundly:
+#   s_max          is only a loop *bound*; a lane stops decoding at its bit
+#                  limit, so extra iterations are no-ops and any s_max >= the
+#                  plan's own need is bit-identical.
+#   min_code_bits  is the advance in the speculative garbage phase (invalid
+#                  LUT window). Converged schedules emit from truth-propagated
+#                  entries that decode only valid codewords, so the final
+#                  coefficients do not depend on it; it only has to be small
+#                  enough that s_max covers the worst garbage walk, which a
+#                  shape covering the plan guarantees (s_max is the monotone
+#                  function chunk_bits // min_code + 2 of the shared
+#                  chunk_bits).
+
+def consensus_plan(plan: BatchPlan, shape: PlanShape) -> BatchPlan:
+    """Align a plan's constants of the decode to a shape that covers it.
+
+    Returns a plan whose statics match ``shape`` exactly (so
+    :func:`build_plan_data` accepts it) while its arrays are untouched:
+    ``s_max``/``min_code_bits``/``n_images`` take the shape's values
+    (bit-exact by the argument above), and the pixel-stage flags collapse
+    to coeffs-only when the shape is not uniform. Raises when ``shape``
+    does not cover this plan.
+    """
+    if plan.chunk_bits != shape.chunk_bits:
+        raise ValueError(
+            f"shape chunk_bits {shape.chunk_bits} != plan's "
+            f"{plan.chunk_bits}")
+    if plan.seq_chunks != shape.seq_chunks:
+        raise ValueError(
+            f"shape seq_chunks {shape.seq_chunks} != plan's "
+            f"{plan.seq_chunks}")
+    if plan.n_lanes != shape.n_lanes or (plan.balance != "none") != shape.permuted:
+        raise ValueError(
+            f"shape lane layout (n_lanes={shape.n_lanes}, "
+            f"permuted={shape.permuted}) != plan's (n_lanes={plan.n_lanes}, "
+            f"permuted={plan.balance != 'none'})")
+    if shape.s_max < plan.s_max or shape.min_code_bits > plan.min_code_bits:
+        raise ValueError(
+            f"shape (s_max={shape.s_max}, min_code_bits="
+            f"{shape.min_code_bits}) does not cover the plan (s_max="
+            f"{plan.s_max}, min_code_bits={plan.min_code_bits})")
+    if shape.n_images < plan.n_images:
+        raise ValueError(
+            f"shape n_images {shape.n_images} < plan's {plan.n_images}")
+    kw = dict(s_max=shape.s_max, min_code_bits=shape.min_code_bits,
+              n_images=shape.n_images)
+    if not shape.uniform:
+        kw.update(uniform=False, geometry=None)
+    elif not (plan.uniform and plan.geometry == shape.geometry
+              and plan.n_images == shape.n_images):
+        raise ValueError(
+            "the shape is uniform but this plan's geometry/image count "
+            "differs: only a coefficients-only shape can cover it")
+    return dataclasses.replace(plan, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Plan builder
 # ---------------------------------------------------------------------------
 
@@ -520,14 +793,13 @@ def _min_code_bits(specs) -> int:
     return max(1, m)
 
 
-
-
 def build_batch_plan(
     blobs: Sequence[bytes],
     chunk_bits: int = 1024,
     seq_chunks: int = 32,
     parsed: Optional[Sequence[JpegImage]] = None,
     unstuffed: Optional[Sequence] = None,
+    validation: Optional[BatchValidation] = None,
 ) -> BatchPlan:
     """Parse + frame a batch of JPEG files into a device-ready plan.
 
@@ -535,11 +807,40 @@ def build_batch_plan(
     or unstuffed the scans (``unstuff_scan`` results, one per image, as
     the sequential schedule's chunk sizing does) share that work instead
     of redoing it here.
+
+    ``validation`` (a :func:`validate_batch` result) switches planning to
+    the resilient path: damaged blobs never raise. Recovered images are
+    framed into their *expected* restart-segment count (missing segments
+    become zero-bit segments that decode nothing), and rejected images are
+    quarantined as inert lanes — in a geometry-uniform batch they borrow
+    the first surviving image's segment/unit footprint with zero-bit
+    segments, so the plan's extents match a clean batch of the same shape
+    and the surviving images decode bit-identically to decoding them
+    alone. Quarantine is pure plan *data* (zero-length segments use the
+    exact machinery capacity padding already relies on), never plan
+    *shape*, so it cannot mint new compile-cache entries. The plan's
+    ``image_status`` / ``seg_valid`` / ``unit_valid`` record what is
+    trustworthy.
     """
     assert chunk_bits % 32 == 0, "chunk size must be a multiple of 32 bits"
-    images = list(parsed) if parsed is not None else [parse_jpeg(b) for b in blobs]
-    n_images = len(images)
-    assert n_images > 0
+    if validation is not None:
+        assert parsed is None and unstuffed is None, \
+            "pass either validation or parsed/unstuffed, not both"
+        reports = validation.reports
+        n_images = len(reports)
+        assert n_images > 0
+        live = [r.status != STATUS_REJECTED and r.image is not None
+                for r in reports]
+        donor = next((i for i, r in enumerate(reports)
+                      if live[i] and r.status == STATUS_OK), None)
+        if donor is None:
+            donor = next((i for i in range(n_images) if live[i]), None)
+        images = [reports[i].image if live[i] else None
+                  for i in range(n_images)]
+    else:
+        images = list(parsed) if parsed is not None else [parse_jpeg(b) for b in blobs]
+        n_images = len(images)
+        assert n_images > 0
 
     # ---- dedupe Huffman LUTs ------------------------------------------------
     lut_rows: Dict[Tuple[str, str], int] = {}   # (kind, digest) -> row
@@ -599,29 +900,63 @@ def build_batch_plan(
     seg_word_base, seg_nbits, seg_tableset, seg_image = [], [], [], []
     seg_n_units: List[int] = []
     unit_comp_l, unit_seg_first_l, unit_mrow_l, unit_image_l = [], [], [], []
+    seg_valid_l: List[np.ndarray] = []
+    unit_valid_l: List[np.ndarray] = []
 
-    geoms = [ImageGeometry.of(img) for img in images]
-    uniform = all(g == geoms[0] for g in geoms)
-    geometry = geoms[0] if uniform else None
+    live_geoms = [ImageGeometry.of(img) for img in images if img is not None]
+    uniform = bool(live_geoms) and all(g == live_geoms[0] for g in live_geoms)
+    geometry = live_geoms[0] if uniform else None
+    layout_img = None
+    if uniform:
+        layout_img = next(img for img in images if img is not None)
 
-    for ii, img in enumerate(images):
-        clean, rst_bits = (unstuffed[ii] if unstuffed is not None
-                           else unstuff_scan(img.scan_data))
-        # segment boundaries in the clean stream (byte aligned)
-        bounds = segment_byte_bounds(clean, rst_bits)
-        ts = tableset_for(img)
-        upm = img.units_per_mcu
-        ucomp = img.unit_component()
-        comp_mrow = np.array(
-            [mrow_for(img.quant_tables[c.quant_id]) for c in img.components],
-            dtype=np.int32,
-        )
-        if img.restart_interval:
-            units_per_interval = img.restart_interval * upm
+    empty_clean = np.zeros(0, dtype=np.uint8)
+    for ii in range(n_images):
+        img = images[ii]
+        if validation is not None:
+            r = reports[ii]
+            if img is not None:
+                clean, ranges, valid = r.clean, r.seg_ranges, r.seg_valid
+            elif uniform:
+                # quarantine: inert lanes borrowing the donor's footprint —
+                # zero-bit segments with the donor's full unit slots, so
+                # the plan's segment/unit extents match a clean batch
+                img = images[donor]
+                s_exp = expected_segments(img)
+                clean, ranges = empty_clean, [(0, 0)] * s_exp
+                valid = np.zeros(s_exp, dtype=bool)
+            else:
+                # no donor geometry to borrow: one empty, zero-unit segment
+                clean, ranges = empty_clean, [(0, 0)]
+                valid = np.zeros(1, dtype=bool)
         else:
-            units_per_interval = img.n_units
-        remaining_units = img.n_units
-        for b0, b1 in zip(bounds[:-1], bounds[1:]):
+            clean, rst_bits = (unstuffed[ii] if unstuffed is not None
+                               else unstuff_scan(img.scan_data))
+            # segment boundaries in the clean stream (byte aligned)
+            bounds = segment_byte_bounds(clean, rst_bits)
+            ranges = [(bounds[si], bounds[si + 1])
+                      for si in range(len(bounds) - 1)]
+            valid = np.ones(len(ranges), dtype=bool)
+
+        if img is not None:
+            ts = tableset_for(img)
+            upm = img.units_per_mcu
+            ucomp = img.unit_component()
+            comp_mrow = np.array(
+                [mrow_for(img.quant_tables[c.quant_id]) for c in img.components],
+                dtype=np.int32,
+            )
+            if img.restart_interval:
+                units_per_interval = img.restart_interval * upm
+            else:
+                units_per_interval = img.n_units
+            remaining_units = img.n_units
+        else:
+            ts, upm = 0, 1
+            ucomp = np.zeros(1, dtype=np.int32)
+            comp_mrow = np.zeros(1, dtype=np.int32)
+            units_per_interval = remaining_units = 0
+        for si, (b0, b1) in enumerate(ranges):
             seg_bytes = clean[b0:b1]
             words = pack_bits_to_words(seg_bytes)
             seg_word_base.append(word_pos)
@@ -642,6 +977,8 @@ def build_batch_plan(
             unit_seg_first_l.append(first)
             unit_mrow_l.append(comp_mrow[uc])
             unit_image_l.append(np.full(n_u, ii, dtype=np.int32))
+            unit_valid_l.append(np.full(n_u, bool(valid[si])))
+        seg_valid_l.append(np.asarray(valid, dtype=bool))
         assert remaining_units == 0, "restart segmentation lost units"
 
     words = np.concatenate(word_chunks)
@@ -686,7 +1023,6 @@ def build_batch_plan(
     # ---- pixel-stage layout (uniform batches) ---------------------------------
     comp_unit_idx = comp_block_idx = comp_grid = None
     if uniform:
-        layout_img = images[0]
         layout = scan_unit_layout(layout_img)
         comp_unit_idx, comp_block_idx, comp_grid = [], [], []
         for ci, c in enumerate(layout_img.components):
@@ -707,10 +1043,13 @@ def build_batch_plan(
         uniform=uniform,
         geometry=geometry,
         words=words,
-        luts=np.stack(luts),
-        unit_lut_row=np.stack(ts_lut_row),
-        unit_comp_map=np.stack(ts_comp),
-        ts_upm=np.array(ts_upm, dtype=np.int32),
+        luts=np.stack(luts) if luts else np.zeros((1, 1 << 16), np.int32),
+        unit_lut_row=(np.stack(ts_lut_row) if ts_lut_row
+                      else np.zeros((1, MAX_UPM, 2), np.int32)),
+        unit_comp_map=(np.stack(ts_comp) if ts_comp
+                       else np.zeros((1, MAX_UPM), np.int32)),
+        ts_upm=(np.array(ts_upm, dtype=np.int32) if ts_upm
+                else np.ones(1, np.int32)),
         seg_word_base=seg_word_base,
         seg_nbits=seg_nbits,
         seg_tableset=seg_tableset,
@@ -734,10 +1073,16 @@ def build_batch_plan(
         unit_seg_first=np.concatenate(unit_seg_first_l),
         unit_mrow=np.concatenate(unit_mrow_l).astype(np.int32),
         unit_image=np.concatenate(unit_image_l),
-        m_matrices=np.stack(m_mats),
+        m_matrices=(np.stack(m_mats) if m_mats
+                    else np.zeros((1, 64, 64), np.float32)),
         comp_unit_idx=comp_unit_idx,
         comp_block_idx=comp_block_idx,
         comp_grid=comp_grid,
+        image_status=(validation.status if validation is not None else None),
+        seg_valid=(np.concatenate(seg_valid_l)
+                   if validation is not None else None),
+        unit_valid=(np.concatenate(unit_valid_l)
+                    if validation is not None else None),
     )
 
 

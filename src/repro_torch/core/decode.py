@@ -179,17 +179,26 @@ def decode_span(
     return st, buf[:sentinel]
 
 
-def chunk_meta(dev: Dev, idx: Optional[torch.Tensor] = None):
-    """Gather per-chunk decode metadata (optionally at a chunk-index subset)."""
+def chunk_meta(dev: Dev, idx: Optional[torch.Tensor] = None,
+               out: Optional[Dev] = None):
+    """Gather per-chunk decode metadata (optionally at a chunk-index subset).
+
+    ``out`` (every lane only): ``word_base``, ``ts`` and ``upm`` buffers
+    to gather into, so the metadata keeps its addresses from decode to
+    decode (a captured CUDA graph reads them).
+    """
     seg = dev["chunk_seg"] if idx is None else dev["chunk_seg"][idx]
     limit = dev["chunk_limit"] if idx is None else dev["chunk_limit"][idx]
     seg = seg.to(torch.int64)
-    ts = dev["seg_tableset"][seg]
+    out = out or {}
+    ts = torch.index_select(dev["seg_tableset"], 0, seg, out=out.get("ts"))
     return dict(
-        word_base=dev["seg_word_base"][seg],
+        word_base=torch.index_select(dev["seg_word_base"], 0, seg,
+                                     out=out.get("word_base")),
         limit=limit,
         ts=ts,
-        upm=dev["ts_upm"][ts.to(torch.int64)],
+        upm=torch.index_select(dev["ts_upm"], 0, ts.to(torch.int64),
+                               out=out.get("upm")),
     )
 
 
@@ -212,7 +221,8 @@ def segmented_exclusive_cumsum(values: torch.Tensor,
 
 
 def chunk_write_bases(dev: Dev, exit_n: torch.Tensor,
-                      permuted: bool = True) -> torch.Tensor:
+                      permuted: bool = True,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Absolute dense-coefficient write base for every chunk lane.
 
     The segmented prefix sum runs over *bitstream* chunk order: gather
@@ -220,7 +230,7 @@ def chunk_write_bases(dev: Dev, exit_n: torch.Tensor,
     back to lanes via ``lane_perm``. Inert padding chunks order after
     every real chunk and are segment-firsts, so they contribute nothing.
     ``permuted=False`` (identity plans, whose chunk order is the lane
-    order) skips both gathers.
+    order) skips both gathers. ``out`` receives the bases.
     """
     start = dev["chunk_seg_start"]
     if permuted:
@@ -229,7 +239,8 @@ def chunk_write_bases(dev: Dev, exit_n: torch.Tensor,
         local = local_o[dev["lane_perm"].to(torch.int64)]
     else:
         local = segmented_exclusive_cumsum(exit_n, start)
-    return dev["seg_coeff_base"][dev["chunk_seg"].to(torch.int64)] + local
+    base = dev["seg_coeff_base"][dev["chunk_seg"].to(torch.int64)]
+    return torch.add(base, local, out=out)
 
 
 # ---------------------------------------------------------------------------

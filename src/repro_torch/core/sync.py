@@ -21,15 +21,33 @@ the same decode primitive:
 All three return bit-identical exit states, and the same ``rounds`` as the
 JAX package. Each takes its decode primitive as a
 ``decode_exits(dev, entry, idx=None)`` callable (``idx``: decode only the
-lanes ``idx``, one per entry), so the plain decoder and the exit kernel
-(``repro_torch.kernels.huffman.ops``) plug in alike.
+lanes ``idx``, one per entry; ``out=``, a state to write the exits
+into, when the caller passes ``bufs``), so the plain decoder and the exit
+kernel (``repro_torch.kernels.huffman.ops``) plug in alike.
 
-The loops are Python loops; each loop test that reads the device is one
-host check, counted in :func:`host_check`. Three details differ from
-JAX: masked scatters write their dropped lanes to one sentinel slot past
-the end (torch has no ``mode="drop"``), the phase-map prefix is a
-log-step doubling scan (torch has no ``associative_scan``), and loop
-counters are Python ints.
+JAX runs each loop as one ``lax.while_loop`` on the device. Here a loop
+launches its iterations in blocks (:class:`RoundBlocks`), with no host
+read inside a block: the loop's condition and its round counter stay on
+the device (an iteration adds 1 to the counter only while the condition
+held when it started), and one host check (:func:`host_check`) after each
+block reads them. An iteration launched after the condition failed
+changes nothing: past the fixed point a round reproduces the same exits,
+and a chain step with no lane alive scatters nothing. The host counts the
+iterations it launched and never passes the JAX package's bound, so the
+exits, ``rounds`` and ``converged`` are the JAX package's, also for a
+batch that does not converge. A loop's first block takes the iterations
+that loop needed in the previous decode of the same program (the
+``hints`` that ``core.api.DecodeProgram`` keeps), later blocks
+``BLOCK_ROUNDS``; a warm decode then makes one host check a loop. On the
+card the Jacobi rounds (jacobi's loop and every schedule's verification)
+can replay as CUDA graphs of two rounds over a program's buffers
+(``RoundBlocks.graphs``), so that the card does not wait for the host to
+enqueue each round's small ops.
+
+Two more details differ from JAX: masked scatters write their dropped
+lanes to one sentinel slot past the end (torch has no ``mode="drop"``),
+and the phase-map prefix is a log-step doubling scan (torch has no
+``associative_scan``).
 
 Padded lanes: inert lanes (start == limit, chunk_first, chunk_seq == -1,
 self-chained) decode nothing and are a fixed point from round zero, and
@@ -39,7 +57,7 @@ count.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,6 +67,13 @@ from .state import DecodeState
 Dev = Dict[str, torch.Tensor]
 # fn(dev, entry, idx=None) -> exit DecodeState for every lane (or idx subset)
 DecodeExitsFn = Callable[..., DecodeState]
+# two exit states the full-lane rounds write in turn (core.api.DecodeProgram)
+ExitBuffers = Optional[Tuple[DecodeState, DecodeState]]
+# the verify loop's device scalars: done (bool) and its round count (int32)
+Flags = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+# iterations a loop launches between two host checks, after its first block
+BLOCK_ROUNDS = 4
 
 
 class SyncResult(NamedTuple):
@@ -57,14 +82,75 @@ class SyncResult(NamedTuple):
     converged: bool
 
 
-def host_check(flag: torch.Tensor) -> bool:
-    """The value of a one-element bool tensor on the host: one device sync,
-    counted in ``host_check.count``."""
+def host_check(*values: torch.Tensor) -> List[int]:
+    """The values of one-element tensors on the host, as ints: one device
+    sync, counted in ``host_check.count``."""
     host_check.count += 1
-    return bool(flag)
+    return torch.stack([v.reshape(()).to(torch.int64)
+                        for v in values]).tolist()
 
 
 host_check.count = 0
+
+
+class RoundBlocks:
+    """How a schedule's loops launch their iterations: in blocks, with one
+    host check after each.
+
+    A loop's first block takes ``hints[name]`` iterations, what that loop
+    needed in the previous decode that shared ``hints`` (``size`` without
+    one); later blocks take ``size``. Each loop writes its count back.
+    ``checks`` counts this decode's host checks. ``size=1`` with no hints
+    is the per-round form: a check after every iteration. ``graphs``, a
+    program's cache of CUDA graphs, lets the Jacobi rounds replay two at
+    a time (:func:`_verify`).
+    """
+
+    def __init__(self, size: int = BLOCK_ROUNDS,
+                 hints: Optional[Dict[str, int]] = None,
+                 graphs: Optional[Dict[Tuple, object]] = None):
+        if size < 1:
+            raise ValueError(f"block size must be at least 1, got {size}")
+        self.size = size
+        self.hints = {} if hints is None else hints
+        self.graphs = graphs
+        self.checks = 0
+        self.replays = 0
+
+    def read(self, *values: torch.Tensor) -> List[int]:
+        self.checks += 1
+        return host_check(*values)
+
+    def loop(self, name: str, body: Callable[[], None],
+             read: Callable[[], Tuple[torch.Tensor, ...]], limit: int,
+             run: Optional[Callable[[int], None]] = None) -> List[int]:
+        """Launch ``body()`` at most ``limit`` times, in blocks.
+
+        ``body`` is one iteration, written so that an iteration launched
+        after the loop's condition failed changes nothing and counts
+        nothing. ``read()`` gives device scalars: the loop's count of
+        iterations, whether it goes on, then any others the caller needs.
+        After each block one host check reads them; the loop ends when its
+        condition failed or ``limit`` iterations were launched. Returns
+        the last values read (one read and no iteration when ``limit`` is
+        0). ``run(n)``, where given, launches ``n`` iterations in place of
+        ``n`` calls of ``body``.
+        """
+        launched, n = 0, self.hints.get(name, self.size)
+        while True:
+            n = max(0, min(max(n, 1), limit - launched))
+            if run is not None:
+                run(n)
+            else:
+                for _ in range(n):
+                    body()
+            launched += n
+            vals = self.read(*read())
+            if not vals[1] or launched >= limit:
+                break
+            n = self.size
+        self.hints[name] = vals[0]
+        return vals
 
 
 def _shift_one(a: torch.Tensor) -> torch.Tensor:
@@ -111,21 +197,96 @@ def chain_entries(dev: Dev, exits: DecodeState,
     return cold.select(dev["chunk_first"], prev)
 
 
-def states_equal(a: DecodeState, b: DecodeState) -> bool:
-    """Whether two lane states agree everywhere (one host check)."""
-    return host_check(torch.all(a.puz_equal(b) & (a.n == b.n)))
+def states_equal(a: DecodeState, b: DecodeState) -> torch.Tensor:
+    """Whether two lane states agree everywhere, as a device bool."""
+    return torch.all(a.puz_equal(b) & (a.n == b.n))
+
+
+def _full_decode(decode_exits: DecodeExitsFn, dev: Dev, entry: DecodeState,
+                 bufs: ExitBuffers, busy: Optional[DecodeState] = None
+                 ) -> DecodeState:
+    """A full-lane decode, into whichever of ``bufs`` does not hold
+    ``busy`` (a fresh state without buffers)."""
+    if bufs is None:
+        return decode_exits(dev, entry)
+    out = bufs[1] if busy is not None and busy.p is bufs[0].p else bufs[0]
+    return decode_exits(dev, entry, out=out)
+
+
+def _graph_pairs(body: Callable[[], None], st: Dict, bufs: ExitBuffers,
+                 blocks: "RoundBlocks", key: Tuple) -> Callable[[int], None]:
+    """``run(n)`` for :meth:`RoundBlocks.loop`: ``n // 2`` replays of a
+    CUDA graph of two rounds, then one round eagerly for an odd ``n``.
+
+    Two rounds go from one of ``bufs`` through the other and back, so the
+    graph of each starting buffer (captured at its first use, ``key``
+    adding what else its launches read) leaves the exits where it found
+    them. The graph reads and writes only buffers that keep their
+    addresses: the program's plan buffers, metadata, ``bufs`` and flags,
+    and the compact tables in ``key``. A replay runs the kernels without
+    their wrappers, so it adds to ``blocks.replays``, not to the wrappers'
+    launch counts.
+    """
+    graphs = blocks.graphs
+
+    def run(n: int) -> None:
+        for _ in range(n // 2):
+            side = 0 if st["exits"].p is bufs[0].p else 1
+            graph = graphs.get(key + (side,))
+            blocks.replays += 1
+            if graph is None:
+                for old in [k for k in graphs if k[:-1] != key]:
+                    del graphs[old]  # read compact tables of the past
+                graph = torch.cuda.CUDAGraph()
+                # thread_local: the decode service's other threads may pin
+                # and copy memory meanwhile
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    body()
+                    body()
+                graphs[key + (side,)] = graph
+            graph.replay()
+        if n % 2:
+            body()
+    return run
 
 
 def _verify(dev: Dev, exits: DecodeState, rounds: int, max_rounds: int,
-            decode_exits: DecodeExitsFn, permuted: bool) -> SyncResult:
+            decode_exits: DecodeExitsFn, permuted: bool, blocks: RoundBlocks,
+            name: str, bufs: ExitBuffers = None,
+            flags: Flags = None) -> SyncResult:
     """Jacobi rounds from ``exits`` to the fixed point, while
-    ``rounds < max_rounds``; each round counts."""
-    done = False
-    while not done and rounds < max_rounds:
-        new = decode_exits(dev, chain_entries(dev, exits, permuted))
-        done = states_equal(new, exits)
-        exits, rounds = new, rounds + 1
-    return SyncResult(exits, rounds, done)
+    ``rounds < max_rounds``; each round counts. ``flags`` are the done
+    flag and round count to use (zeroed here), fresh ones without."""
+    graphed = blocks.graphs is not None and None not in (bufs, flags)
+    if flags is None:
+        flags = (torch.zeros((), dtype=torch.bool, device=exits.p.device),
+                 torch.zeros((), dtype=torch.int32, device=exits.p.device))
+    done, count = flags
+    done.zero_()
+    count.zero_()
+    if graphed and exits.p is not bufs[0].p and exits.p is not bufs[1].p:
+        for o, v in zip(bufs[0], exits):
+            o.copy_(v)
+        exits = bufs[0]
+    st = {"exits": exits}
+
+    def body():
+        old = st["exits"]
+        new = _full_decode(decode_exits, dev,
+                           chain_entries(dev, old, permuted), bufs, old)
+        count.add_(~done)
+        done.logical_or_(states_equal(new, old))
+        st["exits"] = new
+
+    run = None
+    if graphed:
+        tab = dev.get("luts_compact")
+        key = (None if tab is None else (tab.data_ptr(), tab.numel()),)
+        run = _graph_pairs(body, st, bufs, blocks, key)
+    n, going = blocks.loop(name, body, lambda: (count, ~done),
+                           max_rounds - rounds, run)
+    return SyncResult(st["exits"], rounds + n, not going)
 
 
 # ---------------------------------------------------------------------------
@@ -133,14 +294,17 @@ def _verify(dev: Dev, exits: DecodeState, rounds: int, max_rounds: int,
 # ---------------------------------------------------------------------------
 
 def jacobi_sync(dev: Dev, *, max_rounds: int, decode_exits: DecodeExitsFn,
-                permuted: bool = True) -> SyncResult:
+                permuted: bool = True, blocks: Optional[RoundBlocks] = None,
+                bufs: ExitBuffers = None, flags: Flags = None) -> SyncResult:
     """The cold speculative pass, then Jacobi rounds to the fixed point.
 
     ``rounds`` counts the cold pass as round 1, and the loop stops at
     ``max_rounds`` whether or not it converged, as in the JAX package.
     """
-    exits = decode_exits(dev, DecodeState.cold(dev["chunk_start"]))
-    return _verify(dev, exits, 1, max_rounds, decode_exits, permuted)
+    exits = _full_decode(decode_exits, dev,
+                         DecodeState.cold(dev["chunk_start"]), bufs)
+    return _verify(dev, exits, 1, max_rounds, decode_exits, permuted,
+                   blocks or RoundBlocks(), "jacobi", bufs, flags)
 
 
 # ---------------------------------------------------------------------------
@@ -176,8 +340,10 @@ def compose_prefix(maps: torch.Tensor) -> torch.Tensor:
 
 
 def specmap_sync(dev: Dev, *, max_upm: int, max_verify: int,
-                 decode_exits: DecodeExitsFn,
-                 permuted: bool = True) -> SyncResult:
+                 decode_exits: DecodeExitsFn, permuted: bool = True,
+                 blocks: Optional[RoundBlocks] = None,
+                 bufs: ExitBuffers = None, flags: Flags = None
+                 ) -> SyncResult:
     """Hypothesis decodes, phase-map prefix, then verification rounds.
 
     The ``max_upm`` hypothesis decodes count as rounds, so verification
@@ -212,7 +378,8 @@ def specmap_sync(dev: Dev, *, max_upm: int, max_verify: int,
         return torch.gather(arr, 0, entry_u[None, :])[0]
 
     exits = DecodeState(sel(ep), sel(eu), sel(ez), sel(en))
-    return _verify(dev, exits, max_upm, max_verify, decode_exits, permuted)
+    return _verify(dev, exits, max_upm, max_verify, decode_exits, permuted,
+                   blocks or RoundBlocks(), "specmap", bufs, flags)
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +388,10 @@ def specmap_sync(dev: Dev, *, max_upm: int, max_verify: int,
 
 def faithful_sync(dev: Dev, *, seq_chunks: int, max_outer: int,
                   decode_exits: DecodeExitsFn, verify: bool = True,
-                  permuted: bool = True) -> SyncResult:
+                  permuted: bool = True,
+                  blocks: Optional[RoundBlocks] = None,
+                  bufs: ExitBuffers = None, flags: Flags = None
+                  ) -> SyncResult:
     """Paper Algorithm 3, plus an optional verification fixed-point pass.
 
     The paper's schedule can stop with stale exits when a chain dies on a
@@ -230,10 +400,18 @@ def faithful_sync(dev: Dev, *, seq_chunks: int, max_outer: int,
     guarantee the exact sequential parse. ``verify=False`` runs the
     paper's raw schedule, and ``converged`` then says whether every
     sequence boundary was synced.
+
+    Each chain loop's condition, "a lane is alive", and its round count
+    stay on the device; the check after the intra-sequence loop's last
+    block also reads whether every boundary is synced (the outer loop's
+    first test), and the check after an inner loop's last block whether
+    every boundary is synced after it (the outer loop's next test).
     """
+    blocks = blocks or RoundBlocks()
     c = dev["chunk_seg"].shape[0]
     nxt_of = dev["chunk_next"].to(torch.int64)
     chunk_seq = dev["chunk_seq"]
+    device = chunk_seq.device
 
     def step(tgt):
         """Advance chain targets one chunk along the segment chain; a lane
@@ -242,50 +420,69 @@ def faithful_sync(dev: Dev, *, seq_chunks: int, max_outer: int,
         return nxt, nxt != tgt
 
     # ---- Phase 0: speculative cold decode of every chunk ------------------
-    s_info = decode_exits(dev, DecodeState.cold(dev["chunk_start"]))
-    rounds = 1
-
-    # ---- Phase 1: intra-sequence chains (lockstep rounds) -----------------
-    chain = s_info
-    alive = torch.ones(c, dtype=torch.bool, device=chunk_seq.device)
-    tgt = torch.arange(c, device=chunk_seq.device)
-    t = 1
-    while t < seq_chunks and host_check(alive.any()):
-        tgt, has = step(tgt)
-        valid = alive & has & (chunk_seq[tgt] == chunk_seq)  # same sequence
-        new = decode_exits(dev, chain, tgt)
-        synced = new.puz_equal(_gather(s_info, tgt))
-        s_info = _scatter_where(s_info, tgt, new, valid)
-        chain, alive = new, valid & ~synced
-        t, rounds = t + 1, rounds + 1
-
-    # ---- Phase 2: inter-sequence chains, outer loop ------------------------
+    s_info = _full_decode(decode_exits, dev,
+                          DecodeState.cold(dev["chunk_start"]), bufs)
+    st = {"s_info": s_info, "chain": s_info,
+          "alive": torch.ones(c, dtype=torch.bool, device=device),
+          "tgt": torch.arange(c, device=device)}
     roots = dev["seq_last_chunk"].to(torch.int64)
     root_seq = chunk_seq[roots]
     # a boundary needs syncing only if the next chunk continues the same
     # segment (chunk_next never crosses a segment boundary)
     seq_synced = nxt_of[roots] == roots
+
+    def chain_step(seq_ok):
+        """One lockstep round of chains; ``seq_ok(tgt)`` says where a chain
+        may go. Returns whether any lane was alive when it started, and
+        the lanes whose chain found a sync point."""
+        alive = st["alive"]
+        act = alive.any()
+        tgt, has = step(st["tgt"])
+        valid = alive & has & seq_ok(tgt)
+        new = decode_exits(dev, st["chain"], tgt)
+        synced = new.puz_equal(_gather(st["s_info"], tgt))
+        st["s_info"] = _scatter_where(st["s_info"], tgt, new, valid)
+        st.update(chain=new, alive=valid & ~synced, tgt=tgt)
+        return act, valid & synced
+
+    # ---- Phase 1: intra-sequence chains (lockstep rounds) -----------------
+    count = torch.zeros((), dtype=torch.int32, device=device)
+
+    def intra():
+        act, _ = chain_step(lambda tgt: chunk_seq[tgt] == chunk_seq)
+        count.add_(act)
+
+    n, _, all_synced = blocks.loop(
+        "intra", intra, lambda: (count, st["alive"].any(), seq_synced.all()),
+        seq_chunks - 1)
+    rounds = 1 + n
+
+    # ---- Phase 2: inter-sequence chains, outer loop ------------------------
     outer = 0
-    while outer < max_outer and host_check(~seq_synced.all()):
-        chain = _gather(s_info, roots)
-        alive, found = ~seq_synced, torch.zeros_like(seq_synced)
-        tgt, t = roots, 1
-        while t <= seq_chunks and host_check(alive.any()):
-            tgt, has = step(tgt)
-            valid = alive & has & (chunk_seq[tgt] == root_seq + 1)
-            new = decode_exits(dev, chain, tgt)
-            synced = new.puz_equal(_gather(s_info, tgt))
-            s_info = _scatter_where(s_info, tgt, new, valid)
-            found = found | (valid & synced)
-            chain, alive = new, valid & ~synced
-            t, rounds = t + 1, rounds + 1
+    while outer < max_outer and not all_synced:
+        st.update(chain=_gather(st["s_info"], roots), alive=~seq_synced,
+                  tgt=roots)
+        found = torch.zeros_like(seq_synced)
+        count = torch.zeros((), dtype=torch.int32, device=device)
+
+        def inter():
+            act, hit = chain_step(lambda tgt: chunk_seq[tgt] == root_seq + 1)
+            found.logical_or_(hit)
+            count.add_(act)
+
         # only boundaries whose chain found a sync point are done; the
         # others retry in the next outer round with the corrected s_info
+        n, _, all_synced = blocks.loop(
+            f"inter{outer}", inter,
+            lambda: (count, st["alive"].any(), (seq_synced | found).all()),
+            seq_chunks)
         seq_synced = seq_synced | found
+        rounds += n
         outer += 1
+    blocks.hints["outer"] = outer
     if not verify:
-        return SyncResult(s_info, rounds, host_check(seq_synced.all()))
+        return SyncResult(st["s_info"], rounds, bool(all_synced))
 
     # ---- Verification: the chain recurrence to its true fixed point -------
-    return _verify(dev, s_info, rounds, rounds + c + 2, decode_exits,
-                   permuted)
+    return _verify(dev, st["s_info"], rounds, rounds + c + 2, decode_exits,
+                   permuted, blocks, "verify", bufs, flags)

@@ -3,9 +3,12 @@
 :func:`decode_pixels_fused` runs the pixel kernel (``pixels.py``) over a
 uniform batch's coefficient rows and turns its MCU blocks into
 (B, H, W, 3) uint8 images: a reshape, a transpose and a crop, with no
-arithmetic, so parity is decided inside the kernel.
+arithmetic, so parity is decided inside the kernel. :func:`fuse_traffic`
+counts the inter-stage bytes each fuse mode keeps out of device memory.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -37,3 +40,25 @@ def decode_pixels_fused(coeffs: torch.Tensor, m_t: torch.Tensor,
     img = img.permute(0, 1, 3, 2, 4, 5).reshape(
         n_images, g.mcus_y * mcu_h, g.mcus_x * mcu_w, 3)
     return img[:, :g.height, :g.width]
+
+
+def fuse_traffic(shape, *, store_fused: bool, pixels_fused: bool) -> Dict:
+    """Analytic inter-stage device-memory bytes per decode of one shape.
+
+    * ``stream_bytes``: the write pass's (C, s_max) pos/val streams (one
+      write and one read each): gone when the store kernel runs.
+    * ``pixel_bytes``: the unfused pixel chain's intermediates (the
+      per-unit pixels out of the IDCT kernel and the assembled YCbCr
+      planes into the color stage, each written then read): gone when the
+      fused pixel kernel runs.
+    """
+    stream = 0 if store_fused else 2 * 2 * shape.n_chunks * shape.s_max * 4
+    pixel = 0
+    if not pixels_fused and shape.uniform and shape.geometry is not None:
+        unit_px = shape.n_images * shape.geometry.n_units * 64 * 4
+        pixel = 2 * 2 * unit_px  # pixel tile + planes, written then read
+    return {
+        "stream_bytes": stream,
+        "pixel_bytes": pixel,
+        "inter_stage_bytes": stream + pixel,
+    }

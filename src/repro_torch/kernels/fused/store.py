@@ -15,14 +15,15 @@ any size.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ...core import decode as D
 from ...core.state import DecodeState
 from .. import build as B
-from ..huffman.ops import EXIT_SMEM_BUDGET, exit_args, kernel_fn
+from ..huffman.ops import (EXIT_SMEM_BUDGET, check_out, copy_into,
+                           exit_args, kernel_fn)
 
 Dev = Dict[str, torch.Tensor]
 
@@ -30,25 +31,30 @@ Dev = Dict[str, torch.Tensor]
 def decode_coeffs_store_plain(dev: Dev, meta: Dev, entry: DecodeState,
                               write_base: torch.Tensor,
                               write_max: torch.Tensor, n_coef: int, *,
-                              s_max: int, min_code_bits: int) -> torch.Tensor:
+                              s_max: int, min_code_bits: int,
+                              out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """(n_coef,) int32 coefficients: ``core.decode.decode_span(write=True)``."""
-    out = torch.zeros(n_coef, dtype=torch.int32, device=entry.p.device)
-    _, out = D.decode_span(dev, entry, meta["word_base"], meta["limit"],
-                           meta["ts"], meta["upm"], s_max=s_max,
-                           min_code_bits=min_code_bits, write=True, out=out,
-                           write_base=write_base, write_max=write_max)
-    return out
+    zeros = torch.zeros(n_coef, dtype=torch.int32, device=entry.p.device)
+    _, coef = D.decode_span(dev, entry, meta["word_base"], meta["limit"],
+                            meta["ts"], meta["upm"], s_max=s_max,
+                            min_code_bits=min_code_bits, write=True,
+                            out=zeros, write_base=write_base,
+                            write_max=write_max)
+    return copy_into(out, coef)
 
 
 def run_store_kernel(dev: Dev, meta: Dev, entry: DecodeState,
                      write_base: torch.Tensor, write_max: torch.Tensor,
                      n_coef: int, *, s_max: int, min_code_bits: int,
-                     smem_budget: int) -> torch.Tensor:
+                     smem_budget: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the store kernel (``rt_decode_store``), uncounted.
 
     Its tables go to shared memory when ``ops.exit_table_bytes`` is at
     most ``smem_budget``, else the kernel reads them from global memory.
-    :func:`decode_coeffs_store` passes ``EXIT_SMEM_BUDGET``.
+    :func:`decode_coeffs_store` passes ``EXIT_SMEM_BUDGET``. ``out``, the
+    (n_coef,) int32 target, is zeroed and written in place of a new one.
     """
     args = exit_args(dev, meta, entry)
     c = entry.p.shape[0]
@@ -57,7 +63,11 @@ def run_store_kernel(dev: Dev, meta: Dev, entry: DecodeState,
                 or t.device != entry.p.device or not t.is_contiguous():
             raise ValueError(f"write_base/write_max must be contiguous "
                              f"({c},) int32 tensors on {entry.p.device}")
-    out = torch.zeros(n_coef, dtype=torch.int32, device=entry.p.device)
+    if out is None:
+        out = torch.zeros(n_coef, dtype=torch.int32, device=entry.p.device)
+    else:
+        check_out((out,), (n_coef,), entry.p.device)
+        out.zero_()
     B.check(kernel_fn("rt_decode_store")(
         *args, B.ptr(write_base), B.ptr(write_max), B.ptr(out), n_coef, c,
         s_max, min_code_bits, smem_budget, B.stream_of(out)),
@@ -67,16 +77,16 @@ def run_store_kernel(dev: Dev, meta: Dev, entry: DecodeState,
 
 def decode_coeffs_store(dev: Dev, meta: Dev, entry: DecodeState,
                         write_base: torch.Tensor, write_max: torch.Tensor,
-                        n_coef: int, *, s_max: int,
-                        min_code_bits: int) -> torch.Tensor:
+                        n_coef: int, *, s_max: int, min_code_bits: int,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`decode_coeffs_store_plain`, by the store kernel on the card."""
     if dev["words"].device.type == "cpu":
         return decode_coeffs_store_plain(
             dev, meta, entry, write_base, write_max, n_coef, s_max=s_max,
-            min_code_bits=min_code_bits)
+            min_code_bits=min_code_bits, out=out)
     out = run_store_kernel(dev, meta, entry, write_base, write_max, n_coef,
                            s_max=s_max, min_code_bits=min_code_bits,
-                           smem_budget=EXIT_SMEM_BUDGET)
+                           smem_budget=EXIT_SMEM_BUDGET, out=out)
     decode_coeffs_store.launches += 1
     return out
 

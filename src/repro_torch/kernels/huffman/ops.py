@@ -10,11 +10,15 @@ tensors on the CPU and otherwise launches the kernel or raises.
 
 Operands: ``dev`` holds ``words`` (int32 bits of the uint32 words),
 ``luts`` and ``unit_lut_row`` (the plain versions'), and the kernels'
-compact tables ``luts_compact`` and ``unit_lut_off`` (:func:`exit_tables`,
-added once per plan by ``core.api.ParallelDecoder`` on the kernel
-backend; the exit, stream and store kernels all read them); ``meta`` is
+compact tables ``luts_compact`` and ``unit_lut_off`` (:func:`exit_tables`
+of a plan's tensors; ``core.api.ParallelDecoder`` on the kernel backend
+takes them from ``core.api.lut_tables``, made once per distinct LUT set;
+the exit, stream and store kernels all read them); ``meta`` is
 ``core.decode.chunk_meta(dev)`` (per-lane ``word_base``, ``limit``,
-``ts``, ``upm``); ``entry`` is the lanes' entry state.
+``ts``, ``upm``); ``entry`` is the lanes' entry state. ``out=`` hands a
+wrapper buffers of its result's shape to write into (the ones a
+``core.api.DecodeProgram`` holds), which it returns; the plain versions
+copy their result into them.
 """
 from __future__ import annotations
 
@@ -107,6 +111,28 @@ def kernel_fn(name: str):
     return B.entry("huffman", name, _SIGNATURES[name])
 
 
+def copy_into(out, result):
+    """``result`` (a tensor or a tuple of them) copied into ``out`` of the
+    same structure, which is returned; ``result`` itself without ``out``."""
+    if out is None:
+        return result
+    if isinstance(out, torch.Tensor):
+        return out.copy_(result)
+    for o, r in zip(out, result):
+        o.copy_(r)
+    return out
+
+
+def check_out(tensors, shape, device) -> None:
+    """Refuse an ``out=`` buffer a kernel cannot write: each tensor must be
+    contiguous int32 of ``shape`` on ``device``."""
+    for t in tensors:
+        if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape) or \
+                t.device != device or not t.is_contiguous():
+            raise ValueError(f"out buffers must be contiguous int32 "
+                             f"{tuple(shape)} tensors on {device}")
+
+
 def _checked_ptrs(words: torch.Tensor, tables: list, dtypes: list,
                   meta: Dev, entry: DecodeState) -> Tuple[list, list]:
     """Check that ``tables`` (of ``dtypes``) and the lanes' int32 metadata
@@ -166,18 +192,20 @@ def lane_subset(meta: Dev, idx: Optional[torch.Tensor]) -> Dev:
 
 def decode_exits_plain(dev: Dev, meta: Dev, entry: DecodeState,
                        idx: Optional[torch.Tensor] = None, *, s_max: int,
-                       min_code_bits: int) -> DecodeState:
+                       min_code_bits: int,
+                       out: Optional[DecodeState] = None) -> DecodeState:
     """Exit (p, u, z, n) of every lane, or of the lanes ``idx`` (one per
     entry, repeats allowed): ``core.decode.decode_span``."""
     m = lane_subset(meta, idx)
     st, _ = D.decode_span(dev, entry, m["word_base"], m["limit"], m["ts"],
                           m["upm"], s_max=s_max, min_code_bits=min_code_bits)
-    return st
+    return copy_into(out, st)
 
 
 def run_exit_kernel(dev: Dev, meta: Dev, entry: DecodeState,
                     idx: Optional[torch.Tensor] = None, *, s_max: int,
-                    min_code_bits: int, smem_budget: int) -> DecodeState:
+                    min_code_bits: int, smem_budget: int,
+                    out: Optional[DecodeState] = None) -> DecodeState:
     """One launch of the exit kernel (``rt_decode_exits``), uncounted.
 
     The tables go to shared memory when :func:`exit_table_bytes` is at
@@ -186,7 +214,9 @@ def run_exit_kernel(dev: Dev, meta: Dev, entry: DecodeState,
     """
     args = exit_args(dev, lane_subset(meta, idx), entry)
     c = entry.p.shape[0]
-    out = DecodeState(*(torch.empty_like(entry.p) for _ in range(4)))
+    if out is None:
+        out = DecodeState(*(torch.empty_like(entry.p) for _ in range(4)))
+    check_out(out, (c,), entry.p.device)
     B.check(kernel_fn("rt_decode_exits")(
         *args, *(B.ptr(t) for t in out), c, s_max, min_code_bits,
         smem_budget, B.stream_of(entry.p)), "rt_decode_exits")
@@ -195,7 +225,8 @@ def run_exit_kernel(dev: Dev, meta: Dev, entry: DecodeState,
 
 def decode_exits(dev: Dev, meta: Dev, entry: DecodeState,
                  idx: Optional[torch.Tensor] = None, *, s_max: int,
-                 min_code_bits: int) -> DecodeState:
+                 min_code_bits: int,
+                 out: Optional[DecodeState] = None) -> DecodeState:
     """:func:`decode_exits_plain`, by the exit kernel on the card.
 
     The ``idx`` form (faithful sync's ``decode_at``) runs the same kernel
@@ -205,10 +236,10 @@ def decode_exits(dev: Dev, meta: Dev, entry: DecodeState,
     """
     if dev["words"].device.type == "cpu":
         return decode_exits_plain(dev, meta, entry, idx, s_max=s_max,
-                                  min_code_bits=min_code_bits)
+                                  min_code_bits=min_code_bits, out=out)
     out = run_exit_kernel(dev, meta, entry, idx, s_max=s_max,
                           min_code_bits=min_code_bits,
-                          smem_budget=EXIT_SMEM_BUDGET)
+                          smem_budget=EXIT_SMEM_BUDGET, out=out)
     if idx is None:
         decode_exits.launches += 1
     else:
@@ -245,7 +276,8 @@ def decode_streams_plain(dev: Dev, meta: Dev, entry: DecodeState, *,
 
 
 def run_stream_kernel(dev: Dev, meta: Dev, entry: DecodeState, *,
-                      s_max: int, min_code_bits: int, smem_budget: int
+                      s_max: int, min_code_bits: int, smem_budget: int,
+                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the stream kernel (``rt_decode_streams``), uncounted.
 
@@ -255,8 +287,11 @@ def run_stream_kernel(dev: Dev, meta: Dev, entry: DecodeState, *,
     """
     args = exit_args(dev, meta, entry)
     c = entry.p.shape[0]
-    pos = torch.empty((s_max, c), dtype=torch.int32, device=entry.p.device)
-    val = torch.empty_like(pos)
+    if out is None:
+        out = tuple(torch.empty((s_max, c), dtype=torch.int32,
+                                device=entry.p.device) for _ in range(2))
+    check_out(out, (s_max, c), entry.p.device)
+    pos, val = out
     B.check(kernel_fn("rt_decode_streams")(
         *args, B.ptr(pos), B.ptr(val), c, s_max, min_code_bits, smem_budget,
         B.stream_of(pos)), "rt_decode_streams")
@@ -264,14 +299,16 @@ def run_stream_kernel(dev: Dev, meta: Dev, entry: DecodeState, *,
 
 
 def decode_streams(dev: Dev, meta: Dev, entry: DecodeState, *, s_max: int,
-                   min_code_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   min_code_bits: int,
+                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`decode_streams_plain`, by the stream kernel on the card."""
     if dev["words"].device.type == "cpu":
-        return decode_streams_plain(dev, meta, entry, s_max=s_max,
-                                    min_code_bits=min_code_bits)
+        return copy_into(out, decode_streams_plain(
+            dev, meta, entry, s_max=s_max, min_code_bits=min_code_bits))
     out = run_stream_kernel(dev, meta, entry, s_max=s_max,
                             min_code_bits=min_code_bits,
-                            smem_budget=EXIT_SMEM_BUDGET)
+                            smem_budget=EXIT_SMEM_BUDGET, out=out)
     decode_streams.launches += 1
     return out
 
@@ -281,7 +318,8 @@ decode_streams.launches = 0
 
 def scatter_streams(pos: torch.Tensor, val: torch.Tensor,
                     write_base: torch.Tensor, write_max: torch.Tensor,
-                    n_coef: int) -> torch.Tensor:
+                    n_coef: int, out: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Place the streams: ``out[write_base + pos] = val`` where ``pos >= 0``
     and the target is within the lane's clamp ``write_max``.
 
@@ -294,6 +332,8 @@ def scatter_streams(pos: torch.Tensor, val: torch.Tensor,
     pos`` within int32 for every recorded step: ``contracts.
     checked_coeff_capacity``); ``index_put`` widens it to int64 itself,
     which measured cheaper than computing it in int64 (PERF.md).
+    ``out``, ``n_coef + C`` int32, is zeroed and written in place of a
+    new buffer; the result is its first ``n_coef`` entries.
     """
     c = pos.shape[1]
     dt = torch.int32 if n_coef + c <= INT32_MAX else torch.int64
@@ -301,16 +341,22 @@ def scatter_streams(pos: torch.Tensor, val: torch.Tensor,
     room = (write_max - write_base).to(dt)  # the last in-range pos
     sentinel = torch.arange(n_coef, n_coef + c, dtype=dt, device=pos.device)
     tgt = torch.where((pos >= 0) & (pos <= room), pos + base, sentinel)
-    out = torch.zeros(n_coef + c, dtype=torch.int32, device=pos.device)
+    if out is None:
+        out = torch.zeros(n_coef + c, dtype=torch.int32, device=pos.device)
+    else:
+        check_out((out,), (n_coef + c,), pos.device)
+        out.zero_()
     out[tgt.reshape(-1)] = val.reshape(-1)
     return out[:n_coef]
 
 
 def decode_coeffs(dev: Dev, meta: Dev, entry: DecodeState,
                   write_base: torch.Tensor, write_max: torch.Tensor,
-                  n_coef: int, *, s_max: int,
-                  min_code_bits: int) -> torch.Tensor:
-    """The ``fuse="post"`` write pass: streams, then the scatter."""
+                  n_coef: int, *, s_max: int, min_code_bits: int,
+                  streams: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``fuse="post"`` write pass: streams, then the scatter
+    (``streams`` and ``out`` the buffers of each)."""
     pos, val = decode_streams(dev, meta, entry, s_max=s_max,
-                              min_code_bits=min_code_bits)
-    return scatter_streams(pos, val, write_base, write_max, n_coef)
+                              min_code_bits=min_code_bits, out=streams)
+    return scatter_streams(pos, val, write_base, write_max, n_coef, out)

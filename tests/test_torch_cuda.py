@@ -21,6 +21,8 @@ from repro_torch.kernels.fused import store as FS
 from repro_torch.kernels.huffman import ops as HK
 from repro_torch.kernels.idct import ops as IK
 
+from repro.jpeg import codec_ref as cr
+
 from _torch_corpus import _enc, corpus, oracle_coeffs, synth_image
 
 pytestmark = pytest.mark.cuda
@@ -412,3 +414,97 @@ def test_pixel_entry_point_refuses_bad_factors(card, comp_h, comp_v):
         B.ptr(buf), B.ptr(buf), 1, B.ptr(buf), B.ptr(buf), 1,
         ints3(*comp_h), ints3(*comp_v), B.stream_of(buf))
     assert err == 1
+
+
+@pytest.mark.parametrize("fuse", ["post", "full"])
+def test_cache_holds_no_stale_words_across_decoders(card, fuse):
+    """Two decoders of one key on the card, decoded in turns: each gets its
+    own batch's coefficients and pixels, and an earlier output keeps its
+    values after the next decode of the key."""
+    from repro_torch.core import api
+    api.clear_decode_programs()
+    blobs = [_enc(synth_image(48, 64, seed=s), quality=q)
+             for s, q in ((11, 90), (12, 90))]
+    a, b = (ParallelDecoder.from_bytes([x], chunk_bits=256, fuse=fuse,
+                                       device=card) for x in blobs)
+    if a.shape != b.shape:
+        pytest.skip("the two frames landed in different buckets")
+    assert a.program is b.program
+    plain = [repro_torch.decode_batch([x], chunk_bits=256, backend="torch",
+                                      device=card) for x in blobs]
+    first = a.decode()
+    keep = first.rgb.clone()
+    for dec, exp in ((b, plain[1]), (a, plain[0]), (b, plain[1]),
+                     (b, plain[1])):
+        out = dec.decode()
+        assert torch.equal(out.coeffs, exp.coeffs)
+        assert torch.equal(out.rgb, exp.rgb)
+    assert torch.equal(first.rgb, keep)
+    assert a.program.allocations == 1 and a.program.uploads == 4
+
+
+@pytest.mark.parametrize("sync", ["jacobi", "faithful", "specmap",
+                                  "sequential"])
+@pytest.mark.parametrize("name", ["420", "restart", "mixed"])
+def test_block_sync_equals_the_per_round_form(card, sync, name):
+    """On the exit kernel: blocks of rounds (cold, then warm with hints)
+    give the exits, rounds and converged of one host check a round."""
+    from repro_torch.core import api
+    from repro_torch.core.sync import RoundBlocks
+    dec = ParallelDecoder.from_bytes(corpus(name), chunk_bits=256,
+                                     sync=sync, device=card)
+    dev, sh = dec.dev, dec.shape
+    meta = D.chunk_meta(dev)
+    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
+
+    def fn(d, entry, idx=None, out=None):
+        return HK.decode_exits(d, meta, entry, idx, out=out, **kw)
+
+    per_round = api.run_sync(dev, sh, sync, fn, RoundBlocks(size=1))
+    hints = {}
+    for _ in range(2):
+        got = api.run_sync(dev, sh, sync, fn, RoundBlocks(hints=hints),
+                           bufs=dec.program.work.get("exits"))
+        torch.cuda.synchronize()
+        for g, e in zip(got.exits, per_round.exits):
+            assert torch.equal(g, e)
+        assert (got.rounds, got.converged) == (per_round.rounds, True)
+
+
+def test_service_decodes_a_small_batch_on_the_card(card):
+    from repro_torch.serve import DecodeService, ServiceConfig
+    blobs = [_enc(synth_image(48, 64, seed=s), quality=85) for s in range(6)]
+    bad = blobs[0][:40]
+    with DecodeService(ServiceConfig(batch_size=4, chunk_bits=256,
+                                     validate=True, max_form_ms=20.0,
+                                     slo_ms=60_000.0)) as svc:
+        res = [f.result(timeout=300) for f in svc.submit_many(blobs + [bad])]
+        stats = svc.serve_stats()
+    assert [r.status for r in res] == [0] * 6 + [2]
+    for x, r in zip(blobs, res):
+        d = np.abs(r.rgb.numpy().astype(int)
+                   - cr.decode_baseline(x).astype(int))
+        assert d.max() <= 1
+    assert stats["programs"]["allocations"] >= 1
+
+
+@pytest.mark.parametrize("sync", ["jacobi", "faithful", "specmap"])
+@pytest.mark.parametrize("name", ["420", "restart", "mixed"])
+def test_graphed_rounds_equal_the_eager_ones(card, sync, name):
+    """From a program's second decode on, its Jacobi rounds replay as CUDA
+    graphs of two rounds: coefficients, rounds and pixels stay the plain
+    path's."""
+    from repro_torch.core import api
+    api.clear_decode_programs()
+    blobs = corpus(name)
+    plain = repro_torch.decode_batch(blobs, chunk_bits=256, sync=sync,
+                                     backend="torch", device=card)
+    dec = ParallelDecoder.from_bytes(blobs, chunk_bits=256, sync=sync,
+                                     device=card)
+    outs = [dec.decode() for _ in range(3)]
+    # faithful verifies in one round here: an odd round runs eagerly
+    assert (dec.launch_stats()["graph_replays"] > 0) == (sync != "faithful")
+    for out in outs:
+        assert (out.sync_rounds, out.converged) == (plain.sync_rounds, True)
+        assert torch.equal(out.coeffs, plain.coeffs)
+        assert torch.equal(out.rgb, plain.rgb)

@@ -80,8 +80,9 @@ def test_unknown_knobs_raise():
         repro_torch.decode_batch(corpus("420"), sync="magic", device="cpu")
     with pytest.raises(ValueError):
         repro_torch.decode_batch(corpus("420"), fuse="post", device="cpu")
-    with pytest.raises(ValueError):
-        repro_torch.decode_batch(corpus("420"), emit="planes", device="cpu")
+    # "rgb", "coeffs" and "planes" are the emits; any other string raises
+    with pytest.raises(ValueError, match="emit must be one of"):
+        repro_torch.decode_batch(corpus("420"), emit="pixels", device="cpu")
 
 
 def test_fuse_none_plans_and_decodes_on_the_cpu():
