@@ -47,15 +47,40 @@ otherwise. Phases, each of which exits non-zero on failure:
    gets the status ``validate_blob`` gives it, each clean one RGB within 1
    of its frame's plain decode. Then images/s, p50/p99 latency,
    occupancy and the cache's allocations at the highest rate the service
-   sustains and at half of it.
+   sustains and at half of it;
+7. the VLM input pipeline: the frames built by ``build_dataset`` (its
+   bytes checked equal to the frames encoded here), each ``--repeat``
+   times, through ``JpegVisionPipeline(device="cuda", sync_stats=True)``
+   at its defaults (patch 16, embed 1024, jacobi, ``post``) in batches of
+   8, then as one batch of all 32. The launch counts are set to 0 before
+   the stream and read after it; the RGB behind every batch's tokens is
+   within 1 of the plain path's, where it is equal the tokens equal the
+   same embedding of the plain RGB, and each bucket allocates one
+   program. Then the warm batch's images/s and tokens/s, its device time
+   split into decode and patchify + embed by the profiler, its idle
+   share, and ``decode_stats()``;
+8. lane balance: the 32 frames with ``balance="lpt"`` and
+   ``"roundrobin"`` over 4 lane blocks, jacobi ``post`` and ``full``,
+   decoded eagerly and then from CUDA graphs: coefficients, RGB and sync
+   rounds equal to the identity plan's; the real chunks per block;
+9. two processes: ``decode_multihost`` in two subprocesses over a
+   ``TCPStore`` on localhost (this script with ``--mp-rank``; a hard
+   timeout kills both), each decoding its half of the frames on
+   ``cuda:{rank % device_count}``: jacobi ``post`` with RGB, sequential
+   ``full`` (the chunk-size vote), and validated with one damaged blob on
+   the last process. Coefficients equal each process's slice of the
+   single-process plain decode, RGB within 1; each process's warm decode
+   and exchange times.
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+``launches`` in the kernel record counts phase 4's paths and phase 7's
+stream. The line before the last is the per-kernel JSON record; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -90,26 +115,6 @@ def fail(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         fail(msg)
-
-
-def synth_frame(rng, width: int, height: int, t: float) -> np.ndarray:
-    """A photograph-like RGB frame: smooth illumination, oriented textures
-    and film grain; `t` slides the phases like consecutive video frames."""
-    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
-    xn, yn = xx / width, yy / height
-    base = 120 + 60 * np.sin(2.2 * xn + 0.7 * t) * np.cos(1.7 * yn - 0.3 * t)
-    tex = np.zeros_like(base)
-    for k in range(4):
-        fx = 2 ** (k + 2) * np.pi
-        ang = 0.6 * k + 0.2 * t
-        tex += (18.0 / (k + 1)) * np.sin(
-            fx * (xn * np.cos(ang) + yn * np.sin(ang)) + 3.1 * t)
-    luma = base + tex + rng.normal(0, 6.0, size=(height, width))
-    cb = 16 * np.sin(3.1 * xn + t) + 10 * np.cos(2.3 * yn)
-    cr = 14 * np.cos(2.7 * xn - 0.5 * t) + 9 * np.sin(3.7 * yn + t)
-    rgb = np.stack([luma + 1.402 * cr, luma - 0.344 * cb - 0.714 * cr,
-                    luma + 1.772 * cb], axis=-1)
-    return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
 def luma(rgb: np.ndarray) -> np.ndarray:
@@ -166,6 +171,166 @@ def bound(bytes_moved: int, ops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# -- phase 9: decode_multihost in two processes on the card -------------------
+
+N_PROCS = 2
+PROC_TIMEOUT_S = 600
+# the pipeline phase's batch size (a training step's images)
+STREAM_BATCH = 8
+
+
+def process_worker(args) -> None:
+    """One process of phase 9 (``--mp-rank``): joins the store from the
+    ``REPRO_*`` variables, takes its ``HostFeed`` half of the frames and
+    decodes them with ``decode_multihost`` three ways; prints one
+    ``RESULT`` line and saves its RGB for the parent to compare."""
+    import hashlib
+    import pickle
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.multihost import (HostFeed, decode_multihost,
+                                              init_distributed,
+                                              shutdown_distributed)
+    work = Path(args.mp_dir)
+    with open(work / "blobs.pkl", "rb") as f:  # written by the parent
+        blobs, bad_at = pickle.load(f)
+    ctx = init_distributed(timeout_s=120)
+    local = HostFeed.from_corpus(blobs, ctx).local_blobs
+    cases = {}
+
+    def run(name, feed, reps, **kw):
+        outs, ms = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode_multihost(feed, ctx, chunk_bits=args.chunk_bits,
+                                   **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        out = outs[-1]
+        co = out.local.coeffs.cpu().numpy()
+        cases[name] = {
+            "digest": hashlib.sha256(co.tobytes()).hexdigest(),
+            "ms": ms, "exchange_ms": [o.exchange_ms for o in outs],
+            "units": out.unit_counts, "offset": out.global_coeffs.offset,
+            "compiles": out.compiles, "bucket": out.shape.label(),
+            "device": str(out.local.coeffs.device),
+            "converged": bool(out.local.converged),
+            "status": (None if out.status is None
+                       else [int(v) for v in out.status]),
+            "host_statuses": out.host_statuses}
+        return out
+
+    out = run("jacobi/post", local, 1 + max(2, args.reps // 2), emit="rgb")
+    torch.save(out.local.rgb.cpu(), work / f"rgb{ctx.process_id}.pt")
+    del out
+    run("sequential/full", local, 1, sync="sequential", fuse="full")
+    feed = list(local)
+    if ctx.process_id == N_PROCS - 1:
+        bad = bytearray(feed[bad_at])
+        bad[4:6] = b"\x00\x00"  # APP0 length 0: the image is rejected
+        feed[bad_at] = bytes(bad)
+    run("validated", feed, 1, validate=True)
+    print("RESULT " + json.dumps({"rank": ctx.process_id, "cases": cases}),
+          flush=True)
+    shutdown_distributed()
+
+
+def run_processes(args, blobs, plain_coeffs, plain_rgb) -> None:
+    """Phase 9: two processes, each decoding its half of the frames on
+    ``cuda:{rank % device_count}`` (both on one card here); every one's
+    coefficients must equal its slice of the single-process plain decode
+    and its RGB be within 1 of it. A failure or a timeout of either
+    process fails the run."""
+    import hashlib
+    import pickle
+    import socket
+    import tempfile
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    per = len(blobs) // N_PROCS
+    rows = plain_coeffs.shape[0] // len(blobs)
+    bad_at = 5 % per
+    with tempfile.TemporaryDirectory() as work:
+        with open(Path(work) / "blobs.pkl", "wb") as f:
+            pickle.dump((blobs, bad_at), f)
+        procs = []
+        for rank in range(N_PROCS):
+            env = dict(os.environ, REPRO_COORDINATOR=f"127.0.0.1:{port}",
+                       REPRO_NUM_PROCESSES=str(N_PROCS),
+                       REPRO_PROCESS_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mp-rank", str(rank), "--mp-dir", work,
+                 "--chunk-bits", str(args.chunk_bits),
+                 "--reps", str(args.reps)], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + PROC_TIMEOUT_S
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            for p in procs:
+                p.wait()
+            fail(f"phase 9: a process did not finish in {PROC_TIMEOUT_S} s")
+        results = []
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not lines:
+                print(out[-4000:])
+                fail(f"phase 9: process {rank} exited {p.returncode}")
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+        rgbs = [torch.load(Path(work) / f"rgb{r}.pt") for r in range(N_PROCS)]
+    for rank, (res, rgb) in enumerate(zip(results, rgbs)):
+        lo = rank * per
+        exp = plain_coeffs[lo * rows:(lo + per) * rows].cpu().numpy()
+        want = hashlib.sha256(exp.tobytes()).hexdigest()
+        cases = res["cases"]
+        for name in ("jacobi/post", "sequential/full"):
+            c = cases[name]
+            check(c["digest"] == want and c["converged"], f"phase 9: process "
+                  f"{rank}'s {name} coefficients differ from its slice of "
+                  f"the single-process decode")
+            check(c["offset"] == lo * rows and c["compiles"] == 1,
+                  f"phase 9: process {rank}'s {name} offset or allocations")
+        check(cases["jacobi/post"]["device"] ==
+              f"cuda:{rank % torch.cuda.device_count()}",
+              f"phase 9: process {rank} decoded on "
+              f"{cases['jacobi/post']['device']}")
+        d = (rgb.to(torch.int16)
+             - plain_rgb[lo:lo + per].cpu().to(torch.int16)).abs()
+        check(int(d.max()) <= 1, f"phase 9: process {rank}'s RGB differs "
+              f"from the single-process decode by {int(d.max())}")
+        v = cases["validated"]
+        status = [0] * per
+        if rank == N_PROCS - 1:
+            exp[bad_at * rows:(bad_at + 1) * rows] = 0
+            status[bad_at] = 2
+        check(v["status"] == status and v["digest"] == hashlib.sha256(
+            exp.tobytes()).hexdigest(), f"phase 9: process {rank}'s "
+              f"validated decode differs")
+        check(len({r["cases"]["jacobi/post"]["bucket"] for r in results})
+              == 1, "phase 9: the processes decoded in different buckets")
+        c = cases["jacobi/post"]
+        warm = statistics.median(c["ms"][1:])
+        xms = statistics.median(c["exchange_ms"][1:])
+        print(f"[procs] process {rank} on {c['device']}: {per} frames, "
+              f"coefficients equal its slice of the single-process decode "
+              f"(jacobi/post, sequential/full with the chunk-size vote "
+              f"{cases['sequential/full']['bucket'].split(':cb')[1]} bits), "
+              f"RGB within {int(d.max())} ({int((d == 1).sum())} samples off "
+              f"by one); warm decode_multihost {warm:.1f} ms (cold "
+              f"{c['ms'][0]:.1f}), exchanges {xms:.2f} ms of it; validated "
+              f"with a damaged blob: statuses {v['host_statuses']}",
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -176,12 +341,18 @@ def main() -> None:
     ap.add_argument("--repeat", type=int, default=4)
     ap.add_argument("--chunk-bits", type=int, default=1024)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--mp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card only")
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"the repro_torch package is missing under {SRC}")
+    if args.mp_rank is not None:
+        process_worker(args)
+        return
     sys.path.insert(0, str(SRC))
 
     from repro_torch import decode_batch
@@ -189,10 +360,14 @@ def main() -> None:
     from repro_torch.core import decode as D
     from repro_torch.core.bitstream import validate_blob
     from repro_torch.core.api import ParallelDecoder
+    from repro_torch.data.jpeg_pipeline import JpegVisionPipeline
+    from repro_torch.dist import plan as DP
     from repro_torch.core import sync as SY
     from repro_torch.core.state import DecodeState
     from repro_torch.core.sync import chain_entries, jacobi_sync
     from repro_torch.jpeg import codec_ref as cr
+    from repro_torch.jpeg.encoder import (Dataset, DatasetSpec,
+                                          build_dataset, synth_frame)
     from repro_torch.kernels import build
     from repro_torch.kernels.color import ops as CK
     from repro_torch.kernels.fused import pixels as FP
@@ -225,12 +400,17 @@ def main() -> None:
 
     # -- the full-width batch -----------------------------------------------
     t0 = time.perf_counter()
+    spec = DatasetSpec("newyork", args.distinct, args.width, args.height,
+                       args.quality)
+    dataset = build_dataset(spec, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     frames = [synth_frame(rng, args.width, args.height, t=0.13 * i)
               for i in range(args.distinct)]
     distinct = [cr.encode_baseline(f, quality=args.quality,
                                    subsampling="4:2:0").jpeg_bytes
                 for f in frames]
+    check(dataset.jpeg_bytes == distinct, "build_dataset's frames differ "
+          "from the frames encoded here")
     blobs = [b for b in distinct for _ in range(args.repeat)]
     # two frames at 4:2:2 and at 4:4:4, for the fused pixel kernel's
     # layouts of their own besides 4:2:0
@@ -240,8 +420,8 @@ def main() -> None:
     mb = sum(map(len, blobs)) / 1e6
     print(f"[data] {len(blobs)} frames {args.width}x{args.height} 4:2:0 "
           f"q{args.quality} ({args.distinct} distinct), {mb:.1f} MB "
-          f"compressed, encoded in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"compressed, encoded in {time.perf_counter() - t0:.1f} s; "
+          f"build_dataset({spec}) gives the same bytes", flush=True)
     # the grayscale batch: the same frames' luma, same size and quality
     t0 = time.perf_counter()
     gray_distinct = [cr.encode_baseline(luma(f), quality=args.quality)
@@ -959,6 +1139,198 @@ def main() -> None:
                   f"{st['programs']['device_bytes'] / 1e9:.3f} GB",
                   flush=True)
             rate = load["ips"] / 2
+    api.clear_decode_programs()
+
+    # -- 7. the VLM input pipeline over the dataset --------------------------
+    # the 32 frames as a dataset (each distinct frame `repeat` times in a
+    # row), through JpegVisionPipeline's defaults: 4 batches of 8, then one
+    # batch of all 32; tokens from the RGB the decode made
+    stream = Dataset(spec, blobs)
+    pipe = JpegVisionPipeline(device=gpu, chunk_bits=args.chunk_bits,
+                              sync_stats=True)
+    embed = pipe.embed
+    seen = []
+
+    def seen_embed(rgb):
+        """The pipeline's embedding, keeping the RGB it was given."""
+        seen.append(rgb)
+        return embed(rgb)
+
+    pipe.embed = seen_embed
+    p = pipe.patch
+    n_patch = (args.height // p) * (args.width // p)
+    api.clear_decode_programs()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    offs = worst = 0
+    fresh_ms = []  # steps after the first: fresh batches in a warm bucket
+    for k, (tokens, st) in enumerate(pipe.batches(stream, STREAM_BATCH)):
+        rgb = seen.pop()
+        if k:
+            fresh_ms.append(st.decode_ms)
+        ref = plain_rgb[False][STREAM_BATCH * k: STREAM_BATCH * (k + 1)]
+        d = (rgb.to(torch.int16) - ref.to(torch.int16)).abs()
+        worst, offs = max(worst, int(d.max())), offs + int((d == 1).sum())
+        check(tuple(tokens.shape) == (len(ref), n_patch, pipe.embed_dim)
+              and tokens.dtype == torch.bfloat16,
+              f"phase 7: tokens of shape {tuple(tokens.shape)}")
+        # rows of one product depend only on their own patch vectors, so
+        # an image whose RGB equals the plain one has the plain tokens
+        exp = embed(ref)
+        same = [i for i in range(len(ref)) if torch.equal(rgb[i], ref[i])]
+        check(all(torch.equal(tokens[i], exp[i]) for i in same),
+              "phase 7: tokens differ from the embedding of the plain RGB")
+        del tokens, rgb, exp, d
+    torch.cuda.synchronize()
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    for rec in kernels:
+        rec["launches"] += counts[rec["name"]]
+    launched = {k for k, n in counts.items() if n > 0}
+    check(launched == {exits, streams, "fused_pixels"}, f"phase 7: the "
+          f"pipeline launched {sorted(launched)}")
+    check(worst <= 1, f"phase 7: RGB differs from the plain path by {worst}")
+    stats = pipe.decode_stats()
+    progs = api.decode_programs()
+    check(stats["batches"] == -(-len(blobs) // STREAM_BATCH)
+          and all(q.allocations == 1 for q in progs)
+          and stats["compile_count"] == len(progs),
+          f"phase 7: {stats['compile_count']} allocations over "
+          f"{len(progs)} bucket(s)")
+    fresh = (f"; a fresh batch in the warm bucket (host parse and plan "
+             f"included) {statistics.median(fresh_ms):.1f} ms median "
+             f"({STREAM_BATCH / statistics.median(fresh_ms) * 1e3:.1f} "
+             f"images/s)" if fresh_ms else "")
+    print(f"[pipeline] {stats['batches']} batches of {STREAM_BATCH}: "
+          f"launches " + ", ".join(
+        f"{k} {n}" for k, n in counts.items() if n) + f"; RGB within "
+          f"{worst} of the plain path ({offs} samples off by one), tokens "
+          f"equal the plain RGB's embedding; {len(progs)} bucket(s), "
+          f"{stats['compile_count']} allocation(s){fresh}", flush=True)
+    # the patch vectors on the card equal the CPU's (bf16 division)
+    eye = torch.eye(p * p * 3)
+    cpu_pipe = JpegVisionPipeline(device="cpu", embed_dim=p * p * 3)
+    cpu_pipe.load_embed(eye)
+    card_pipe = JpegVisionPipeline(device=gpu, embed_dim=p * p * 3)
+    card_pipe.load_embed(eye)
+    sample = plain_rgb[False][:2]
+    check(torch.equal(card_pipe.embed(sample).cpu(),
+                      cpu_pipe.embed(sample.cpu())),
+          "phase 7: patch vectors on the card differ from the CPU's")
+    print("[pipeline] patch vectors (bf16 division by 255) on the card "
+          "equal the CPU's", flush=True)
+    del cpu_pipe, card_pipe, sample, eye
+    # one batch of all 32, then warm repeats
+    step_ms = []
+    for rep in range(args.reps + 1):
+        tokens, st = pipe.patches_for(blobs)
+        rgb = seen.pop()
+        if rep == 0:
+            d = (rgb.to(torch.int16) - plain_rgb[False].to(torch.int16)).abs()
+            check(int(d.max()) <= 1 and st.compiled == (
+                len(blobs) > STREAM_BATCH), f"phase 7: the batch of "
+                f"{len(blobs)} differs from the plain path or allocated "
+                f"against its bucket")
+            exp = embed(plain_rgb[False])
+            same = [i for i in range(len(blobs))
+                    if torch.equal(rgb[i], plain_rgb[False][i])]
+            check(all(torch.equal(tokens[i], exp[i]) for i in same),
+                  "phase 7: tokens of 32 differ from the plain embedding")
+            del d, exp
+        else:
+            step_ms.append(st.decode_ms)
+        del tokens, rgb
+    med = statistics.median(step_ms)
+    dec32 = pipe._decoder(blobs)
+    rgb32 = dec32.decode().rgb
+    torch.cuda.synchronize()
+
+    def busy_ms(fn, top=0):
+        """Device busy ms of one call of ``fn`` from the profiler's kernel
+        rows (None when it saw no device time), printing the ``top``
+        largest rows."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(((device_us(e) / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      reverse=True)
+        for ms, n, key in rows[:top]:
+            print(f"[pipeline]   {ms:9.3f} ms {n:5d}x  {key[:100]}")
+        total = sum(r[0] for r in rows)
+        return total if total else None
+
+    both = busy_ms(lambda: pipe.patches_for(blobs))
+    seen.clear()
+    dec_busy = busy_ms(lambda: dec32.decode())
+    print("[pipeline] patchify + embed of the batch, by kernel:")
+    emb_busy = busy_ms(lambda: embed(rgb32), top=6)
+    emb_ms = cuda_ms(lambda: embed(rgb32), args.reps)
+    key_ms = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        pipe._batch_key(blobs)
+        key_ms.append((time.perf_counter() - t0) * 1e3)
+    n_tok = len(blobs) * n_patch
+    split = ("not measured" if None in (both, dec_busy, emb_busy) else
+             f"device busy {both:.2f} ms of {med:.2f} ms wall (idle share "
+             f"{max(0.0, 1 - both / med):.3f}): decode {dec_busy:.2f} ms, "
+             f"patchify + embed {emb_busy:.2f} ms")
+    print(f"[pipeline] batch of {len(blobs)} warm: {med:.2f} ms median "
+          f"({len(blobs) / med * 1e3:.1f} images/s, "
+          f"{n_tok / med * 1e3:.0f} tokens/s); {split}; patchify + embed "
+          f"alone {emb_ms:.3f} ms by events; the handle's content key "
+          f"(blake2b of {mb:.1f} MB) {statistics.median(key_ms):.1f} ms of "
+          f"host time", flush=True)
+    pinned = sum(nbytes(*d._host.values()) for d in pipe._decoders.values())
+    print(f"[pipeline] decode_stats {json.dumps(pipe.decode_stats())}; "
+          f"handle LRU {len(pipe._decoders)} handles, "
+          f"{pinned / 1e6:.1f} MB pinned host memory", flush=True)
+    del pipe, dec32, rgb32, seen
+    api.clear_decode_programs()
+
+    # -- 8. balanced lanes on the 32 frames ----------------------------------
+    for fuse in ("post", "full"):
+        ident = decode_batch(blobs, chunk_bits=args.chunk_bits, fuse=fuse)
+        check(torch.equal(ident.coeffs, plain_coeffs),
+              f"phase 8: the identity plan ({fuse}) differs")
+        for balance in ("lpt", "roundrobin"):
+            dec = ParallelDecoder.from_bytes(blobs,
+                                             chunk_bits=args.chunk_bits,
+                                             fuse=fuse, balance=balance,
+                                             lanes=4)
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            outs = [dec.decode() for _ in range(2)]
+            torch.cuda.synchronize()
+            launched = {k for k, (fn, attr) in counters.items()
+                        if getattr(fn, attr) > 0}
+            want = {exits, streams if fuse == "post" else store,
+                    "fused_pixels"}
+            check(launched == want, f"phase 8: {balance}/{fuse} launched "
+                  f"{sorted(launched)}")
+            for out in outs:
+                check(torch.equal(out.coeffs, ident.coeffs)
+                      and torch.equal(out.rgb, ident.rgb)
+                      and out.sync_rounds == ident.sync_rounds,
+                      f"phase 8: {balance}/{fuse} differs from the "
+                      f"identity plan")
+            loads = DP.plan_lane_loads(dec.plan, 4)
+            print(f"[balance] {balance}/{fuse}: coefficients and RGB equal "
+                  f"the identity plan's (eager, then "
+                  f"{dec.launch_stats()['graph_replays']} graph replays); "
+                  f"{dec.plan.n_chunks} lanes in 4 blocks, real chunks per "
+                  f"block {loads.tolist()} (identity "
+                  f"{DP.lane_loads(ident.plan, 4, 'none').tolist()})",
+                  flush=True)
+            del dec, outs
+        del ident
+        api.clear_decode_programs()
+
+    # -- 9. two processes on the card ----------------------------------------
+    run_processes(args, blobs, plain_coeffs, plain_rgb[False])
     api.clear_decode_programs()
 
     print(json.dumps({"kernels": kernels}))

@@ -74,6 +74,7 @@ from .bitstream import (MAX_UPM, STATUS_OK, BatchPlan, BatchValidation,
 from .state import DecodeState
 from .sync import (RoundBlocks, SyncResult, chain_entries, faithful_sync,
                    jacobi_sync, specmap_sync)
+from ..dist import plan as DP
 from ..jpeg.format import parse_jpeg, segment_byte_bounds, unstuff_scan
 from ..kernels.color.ops import upsample_color, upsample_color_plain
 from ..kernels.fused.ops import (decode_pixels_fused, fuse_traffic,
@@ -505,10 +506,21 @@ class ParallelDecoder:
                    seq_chunks: int = 32, sync: str = "jacobi",
                    backend: Optional[str] = None, bucket: bool = True,
                    fuse: Optional[str] = None, device="cuda",
-                   validate: bool = False) -> "ParallelDecoder":
+                   validate: bool = False, balance: str = "none",
+                   lanes: Optional[int] = None) -> "ParallelDecoder":
         """Parse and plan one batch (``validate``: never raising on a
-        damaged blob, see the module docstring)."""
-        resolve_options(sync, backend, fuse, device)
+        damaged blob, see the module docstring).
+
+        ``balance`` selects the plan-time lane partitioner
+        (:func:`repro_torch.dist.plan.balance_lanes`): ``"roundrobin"`` or
+        ``"lpt"`` lays whole sequences of chunks out in ``lanes`` lane
+        blocks (default: the card count on a CUDA device, 1 on the CPU,
+        where balancing is then the identity). Bit-identical to ``"none"``
+        on every schedule and backend; a balanced plan has a shape, and so
+        a program and CUDA graphs, of its own.
+        """
+        DP.check_balance(balance)
+        dev, _, _ = resolve_options(sync, backend, fuse, device)
         validation = None
         if validate:
             validation = validate_batch(blobs)
@@ -529,6 +541,10 @@ class ParallelDecoder:
             plan = build_batch_plan(blobs, chunk_bits=chunk_bits,
                                     seq_chunks=seq_chunks, parsed=images,
                                     unstuffed=unstuffed)
+        if balance != "none":
+            n_lanes = (int(lanes) if lanes is not None
+                       else DP.default_lanes(dev))
+            plan = DP.balance_lanes(plan, n_lanes, balance)
         return cls(plan, sync=sync, backend=backend, bucket=bucket,
                    fuse=fuse, device=device, validation=validation)
 
@@ -781,10 +797,13 @@ def decode_batch(blobs: Sequence[bytes], chunk_bits: int = 1024,
                  seq_chunks: int = 32, sync: str = "jacobi",
                  emit: str = "rgb", backend: Optional[str] = None,
                  bucket: bool = True, fuse: Optional[str] = None,
-                 device="cuda", validate: bool = False) -> DecodeOutput:
-    """Parse, plan and decode one batch (see the module docstring)."""
+                 device="cuda", validate: bool = False,
+                 balance: str = "none",
+                 lanes: Optional[int] = None) -> DecodeOutput:
+    """Parse, plan and decode one batch (see the module docstring and
+    :meth:`ParallelDecoder.from_bytes` for ``balance`` and ``lanes``)."""
     dec = ParallelDecoder.from_bytes(
         blobs, chunk_bits=chunk_bits, seq_chunks=seq_chunks, sync=sync,
         backend=backend, bucket=bucket, fuse=fuse, device=device,
-        validate=validate)
+        validate=validate, balance=balance, lanes=lanes)
     return dec.decode(emit=emit)

@@ -1,11 +1,13 @@
 """Host-side batch planning for the parallel JPEG decoder (numpy).
 
 A copy of the JAX package's ``core/bitstream.py`` planner, with its
-non-throwing validation and quarantine lanes and without its lane-balance
-and multi-host paths: parse headers, extract tables, unstuff the scan,
-and frame the bitstream into fixed-size *subsequences* ("chunks") — only
-compressed bytes + small metadata cross the host->device link, which is
-the paper's whole point.
+non-throwing validation and quarantine lanes, the lane layout that
+``dist.plan.balance_lanes`` permutes, and the multi-process consensus
+(:func:`merge_plan_shapes`, :func:`consensus_plan`,
+:func:`empty_batch_plan`): parse headers, extract tables, unstuff the
+scan, and frame the bitstream into fixed-size *subsequences* ("chunks") —
+only compressed bytes + small metadata cross the host->device link, which
+is the paper's whole point.
 :func:`dev_from_numpy` turns the planner's numpy arrays into the port's
 tensors.
 
@@ -688,6 +690,13 @@ def build_plan_data(plan: BatchPlan, shape: PlanShape) -> PlanData:
     )
 
 
+def split_plan(plan: BatchPlan, bucket: bool = True,
+               step: float = LADDER_STEP) -> Tuple[PlanShape, PlanData]:
+    """The compile-once decomposition: (static shape, streamed data)."""
+    shape = plan_shape(plan, bucket=bucket, step=step)
+    return shape, build_plan_data(plan, shape)
+
+
 # ---------------------------------------------------------------------------
 # Pinning a plan to a given shape
 # ---------------------------------------------------------------------------
@@ -748,6 +757,144 @@ def consensus_plan(plan: BatchPlan, shape: PlanShape) -> BatchPlan:
             "the shape is uniform but this plan's geometry/image count "
             "differs: only a coefficients-only shape can cover it")
     return dataclasses.replace(plan, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Multi-process bucket consensus: merge per-process PlanShapes
+# ---------------------------------------------------------------------------
+#
+# In a multi-process launch (repro_torch.launch.multihost) every process
+# plans only the JPEG bytes it holds, so their PlanShapes differ in
+# capacities and Huffman-derived constants. The processes exchange ONLY
+# these tiny shapes and take the elementwise max (`merge_plan_shapes`), so
+# all of them land in the same bucket and decode in one program key; the
+# compressed bytes never leave their process. A process then aligns its
+# local plan's constants to the consensus (`consensus_plan`, by the
+# argument above: the pair (min over processes of min_code_bits, max of
+# s_max) is the self-consistent worst case, because s_max is the monotone
+# function chunk_bits // min_code + 2 of the shared chunk_bits).
+
+def merge_plan_shapes(shapes: Sequence[PlanShape]) -> PlanShape:
+    """Elementwise-max consensus of per-process PlanShapes.
+
+    Capacities (and ``s_max``/``n_images``) take the max, ``min_code_bits``
+    the min; framing constants (``chunk_bits``, ``seq_chunks``) and the
+    lane layout (``n_lanes``, ``permuted``) must agree across processes —
+    a mismatch raises instead of producing a shape some process cannot
+    decode. The pixel stage survives only when every process reports the
+    same uniform geometry *and* image count; otherwise the merged shape is
+    coeffs-only (``uniform=False``). Merging is commutative, associative,
+    and idempotent, and merged capacities stay on the ladder (a max of
+    rungs is a rung), so any exchange order converges to one bucket.
+    """
+    shapes = list(shapes)
+    if not shapes:
+        raise ValueError("merge_plan_shapes needs at least one shape")
+    for k in ("chunk_bits", "seq_chunks", "n_lanes", "permuted"):
+        vals = sorted({getattr(s, k) for s in shapes})
+        if len(vals) > 1:
+            raise ValueError(
+                f"plan shapes disagree on {k}: {vals} — every process must "
+                f"frame its batch with identical {k} (exchange/settle it "
+                f"before planning, see repro_torch.launch.multihost)")
+    first = shapes[0]
+    uniform = (all(s.uniform for s in shapes)
+               and len({s.geometry for s in shapes}) == 1
+               and len({s.n_images for s in shapes}) == 1)
+
+    def cap(k: str) -> int:
+        return max(getattr(s, k) for s in shapes)
+
+    merged = PlanShape(
+        chunk_bits=first.chunk_bits,
+        seq_chunks=first.seq_chunks,
+        s_max=cap("s_max"),
+        min_code_bits=min(s.min_code_bits for s in shapes),
+        n_lanes=first.n_lanes,
+        permuted=first.permuted,
+        n_words=cap("n_words"),
+        n_luts=cap("n_luts"),
+        n_tablesets=cap("n_tablesets"),
+        n_matrices=cap("n_matrices"),
+        n_segments=cap("n_segments"),
+        n_chunks=cap("n_chunks"),
+        n_sequences=cap("n_sequences"),
+        n_units=cap("n_units"),
+        n_images=cap("n_images"),
+        uniform=uniform,
+        geometry=first.geometry if uniform else None,
+    )
+    # an elementwise max of per-process capacities (s_max up, n_units up)
+    # can overflow where every constituent shape was fine — check the merge
+    contracts.check_shape_capacities(merged)
+    return merged
+
+
+def empty_batch_plan(chunk_bits: int = 1024,
+                     seq_chunks: int = 32) -> BatchPlan:
+    """A decodable plan for a process holding zero JPEGs.
+
+    A multi-process launch can leave some processes without local images
+    (a corpus smaller than the process count, skewed feeds); they still
+    take part in the bucket consensus and decode in the same program key.
+    The empty plan is inert-lane-only: one zero-bit segment, one inert
+    chunk (start == limit, ``chunk_seq == -1``, self-chained — the
+    balance_lanes padding contract), zero units. Every sync schedule
+    converges on it immediately and the write pass writes nothing
+    (``units_end == 0`` clamps every store).
+
+    ``min_code_bits`` is the loosest legal value (16) and ``s_max`` the
+    matching bound — the consensus merge tightens both to the real
+    processes' values; decoding the empty plan does not depend on them.
+    """
+    if chunk_bits % 32:
+        raise ValueError(
+            f"chunk size must be a multiple of 32 bits, got {chunk_bits}")
+    min_code = 16
+    return BatchPlan(
+        chunk_bits=chunk_bits,
+        seq_chunks=seq_chunks,
+        s_max=chunk_bits // min_code + 2,
+        min_code_bits=min_code,
+        n_images=0,
+        n_segments=1,
+        n_chunks=1,
+        total_units=0,
+        uniform=False,
+        geometry=None,
+        words=np.zeros(1, np.uint32),
+        luts=np.zeros((1, 1 << 16), np.int32),
+        unit_lut_row=np.zeros((1, MAX_UPM, 2), np.int32),
+        unit_comp_map=np.zeros((1, MAX_UPM), np.int32),
+        ts_upm=np.ones(1, np.int32),
+        seg_word_base=np.zeros(1, np.int32),
+        seg_nbits=np.zeros(1, np.int32),
+        seg_tableset=np.zeros(1, np.int32),
+        seg_coeff_base=np.zeros(1, np.int64),
+        seg_image=np.zeros(1, np.int32),
+        chunk_seg=np.zeros(1, np.int32),
+        chunk_start=np.zeros(1, np.int32),
+        chunk_limit=np.zeros(1, np.int32),
+        chunk_first=np.ones(1, bool),
+        chunk_seq=np.full(1, -1, np.int32),
+        chunk_seq_first=np.ones(1, bool),
+        chunk_prev=np.zeros(1, np.int32),
+        chunk_next=np.zeros(1, np.int32),
+        lane_perm=np.zeros(1, np.int32),
+        chunk_order=np.zeros(1, np.int32),
+        n_real_chunks=0,
+        balance="none",
+        n_sequences=1,
+        seq_last_chunk=np.zeros(1, np.int32),
+        unit_comp=np.zeros(0, np.int32),
+        unit_seg_first=np.zeros(0, bool),
+        unit_mrow=np.zeros(0, np.int32),
+        unit_image=np.zeros(0, np.int32),
+        m_matrices=np.zeros((1, 64, 64), np.float32),
+        comp_unit_idx=None,
+        comp_block_idx=None,
+        comp_grid=None,
+    )
 
 
 # ---------------------------------------------------------------------------

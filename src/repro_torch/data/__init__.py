@@ -1,0 +1,2 @@
+"""Data: the decoder as a VLM input pipeline
+(:mod:`~repro_torch.data.jpeg_pipeline`)."""

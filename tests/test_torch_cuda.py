@@ -508,3 +508,88 @@ def test_graphed_rounds_equal_the_eager_ones(card, sync, name):
         assert (out.sync_rounds, out.converged) == (plain.sync_rounds, True)
         assert torch.equal(out.coeffs, plain.coeffs)
         assert torch.equal(out.rgb, plain.rgb)
+
+
+def test_pipeline_tokens_on_the_card_match_the_cpu(card):
+    """The pipeline's tokens on the card against its ``device="cpu"``
+    tokens for the same batch: within one bf16 ulp (the products sum in
+    different orders); the patch vectors themselves are bit-identical."""
+    from repro_torch.data.jpeg_pipeline import JpegVisionPipeline
+    blobs = [_enc(synth_image(48, 64, seed=s), quality=90) for s in range(3)]
+    kw = dict(patch=8, embed_dim=256, chunk_bits=256)
+    gpu = JpegVisionPipeline(device=card, sync_stats=True, **kw)
+    cpu = JpegVisionPipeline(device="cpu", **kw)
+    tok, stats = gpu.patches_for(blobs)
+    ref, ref_stats = cpu.patches_for(blobs)
+    assert tok.device.type == "cuda" and tok.dtype == torch.bfloat16
+    np.testing.assert_allclose(tok.float().cpu().numpy(),
+                               ref.float().numpy(), rtol=2 ** -7,
+                               atol=2 ** -9)
+    assert (stats.sync_rounds, stats.bucket) == (ref_stats.sync_rounds,
+                                                 ref_stats.bucket)
+    rgb = torch.from_numpy(np.stack([cr.decode_baseline(b) for b in blobs]))
+    eye = np.eye(8 * 8 * 3, dtype=np.float32)
+    vec = []
+    for dev in (card, torch.device("cpu")):
+        p = JpegVisionPipeline(device=dev, patch=8, embed_dim=eye.shape[1])
+        p.load_embed(eye)
+        vec.append(p.embed(rgb.to(dev)).cpu())
+    assert torch.equal(*vec)
+    assert gpu.decode_stats()["kernel_launches"] > 0
+
+
+@pytest.mark.parametrize("fuse", ["post", "full"])
+@pytest.mark.parametrize("sync", ["jacobi", "faithful", "specmap"])
+def test_balanced_plan_on_the_kernels_equals_identity(card, sync, fuse):
+    """A balanced (permuted) plan keys a program and CUDA graphs of its
+    own: its decodes, graphed from the second on, equal the identity
+    plan's."""
+    from repro_torch.core import api
+    api.clear_decode_programs()
+    blobs = corpus("restart") + corpus("420")[:1]
+    kw = dict(chunk_bits=128, seq_chunks=4, sync=sync, fuse=fuse,
+              device=card)
+    ident = repro_torch.decode_batch(blobs, emit="coeffs", **kw)
+    for balance in ("roundrobin", "lpt"):
+        dec = ParallelDecoder.from_bytes(blobs, balance=balance, lanes=4,
+                                         **kw)
+        assert dec.shape.permuted and dec.shape.n_lanes == 4
+        outs = [dec.decode(emit="coeffs") for _ in range(3)]
+        if sync != "faithful":
+            assert dec.launch_stats()["graph_replays"] > 0
+        for out in outs:
+            assert (out.sync_rounds, out.converged) == (ident.sync_rounds,
+                                                        True)
+            assert torch.equal(out.coeffs, ident.coeffs)
+    assert api.decode_program_stats()["programs"] == 3
+
+
+def test_two_processes_on_one_card(card):
+    """``decode_multihost`` in two processes sharing the card: each
+    process's coefficients equal its slice of one process's decode."""
+    import hashlib
+    from _torch_multiproc import run_processes
+    results = run_processes("""
+import hashlib
+import numpy as np
+from repro.jpeg import codec_ref as cr
+from repro_torch.launch.multihost import HostFeed, decode_multihost
+from _torch_corpus import synth_image
+corpus = [cr.encode_baseline(synth_image(48, 64, seed=s), quality=90
+                             ).jpeg_bytes for s in range(4)]
+out = decode_multihost(HostFeed.from_corpus(corpus, ctx).local_blobs, ctx,
+                       chunk_bits=256, emit="rgb")
+co = np.ascontiguousarray(out.local.coeffs.cpu().numpy())
+emit({"digest": hashlib.blake2b(co.tobytes()).hexdigest(),
+      "device": str(out.local.coeffs.device),
+      "offset": out.global_coeffs.offset, "rgb": list(out.local.rgb.shape)})
+""", 2, timeout=600, init_timeout=300)
+    blobs = [_enc(synth_image(48, 64, seed=s), quality=90) for s in range(4)]
+    one = repro_torch.decode_batch(blobs, chunk_bits=256, emit="coeffs",
+                                   device=card).coeffs.cpu().numpy()
+    half = one.shape[0] // 2
+    for r, rows in zip(results, (one[:half], one[half:])):
+        assert r["digest"] == hashlib.blake2b(
+            np.ascontiguousarray(rows).tobytes()).hexdigest()
+        assert r["device"] == "cuda:0" and r["rgb"] == [2, 48, 64, 3]
+    assert [r["offset"] for r in results] == [0, half]

@@ -13,9 +13,7 @@ counts can, and ``test_specmap_entry_phases_at_full_hd_match_repro``
 holds the prefix's own result, before any verification round, against
 JAX's ``associative_scan``.
 """
-import importlib.util
 from functools import lru_cache
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +26,8 @@ from repro_torch.core import bitstream as TB
 from repro_torch.core import decode as D
 from repro_torch.core.bitstream import dev_from_numpy
 from repro_torch.core.sync import specmap_sync
+# chip_smoke.py draws its frames with it: these are the frames the card runs
+from repro_torch.jpeg.encoder import synth_frame
 from repro_torch.kernels.huffman import ops as HK
 
 from test_torch_sync import _jax_sync, _plan, _torch_sync
@@ -35,19 +35,9 @@ from test_torch_sync import _jax_sync, _plan, _torch_sync
 CHUNK_BITS = 1024
 
 
-def _synth_frame():
-    """``chip_smoke.synth_frame``, so these are the frames the card runs."""
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.synth_frame
-
-
 @lru_cache(maxsize=1)
 def _shared_plan():
     """One plan of two full-HD frames, as JAX arrays and as the port's."""
-    synth_frame = _synth_frame()
     rng = np.random.default_rng(0)  # chip_smoke.py's default --seed
     blobs = [cr.encode_baseline(synth_frame(rng, 1920, 1080, t=0.13 * i),
                                 quality=95, subsampling="4:2:0").jpeg_bytes
