@@ -70,11 +70,34 @@ otherwise. Phases, each of which exits non-zero on failure:
    ``full`` (the chunk-size vote), and validated with one damaged blob on
    the last process. Coefficients equal each process's slice of the
    single-process plain decode, RGB within 1; each process's warm decode
-   and exchange times.
+   and exchange times;
+10. the kernel verifier (``repro_torch.analysis.kernel_check``): the host
+   geometry of every launch candidate on every ladder rung; then phase
+   2's batch (``newyork`` at chunk_bits=1024; the store kernel also at
+   256; the pixel and color kernels also at 4:2:2, 4:4:4 and on the
+   crop) through the checked build of every kernel (built with the
+   release libraries in phase 1) under each of its launches among the
+   candidate ``LaunchConfig``s: an empty bounds record, every IDCT,
+   pixel and color output element written once, and output
+   ``torch.equal`` to the release build's and the plain version's; each
+   kernel's checked-build time beside its release time. Then the
+   self-test: the seeded faults S1 (off-by-one row read), S2 (short copy
+   grid) and S3 (the pixel kernel on a misaligned tile) on the card and a
+   duplicate-index scatter, each caught by its family, and each seed
+   against its plain version;
+11. the launch autotuner (``repro_torch.kernels.autotune``): the measured
+   search on the ``newyork`` bucket for jacobi ``post`` and ``full``, the
+   table in a temporary directory: each candidate's warm decode ms (3 in
+   turns) and sync rounds, which must be the default's; the winner's
+   coefficients and RGB equal to the default's; a second resolution
+   reads the table and measures nothing; the losers' programs freed.
+   Then the store kernel's ``lane`` and ``warp`` writers at 32 lanes
+   (sequential), 208,960 and 835,776 lanes.
 
 ``launches`` in the kernel record counts phase 4's paths and phase 7's
-stream. The line before the last is the per-kernel JSON record; the last
-line is ``{"ok": true, "device": {...}}``.
+stream, and for the seeds S1-S3 phase 10's self-test. The line before the
+last is the per-kernel JSON record; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -84,7 +107,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -331,6 +356,256 @@ def run_processes(args, blobs, plain_coeffs, plain_rgb) -> None:
               flush=True)
 
 
+# -- phase 10: the kernel verifier --------------------------------------------
+
+# the seeds: (name, source, the JAX verifier's pallas_call it replaces)
+SEEDS = (("seed_oob_rows", "src/repro_torch/kernels/csrc/seeds.cu",
+          "src/repro/analysis/kernel_check.py:1706"),
+         ("seed_ident", "src/repro_torch/kernels/csrc/seeds.cu",
+          "src/repro/analysis/kernel_check.py:1738"),
+         ("seed_misaligned_tile", "src/repro_torch/kernels/csrc/pixels.cu",
+          "src/repro/analysis/kernel_check.py:1760"))
+
+
+def verify_kernels(args, blobs, layouts, gpu) -> list:
+    """Phase 10; returns the seeds' kernel records."""
+    from repro_torch.analysis import kernel_check as K
+    from repro_torch.core.api import ParallelDecoder
+    from repro_torch.kernels import seeds as S
+
+    t0 = time.perf_counter()
+    vs, cells = K.check_geometry()
+    check(not vs, "phase 10: host geometry: "
+          + "; ".join(v.format() for v in vs[:5]))
+    print(f"[verify] host geometry (csrc/geometry.cuh built with g++): "
+          f"{cells} cells, every candidate on every ladder rung up to "
+          f"{K.MAX_LANES} lanes and {K.MAX_UNITS} units, 0 violations "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    dec = ParallelDecoder.from_bytes(blobs, chunk_bits=args.chunk_bits,
+                                     device=gpu)
+    others = [ParallelDecoder.from_bytes(b, chunk_bits=args.chunk_bits,
+                                         device=gpu)
+              for b in layouts.values()]
+    g = dec.plan.geometry
+    timings = {}
+    vs, n, refused = K.verify_batch(
+        dec, "newyork", layouts=others, crops=[(g.height - 2, g.width - 2)],
+        timings=timings, time_fn=lambda fn: cuda_ms(fn, args.reps))
+    del dec, others
+    dec256 = ParallelDecoder.from_bytes(blobs, chunk_bits=256, device=gpu)
+    vs256, n256, refused256 = K.verify_batch(dec256, "newyork@256",
+                                             only=["huffman_store"])
+    del dec256
+    torch.cuda.empty_cache()
+    vs += vs256
+    for v in vs[:20]:
+        print(f"[verify] {v.format()}")
+    check(not vs, f"phase 10: {len(vs)} violations in the checked build")
+    check(not refused + refused256, f"phase 10: launches refused: "
+          f"{refused + refused256}")
+    print(f"[verify] checked build: {n + n256} launches of the six kernels "
+          f"under every launch candidate on newyork (1024-bit chunks; the "
+          f"store kernel also at 256; pixels and color also at 4:2:2, "
+          f"4:4:4 and a {g.width - 2}x{g.height - 2} crop): 0 bounds "
+          f"violations, every IDCT, pixel and color output element written "
+          f"once, outputs equal to the release build's and the plain "
+          f"versions' ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name, (checked_ms, release_ms) in timings.items():
+        print(f"[verify] {name}: checked build {checked_ms:.4f} ms, release "
+              f"{release_ms:.4f} ms ({checked_ms / release_ms:.2f}x)",
+              flush=True)
+
+    # the self-test, its launches counted
+    for fn in (S.seed_oob_rows, S.seed_ident, S.seed_misaligned_tile):
+        fn.launches = 0
+    failures, caught = K.run_self_test(device="cuda", seed=args.seed)
+    counts = S.launch_counts()
+    check(not failures, f"phase 10: self-test: {failures}")
+    check(all(counts.values()), f"phase 10: a seed was not launched in the "
+          f"self-test: {counts}")
+    for v in caught:
+        print(f"[verify] self-test caught: {v.format()}", flush=True)
+    # each seed against its plain version, timed
+    rng = np.random.default_rng(args.seed)
+    x = torch.from_numpy(rng.integers(-8, 9, (S.ROWS, S.COLS)).astype(
+        np.float32)).to(gpu)
+    y = torch.from_numpy(rng.integers(-8, 9, S.IDENT_N).astype(
+        np.float32)).to(gpu)
+    coeffs, m_t, mrow, geo = S.seed_pixel_operands(gpu, args.seed)
+    # S3's grid covers TILE_BLOCKS tiles of TILE_MCUS MCUs: the bound
+    # counts the units it reads and the MCUs it writes, not the whole frame
+    s3_mcus = S.TILE_MCUS * S.TILE_BLOCKS
+    s3_units = s3_mcus * geo["upm"]
+    s3_mcu_bytes = 64 * geo["v_max"] * geo["h_max"] * 3
+
+    def s1_plain():
+        try:
+            return S.seed_oob_rows_plain(x)
+        except IndexError:
+            return None
+
+    cases = [
+        (lambda: S.seed_oob_rows(x),
+         lambda: S.seed_oob_rows_plain(x, strict=False), s1_plain,
+         nbytes(x) + 4, S.ROWS * S.COLS, lambda: x[1:].sum()),
+        (lambda: S.seed_ident(y), lambda: S.seed_ident_plain(y)[0],
+         lambda: S.seed_ident_plain(y), 2 * nbytes(y), 0,
+         lambda: torch.zeros_like(y)[:8].copy_(y[:8])),
+        (lambda: S.seed_misaligned_tile(coeffs, m_t, mrow, **geo),
+         lambda: S.seed_misaligned_tile_plain(coeffs, m_t, mrow, **geo)[0],
+         lambda: S.seed_misaligned_tile_plain(coeffs, m_t, mrow, **geo),
+         nbytes(coeffs[:s3_units], m_t, mrow[:s3_units])
+         + s3_mcus * s3_mcu_bytes, 2 * s3_units * 64 * 64, None),
+    ]
+    records = []
+    for (name, source, replaces), (kern, plain, timed_plain, moved, ops,
+                                    lib) in zip(SEEDS, cases):
+        got, exp = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - exp.float()).abs().max())
+        check(err == 0, f"phase 10: {name} differs from its plain version "
+              f"by {err}")
+        ms = cuda_ms(kern, args.reps)
+        plain_ms = cuda_ms(timed_plain, args.reps)
+        lib_ms = cuda_ms(lib, args.reps) if lib is not None else None
+        b_ms, b_by = bound(moved, ops, F32_FLOP_PER_S)
+        records.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=counts[name],
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        print(f"[verify] {name} (checked build): {counts[name]} launches in "
+              f"the self-test, max_abs_err {err} against its plain version, "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+              f"by {b_by}"
+              + ("" if lib_ms is None else f", library {lib_ms:.4f} ms")
+              + ")", flush=True)
+    return records
+
+
+# -- phase 11: the launch autotuner -----------------------------------------
+
+def tune_launch(args, blobs, gpu) -> None:
+    from repro_torch.core import api
+    from repro_torch.core import decode as D
+    from repro_torch.core.api import ParallelDecoder
+    from repro_torch.core.sync import chain_entries, jacobi_sync
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels.fused import store as FS
+    from repro_torch.kernels.huffman import ops as HK
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[AT.TABLE_ENV] = str(Path(tmp) / "launch.json")
+        os.environ.pop(AT.LAUNCH_ENV, None)
+        AT.clear_launch_cache()
+        base = ParallelDecoder.from_bytes(blobs, chunk_bits=args.chunk_bits,
+                                          device=gpu,
+                                          launch=AT.DEFAULT_LAUNCH)
+        for fuse in ("post", "full"):
+            t0 = time.perf_counter()
+            decs, rounds, checks, times = {}, {}, {}, {}
+
+            def measure(cfg):
+                d = decs.get(cfg)
+                if d is None:
+                    d = decs[cfg] = ParallelDecoder(
+                        base.plan, fuse=fuse, device=gpu, shape=base.shape,
+                        launch=cfg)
+                    for _ in range(2):  # eager, then the graphs' capture
+                        d.decode()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = d.decode()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                rounds[cfg] = out.sync_rounds
+                checks[cfg] = d.launch_stats()["host_checks"]
+                times.setdefault(cfg, []).append(dt * 1e3)
+                return dt
+
+            win = AT.resolve_launch(base.shape, "cuda", fuse,
+                                    measure=measure)
+            spent = time.perf_counter() - t0
+            check(set(rounds.values()) == {rounds[AT.DEFAULT_LAUNCH]},
+                  f"phase 11 {fuse}: sync rounds differ across candidates: "
+                  f"{ {c.label(): r for c, r in rounds.items()} }")
+            ref, got = decs[AT.DEFAULT_LAUNCH].decode(), decs[win].decode()
+            torch.cuda.synchronize()
+            check(torch.equal(ref.coeffs, got.coeffs)
+                  and torch.equal(ref.rgb, got.rgb), f"phase 11 {fuse}: the "
+                  f"winner {win.label()} decodes otherwise than the defaults")
+            del ref, got
+            AT.clear_launch_cache()
+
+            def never(cfg):
+                raise RuntimeError("a tuned bucket measured again")
+
+            check(AT.resolve_launch(base.shape, "cuda", fuse,
+                                    measure=never) == win,
+                  f"phase 11 {fuse}: the table did not give the winner back")
+            print(f"[tune] jacobi/{fuse} on the newyork bucket: "
+                  f"{len(decs)} candidates measured "
+                  f"{len(times[AT.DEFAULT_LAUNCH])} times each in turns in "
+                  f"{spent:.1f} s; winner {win.label()}"
+                  f"{' (the default)' if win == AT.DEFAULT_LAUNCH else ''}, "
+                  f"its decode equal to the defaults'; a second resolution "
+                  f"read the table and measured nothing", flush=True)
+            for cfg in sorted(times, key=lambda c: statistics.median(
+                    times[c])):
+                ts = times[cfg]
+                print(f"[tune]   {cfg.label():32s} warm decode "
+                      f"{statistics.median(ts):.3f} ms (min {min(ts):.3f}, "
+                      f"max {max(ts):.3f}), {rounds[cfg]} sync rounds, "
+                      f"{checks[cfg]} host checks", flush=True)
+            decs.clear()
+            api.discard_decode_programs(lambda p: p.launch != win)
+            torch.cuda.empty_cache()
+        os.environ.pop(AT.TABLE_ENV, None)
+        AT.clear_launch_cache()
+    del base
+    api.clear_decode_programs()
+
+    # the store kernel's writers at 32 lanes (sequential), and at the
+    # newyork batch's 1024- and 256-bit chunks
+    line = []
+    for label, kw in (("sequential", dict(sync="sequential")),
+                      ("1024-bit", dict(chunk_bits=args.chunk_bits)),
+                      ("256-bit", dict(chunk_bits=256))):
+        dec = ParallelDecoder.from_bytes(blobs, device=gpu, fuse="full",
+                                         launch=AT.DEFAULT_LAUNCH, **kw)
+        sh, dev = dec.shape, dec.dev
+        meta = D.chunk_meta(dev)
+        skw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
+        res = jacobi_sync(dev, max_rounds=sh.n_chunks + 2,
+                          decode_exits=lambda d, e: HK.run_exit_kernel(
+                              d, meta, e, **skw,
+                              smem_budget=HK.EXIT_SMEM_BUDGET),
+                          permuted=sh.permuted)
+        entries = chain_entries(dev, res.exits, sh.permuted)
+        bases = D.chunk_write_bases(dev, res.exits.n, permuted=sh.permuted)
+        seg_end = torch.cat([dev["seg_coeff_base"][1:],
+                             dev["units_end"][None]])
+        wmax = seg_end[dev["chunk_seg"].to(torch.int64)] - 1
+        outs, ms = {}, {}
+        reps = 2 if label == "sequential" else args.reps
+        writers = ("lane", "warp") if dec.plan.n_chunks >= 32 else ("lane",)
+        for writer in writers:  # the warp writer needs a warp of lanes
+            cfg = AT.parse_launch_override(f"writer={writer}")
+            run = lambda: FS.run_store_kernel(  # noqa: E731
+                dev, meta, entries, bases, wmax, sh.n_units * 64, **skw,
+                smem_budget=HK.EXIT_SMEM_BUDGET, launch=cfg)
+            outs[writer] = run()
+            ms[writer] = cuda_ms(run, reps)
+        check(torch.equal(outs["lane"], outs.get("warp", outs["lane"])),
+              f"phase 11: the store kernel's writers differ at {label}")
+        line.append(f"{dec.plan.n_chunks} lanes ({label}) " + " / ".join(
+            f"{w} {t:.3f}" for w, t in ms.items()) + " ms")
+        del dec, dev, meta, res, entries, bases, wmax, outs
+        torch.cuda.empty_cache()
+    print(f"[tune] store kernel writers, zero fill included: "
+          + "; ".join(line), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -386,15 +661,25 @@ def main() -> None:
     gpu = torch.device("cuda")
 
     # -- 1. build ----------------------------------------------------------
+    # the release libraries and the checked ones (phase 10), one nvcc a
+    # source, all at once
     t0 = time.perf_counter()
-    report = build.build_all()
-    for name, (secs, log) in report.items():
-        print(f"[build] {name}.cu: {secs:.1f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [(kind, pool.submit(build.build_all, names, kind == "checked"))
+                for kind, names in (("release", build.SOURCES),
+                                    ("checked", build.CHECKED_SOURCES))]
+        reports = [(kind, job.result()) for kind, job in jobs]
+    for kind, report in reports:
+        for name, (secs, log) in report.items():
+            print(f"[build] {name}.cu ({kind}): {secs:.1f} s")
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line \
+                        or "smem" in line or "Compiling entry" in line:
+                    print(f"[build]   {line.strip()}")
     for name in build.SOURCES:
         build.load(name)
+    for name in build.CHECKED_SOURCES:
+        build.load(name, checked=True)
     print(f"[build] all kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1331,6 +1616,14 @@ def main() -> None:
 
     # -- 9. two processes on the card ----------------------------------------
     run_processes(args, blobs, plain_coeffs, plain_rgb[False])
+    api.clear_decode_programs()
+
+    # -- 10. the kernel verifier ------------------------------------------------
+    kernels += verify_kernels(args, blobs, layouts, gpu)
+    api.clear_decode_programs()
+
+    # -- 11. the launch autotuner -----------------------------------------------
+    tune_launch(args, blobs, gpu)
     api.clear_decode_programs()
 
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,20 @@
+"""The decode pipeline's contracts, as the analysis tools read them.
+
+The port keeps its contracts in :mod:`repro_torch.core.contracts` (the
+planner's int32 guards, and what the kernel verifier needs: ``IntRange``,
+``check_block_cover``, ``KERNEL_CHECK_FAMILIES``,
+``VERIFIED_SCATTER_MODULES``); this module re-exports them under the name
+the JAX package's ``analysis/contracts.py`` has. Stdlib only.
+"""
+from __future__ import annotations
+
+from ..core.contracts import (INT32_MAX, INT32_MIN, KERNEL_CHECK_FAMILIES,
+                              VERIFIED_SCATTER_MODULES, ContractViolation,
+                              IntRange, check_block_cover,
+                              check_shape_capacities, checked_coeff_capacity,
+                              checked_int32, write_overshoot)
+
+__all__ = ["INT32_MAX", "INT32_MIN", "KERNEL_CHECK_FAMILIES",
+           "VERIFIED_SCATTER_MODULES", "ContractViolation", "IntRange",
+           "check_block_cover", "check_shape_capacities",
+           "checked_coeff_capacity", "checked_int32", "write_overshoot"]

@@ -38,7 +38,14 @@ raises ``ValueError``.
 
 Compile-once buckets: the device side of a decode is a
 :class:`DecodeProgram`, one per (bucketed :class:`PlanShape`, sync,
-backend, fuse, device) in a module-level cache (:func:`decode_program`).
+backend, fuse, device, launch config) in a module-level cache
+(:func:`decode_program`). The launch config
+(:class:`~repro_torch.kernels.autotune.LaunchConfig`: the kernels' launch
+sizes and the sync loops' rounds between host checks) is resolved per
+bucket by :func:`~repro_torch.kernels.autotune.resolve_launch` (the
+``REPRO_TORCH_LAUNCH`` override, the tuned table, a measured search under
+``REPRO_TORCH_AUTOTUNE=1``, else the defaults) or pinned with
+``launch=``; a program's CUDA graphs are its own config's.
 A program holds the capacity-sized device buffers of its key: the plan
 arrays, which each decode fills from its decoder's pinned host copy (and
 skips when they already hold that decoder's data), and the decode's
@@ -61,6 +68,7 @@ import collections
 import dataclasses
 import hashlib
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -84,6 +92,8 @@ from ..kernels.fused.store import (decode_coeffs_store,
                                   decode_coeffs_store_plain)
 from ..kernels.huffman import ops as HK
 from ..kernels.idct.ops import idct_units, idct_units_plain
+from ..kernels.autotune import (DEFAULT_LAUNCH, LaunchConfig,
+                                autotune_enabled, resolve_launch)
 
 BACKENDS = ("cuda", "torch")
 FUSE_MODES = ("none", "post", "full")
@@ -266,6 +276,7 @@ class DecodeProgram:
     backend: str
     fuse: str
     device: torch.device
+    launch: LaunchConfig = DEFAULT_LAUNCH
     lock: threading.RLock = dataclasses.field(
         default_factory=threading.RLock, repr=False)
     plan: Optional[Dict[str, torch.Tensor]] = None
@@ -341,21 +352,33 @@ _PROGRAMS_LOCK = threading.Lock()
 
 def decode_program(shape: PlanShape, sync: str = "jacobi",
                    backend: Optional[str] = None, fuse: Optional[str] = None,
-                   device="cuda") -> DecodeProgram:
-    """The shared program of a (shape, sync, backend, fuse, device) key."""
+                   device="cuda",
+                   launch: LaunchConfig = DEFAULT_LAUNCH) -> DecodeProgram:
+    """The shared program of a (shape, sync, backend, fuse, device, launch)
+    key."""
     dev, backend, fuse = resolve_options(sync, backend, fuse, device)
-    key = (shape, sync, backend, fuse, dev)
+    key = (shape, sync, backend, fuse, dev, launch)
     with _PROGRAMS_LOCK:
         prog = _PROGRAMS.get(key)
         if prog is None:
             prog = _PROGRAMS[key] = DecodeProgram(shape, sync, backend, fuse,
-                                                  dev)
+                                                  dev, launch)
     return prog
 
 
 def decode_programs() -> List[DecodeProgram]:
     with _PROGRAMS_LOCK:
         return list(_PROGRAMS.values())
+
+
+def discard_decode_programs(drop) -> int:
+    """Drop the cached programs for which ``drop(program)`` is true (an
+    autotuner's losing candidates); returns how many."""
+    with _PROGRAMS_LOCK:
+        keys = [k for k, p in _PROGRAMS.items() if drop(p)]
+        for k in keys:
+            del _PROGRAMS[k]
+    return len(keys)
 
 
 def clear_decode_programs() -> None:
@@ -381,6 +404,7 @@ def decode_program_stats() -> Dict:
         "buckets": [
             {"bucket": p.shape.label(), "sync": p.sync,
              "backend": p.backend, "fuse": p.fuse, "device": str(p.device),
+             "launch": dataclasses.asdict(p.launch),
              "allocations": p.allocations, "decodes": p.decodes,
              "uploads": p.uploads, "device_bytes": p.nbytes(),
              "host_checks": p.host_checks}
@@ -426,7 +450,7 @@ def _quarantine_shape(plan: BatchPlan, own: PlanShape, sync: str,
     best = None
     with _PROGRAMS_LOCK:
         keys = list(_PROGRAMS)
-    for (shape, s, b, f, d) in keys:
+    for (shape, s, b, f, d, _) in keys:
         if (s, b, f, d) != (sync, backend, fuse, device):
             continue
         if _shape_covers(shape, plan) and (
@@ -454,14 +478,17 @@ class ParallelDecoder:
     copies it into the program's buffers; :meth:`prefetch` copies it to
     the card ahead of time, on a stream of the caller's. ``shape=`` pins
     the bucket (the decode service pins an admitted one); ``bucket=False``
-    the exact-fit shape.
+    the exact-fit shape. ``launch=`` pins the launch config; without it
+    the bucket's is resolved (module docstring), by a measured search of
+    this batch's decodes under ``REPRO_TORCH_AUTOTUNE=1`` on the card.
     """
 
     def __init__(self, plan: BatchPlan, sync: str = "jacobi",
                  backend: Optional[str] = None, bucket: bool = True,
                  fuse: Optional[str] = None, device="cuda",
                  shape: Optional[PlanShape] = None,
-                 validation: Optional[BatchValidation] = None):
+                 validation: Optional[BatchValidation] = None,
+                 launch: Optional[LaunchConfig] = None):
         self.device, self.backend, self.fuse = resolve_options(
             sync, backend, fuse, device)
         self.sync = sync
@@ -478,9 +505,22 @@ class ParallelDecoder:
                 (plan.s_max, plan.min_code_bits, plan.n_images):
             plan = consensus_plan(plan, shape)
         self.plan, self.shape = plan, shape
+        if launch is None:
+            tune = (autotune_enabled() and self.backend == "cuda"
+                    and self.device.type == "cuda")
+            launch = resolve_launch(shape, self.backend, self.fuse,
+                                    measure=self._measure_fn() if tune
+                                    else None)
+            if tune:  # the losing candidates' programs hold their buffers
+                discard_decode_programs(
+                    lambda p: (p.shape, p.sync, p.backend, p.fuse,
+                               p.device) == (shape, sync, self.backend,
+                                             self.fuse, self.device)
+                    and p.launch != launch)
+        self.launch = launch
         self.data = build_plan_data(plan, shape)
         self.program = decode_program(shape, sync, self.backend, self.fuse,
-                                      self.device)
+                                      self.device, launch)
         arrays = dict(self.data.arrays, words=self.data.words)
         arrays.update(derived_arrays(arrays))
         self._luts_compact = None
@@ -501,13 +541,38 @@ class ParallelDecoder:
         self._launches: Dict[str, int] = {}
         self._host_checks = self._replays = 0
 
+    def _measure_fn(self):
+        """The autotuner's ``measure``: the seconds of one warm decode of
+        this batch under a config (each config's decoder made once and
+        decoded twice first, the second capturing its CUDA graphs)."""
+        decoders: Dict[LaunchConfig, ParallelDecoder] = {}
+
+        def measure(cfg: LaunchConfig) -> float:
+            dec = decoders.get(cfg)
+            if dec is None:
+                dec = decoders[cfg] = ParallelDecoder(
+                    self.plan, sync=self.sync, backend=self.backend,
+                    fuse=self.fuse, device=self.device, shape=self.shape,
+                    launch=cfg)
+                for _ in range(2):
+                    dec.decode()
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            dec.decode()
+            torch.cuda.synchronize(self.device)
+            return time.perf_counter() - t0
+
+        return measure
+
     @classmethod
     def from_bytes(cls, blobs: Sequence[bytes], chunk_bits: int = 1024,
                    seq_chunks: int = 32, sync: str = "jacobi",
                    backend: Optional[str] = None, bucket: bool = True,
                    fuse: Optional[str] = None, device="cuda",
                    validate: bool = False, balance: str = "none",
-                   lanes: Optional[int] = None) -> "ParallelDecoder":
+                   lanes: Optional[int] = None,
+                   launch: Optional[LaunchConfig] = None
+                   ) -> "ParallelDecoder":
         """Parse and plan one batch (``validate``: never raising on a
         damaged blob, see the module docstring).
 
@@ -546,7 +611,8 @@ class ParallelDecoder:
                        else DP.default_lanes(dev))
             plan = DP.balance_lanes(plan, n_lanes, balance)
         return cls(plan, sync=sync, backend=backend, bucket=bucket,
-                   fuse=fuse, device=device, validation=validation)
+                   fuse=fuse, device=device, validation=validation,
+                   launch=launch)
 
     # -- the program's buffers ------------------------------------------------
     def prefetch(self, stream=None) -> None:
@@ -642,10 +708,12 @@ class ParallelDecoder:
         # the first has loaded every kernel they capture
         graphs = prog.graphs if (self.device.type == "cuda"
                                  and prog.decodes) else None
-        blocks = RoundBlocks(hints=prog.hints, graphs=graphs)
+        blocks = RoundBlocks(size=self.launch.block_rounds, hints=prog.hints,
+                             graphs=graphs)
         coeffs, rounds, converged = decode_coefficients(
             dev, self.shape, backend=self.backend, fuse=self.fuse,
-            sync=self.sync, blocks=blocks, work=prog.work)
+            sync=self.sync, blocks=blocks, work=prog.work,
+            launch=self.launch)
         self._host_checks = prog.host_checks = blocks.checks
         self._replays = blocks.replays
         prog.decodes += 1
@@ -686,14 +754,16 @@ class ParallelDecoder:
         kernels = self.backend == "cuda"
         if kernels and self.fuse != "none" and pixels_fusible(g):
             rgb = decode_pixels_fused(out.coeffs, dev["m_matrices_t"], mrow,
-                                      geometry=g, n_images=plan.n_images)
+                                      geometry=g, n_images=plan.n_images,
+                                      launch=self.launch)
             return dataclasses.replace(out, rgb=rgb if emit == "rgb"
                                        else None, pixels_fused=True)
         # the unfused chain: IDCT, plane assembly, then color or, for one
         # plane, a crop and cast
         if kernels:
             pixels = idct_units(out.coeffs, dev["m_matrices_t"], mrow,
-                                units_per_mcu=g.units_per_mcu)
+                                units_per_mcu=g.units_per_mcu,
+                                launch=self.launch)
         else:
             pixels = idct_units_plain(out.coeffs, dev["m_matrices_t"], mrow)
         n_comp = len(plan.comp_unit_idx)
@@ -746,7 +816,8 @@ def run_sync(dev: Dict[str, torch.Tensor], shape: PlanShape, sync: str,
 def decode_coefficients(dev: Dict[str, torch.Tensor], shape: PlanShape, *,
                         backend: str, fuse: str, sync: str = "jacobi",
                         blocks: Optional[RoundBlocks] = None,
-                        work: Optional[Dict[str, object]] = None
+                        work: Optional[Dict[str, object]] = None,
+                        launch: LaunchConfig = DEFAULT_LAUNCH
                         ) -> Tuple[torch.Tensor, int, bool]:
     """The entropy stage on a padded plan's tensors.
 
@@ -755,7 +826,7 @@ def decode_coefficients(dev: Dict[str, torch.Tensor], shape: PlanShape, *,
     ``dev_from_numpy(PlanData.arrays + words)`` of either package's plan,
     with ``HK.exit_tables(dev)`` added for ``backend="cuda"``; ``work``
     the intermediates' buffers (``DecodeProgram.work``), fresh ones
-    without it.
+    without it; ``launch`` the kernels' launch sizes.
     """
     sh = shape
     work = work or {}
@@ -763,9 +834,11 @@ def decode_coefficients(dev: Dict[str, torch.Tensor], shape: PlanShape, *,
     meta = D.chunk_meta(dev, out=work.get("meta"))
     kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
     exits_fn = HK.decode_exits if kernels else HK.decode_exits_plain
+    kernel_kw = dict(kw, launch=launch)
 
     def decode_exits(d, entry, idx=None, out=None):
-        return exits_fn(d, meta, entry, idx, out=out, **kw)
+        return exits_fn(d, meta, entry, idx, out=out,
+                        **(kernel_kw if kernels else kw))
 
     res = run_sync(dev, sh, check_sync(sync), decode_exits, blocks,
                    work.get("exits"), work.get("flags"))
@@ -783,11 +856,11 @@ def decode_coefficients(dev: Dict[str, torch.Tensor], shape: PlanShape, *,
                                         n_coef, out=work.get("store"), **kw)
     elif fuse == "full":
         out = decode_coeffs_store(dev, meta, entries, bases, write_max,
-                                  n_coef, out=work.get("store"), **kw)
+                                  n_coef, out=work.get("store"), **kernel_kw)
     else:
         out = HK.decode_coeffs(dev, meta, entries, bases, write_max, n_coef,
                                streams=work.get("streams"),
-                               out=work.get("scatter"), **kw)
+                               out=work.get("scatter"), **kernel_kw)
     # undiff_dc writes a new tensor: nothing returned aliases ``work``
     coeffs = D.undiff_dc(dev, out.reshape(sh.n_units, 64))
     return coeffs, res.rounds, res.converged

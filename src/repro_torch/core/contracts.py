@@ -92,3 +92,114 @@ def check_shape_capacities(shape) -> None:
     # lane axis: chunk ids and the chain permutations are int32
     checked_int32(shape.n_chunks, f"lane capacity n_chunks", hint)
 
+
+
+# ---------------------------------------------------------------------------
+# What the kernel verifier needs (analysis/kernel_check.py)
+# ---------------------------------------------------------------------------
+
+class IntRange:
+    """A closed integer interval [lo, hi]: the abstract value of an index.
+
+    The JAX package's lattice (``analysis/contracts.IntRange``), the part
+    the port's verifier uses: constants, + and *."""
+
+    __slots__ = ("lo", "hi")
+
+    def __init__(self, lo: int, hi: int):
+        if lo > hi:
+            raise ValueError(f"empty IntRange [{lo}, {hi}]")
+        self.lo, self.hi = lo, hi
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, IntRange) and (self.lo, self.hi) == (
+            other.lo, other.hi)
+
+    def __hash__(self) -> int:
+        return hash((self.lo, self.hi))
+
+    def __repr__(self) -> str:
+        return f"IntRange({self.lo}, {self.hi})"
+
+    @staticmethod
+    def const(n: int) -> "IntRange":
+        return IntRange(n, n)
+
+    def __add__(self, other: "IntRange") -> "IntRange":
+        return IntRange(self.lo + other.lo, self.hi + other.hi)
+
+    def __mul__(self, other: "IntRange") -> "IntRange":
+        ps = (self.lo * other.lo, self.lo * other.hi,
+              self.hi * other.lo, self.hi * other.hi)
+        return IntRange(min(ps), max(ps))
+
+
+
+def check_block_cover(extent: int, tile: int, blocks: int, what: str,
+                      masked: bool = True) -> None:
+    """The tiling contract of one launch over one operand dimension.
+
+    ``blocks`` blocks (or tiles) of ``tile`` items each, block ``b`` at
+    origin ``b * tile`` (the origins an :class:`IntRange`, as the JAX
+    package's ``tile_origin_range``); raises :class:`ContractViolation`
+    unless
+
+    * **cover**: every item is reached (``blocks * tile >= extent``): a
+      grid that stops short leaves the rest unwritten;
+    * **no empty block**: the last block starts inside the dimension
+      (``(blocks - 1) * tile < extent``);
+    * where the kernel does not mask its ragged edge (``masked=False``,
+      the Pallas kind), **divisibility** and an exact fit
+      (``blocks * tile == extent``).
+    """
+    if tile < 1 or blocks < 0:
+        raise ContractViolation(f"{what}: tile {tile}, blocks {blocks}")
+    if extent <= 0:
+        if blocks:
+            raise ContractViolation(
+                f"{what}: {blocks} block(s) over an empty dimension")
+        return
+    if blocks == 0:
+        raise ContractViolation(f"{what}: no block covers {extent}")
+    origins = IntRange(0, blocks - 1) * IntRange.const(tile)
+    end = (origins + IntRange.const(tile)).hi  # past the last block
+    if end < extent:
+        raise ContractViolation(
+            f"{what}: {blocks} block(s) x tile {tile} cover {end} of "
+            f"{extent} (the rest is never written)")
+    if origins.hi >= extent:
+        raise ContractViolation(
+            f"{what}: block {blocks - 1} starts at {origins.hi}, past the "
+            f"dimension's {extent}")
+    if not masked and end != extent:
+        raise ContractViolation(
+            f"{what}: tile {tile} does not divide {extent} and the "
+            f"kernel does not mask its edge")
+
+
+#: The families of the kernel verifier (``python -m repro_torch.analysis
+#: kernels``), as the JAX package names them.
+KERNEL_CHECK_FAMILIES = {
+    "kernel-bounds": (
+        "every global and shared access of the six kernels runs through "
+        "the checked build's guard (csrc/check.cuh) and its record is "
+        "empty after every launch, on real batches under every launch "
+        "candidate; the seeded off-by-one row read (S1) is flagged"),
+    "kernel-scatter-race": (
+        "the write pass's scatter (ops.scatter_streams) has duplicate-free "
+        "targets other than its sentinel, each lane's positions strictly "
+        "increase, and the segments' coefficient ranges are disjoint "
+        "(bitstream.check_seg_coeff_disjoint); a duplicate-index scatter "
+        "is flagged"),
+    "kernel-tiling": (
+        "each kernel's blocks cover its lanes, units and MCUs exactly on "
+        "every bucket-ladder rung under every launch candidate (the C++ "
+        "geometry of csrc/geometry.cuh, run on the host), and on the card "
+        "every output element of the IDCT, pixel and color kernels is "
+        "written exactly once; the seeded short grids (S2, S3) are "
+        "flagged"),
+}
+
+#: Modules whose overwrite scatters the kernel-scatter-race family proves
+#: (the ``unsafe-scatter-set`` lint rule exempts them).
+VERIFIED_SCATTER_MODULES = ("repro_torch/kernels/huffman/ops.py",)

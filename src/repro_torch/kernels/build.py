@@ -8,6 +8,14 @@ file name carries a hash of the sources, so an edited kernel is rebuilt
 and a stale library is never loaded. :func:`build_all` starts one
 ``nvcc`` per source at once.
 
+The checked build (``checked=True``: ``lib<name>-check-<hash>.so``, with
+``-DRT_CHECK -lineinfo``) guards every access of the kernels and counts
+the writes of their dense outputs (``csrc/check.cuh``); it also holds
+``csrc/seeds.cu``, the verifier's seeded faults, which exists only
+checked. Only the kernel verifier (``analysis/kernel_check.py``,
+``kernels/seeds.py``) asks for it, by that argument; the decoder's
+wrappers always load the release build.
+
 Nothing here runs when the module is imported.
 """
 from __future__ import annotations
@@ -25,11 +33,13 @@ from typing import Callable, Dict, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("huffman", "pixels", "idct", "color")
+CHECKED_SOURCES = SOURCES + ("seeds",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CHECK_FLAGS = ("-DRT_CHECK", "-lineinfo")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
+_LIBS: Dict[Tuple[str, bool], ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str, bool], Callable[..., int]] = {}
 _LOCK = threading.Lock()
 
 
@@ -45,31 +55,41 @@ def nvcc_path() -> str:
     return str(path)
 
 
-def _library_path(name: str) -> Path:
+def flags(checked: bool = False) -> Tuple[str, ...]:
+    """The nvcc flags of the release or the checked build."""
+    return NVCC_FLAGS + (CHECK_FLAGS if checked else ())
+
+
+def _library_path(name: str, checked: bool = False) -> Path:
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cu*")):  # every .cu and .cuh
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags(checked)).encode())
+    kind = "-check" if checked else ""
+    return BUILD_DIR / f"lib{name}{kind}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> Dict[str, Tuple[float, str]]:
-    """Compile every named source that is not built yet, all at once.
+def build_all(names=SOURCES, checked: bool = False
+              ) -> Dict[str, Tuple[float, str]]:
+    """Compile every named source that is not built yet, all at once (the
+    checked build with ``checked``).
 
     Returns ``{name: (seconds, compiler output)}`` for the sources built
     by this call (``-Xptxas -v`` prints registers and shared memory per
     kernel). Raises with the compiler's output if any build fails.
     """
+    if not checked and "seeds" in names:
+        raise ValueError("seeds.cu is built checked only")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = _library_path(name)
+        out = _library_path(name, checked)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *flags(checked), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE,
@@ -89,27 +109,30 @@ def build_all(names=SOURCES) -> Dict[str, Tuple[float, str]]:
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, checked: bool = False) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use: the
+    release build, or the checked one with ``checked``."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get((name, checked))
         if lib is None:
-            path = _library_path(name)
+            path = _library_path(name, checked)
             if not path.exists():
-                build_all((name,))
-            lib = _LIBS[name] = ctypes.CDLL(str(path))
+                build_all((name,), checked)
+            lib = _LIBS[name, checked] = ctypes.CDLL(str(path))
         return lib
 
 
-def entry(lib: str, name: str, argtypes) -> Callable[..., int]:
+def entry(lib: str, name: str, argtypes,
+          checked: bool = False) -> Callable[..., int]:
     """The C entry point ``name`` of ``csrc/<lib>.cu``, typed on first use
-    (every entry point returns a ``cudaError_t``)."""
-    fn = _ENTRIES.get((lib, name))
+    (every entry point returns a ``cudaError_t``), of the checked build
+    with ``checked``."""
+    fn = _ENTRIES.get((lib, name, checked))
     if fn is None:
-        fn = getattr(load(lib), name)
+        fn = getattr(load(lib, checked), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _ENTRIES[(lib, name)] = fn
+        _ENTRIES[(lib, name, checked)] = fn
     return fn
 
 

@@ -63,6 +63,21 @@ def upsample_color(planes: List[torch.Tensor], comp_h, comp_v, h_max: int,
     if planes[0].device.type == "cpu":
         return upsample_color_plain(planes, comp_h, comp_v, h_max, v_max,
                                     height, width)
+    out = run_color_kernel(planes, comp_h, comp_v, h_max, v_max, height,
+                           width)
+    upsample_color.launches += 1
+    return out
+
+
+upsample_color.launches = 0
+
+
+def run_color_kernel(planes: List[torch.Tensor], comp_h, comp_v,
+                     h_max: int, v_max: int, height: int, width: int,
+                     checked: bool = False) -> torch.Tensor:
+    """One launch of the color kernel (``rt_upsample_color``), uncounted,
+    also of the checked build (``checked=True``, the kernel verifier's).
+    Its launch has no knob: a block is a warp of runs across 8 rows."""
     fv, fh = _check(planes, comp_h, comp_v, h_max, v_max, height, width)
     dev = planes[0].device
     for p in planes:
@@ -73,14 +88,10 @@ def upsample_color(planes: List[torch.Tensor], comp_h, comp_v, h_max: int,
     n = planes[0].shape[0]
     out = torch.empty((n, height, width, 3), dtype=torch.uint8, device=dev)
     ints3 = ctypes.c_int * 3
-    fn = B.entry("color", "rt_upsample_color", _ARGS)
+    fn = B.entry("color", "rt_upsample_color", _ARGS, checked)
     B.check(fn((ctypes.c_void_p * 3)(*(p.data_ptr() for p in planes)),
                ints3(*(p.shape[1] for p in planes)),
                ints3(*(p.shape[2] for p in planes)), ints3(*fv), ints3(*fh),
                B.ptr(out), n, height, width, B.stream_of(out)),
             "rt_upsample_color")
-    upsample_color.launches += 1
     return out
-
-
-upsample_color.launches = 0

@@ -30,26 +30,32 @@
 // standard forms (color.cuh's with_form). kColorRun = 8 (8-byte stores)
 // and kRowsY = 8 measured best of runs of 8 and 16 and 2 to 8 rows, by
 // 1-3% (PERF.md, tools/kernel_times.py --color-variants). Bit-exact with
-// the plain version (core/decode.ycbcr_to_rgb; see color.cuh).
+// the plain version (core/decode.ycbcr_to_rgb; see color.cuh). The grid
+// and the run are geometry.cuh's (color_grid, kColorRun, kRunsX, kRowsY).
+//
+// The checked build (check.cuh) guards the plane reads (color.cuh), the
+// warp's stage and every RGB store within its row, and counts each RGB
+// byte written (coverage).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "color.cuh"
+#include "geometry.cuh"
 
 namespace {
 
-constexpr int kColorRun = 8;   // pixels a thread
-constexpr int kRunsX = 32;     // a block: a warp of kRunsX runs across ...
-constexpr int kRowsY = 8;      // ... x kRowsY rows
-constexpr int kMaxGrid = 65535;
+using rt::kColorRun;
+using rt::kRowsY;
+using rt::kRunsX;
 constexpr int kWords = 3 * kColorRun / 4;  // a run's RGB bytes, as words
+constexpr int kStageWords = kRunsX * kWords + 1;
 static_assert(kRunsX == 32, "a warp stages the runs of one row");
 
 template <int kFh, int kFv>
 __global__ void __launch_bounds__(kRunsX * kRowsY)
 color_kernel(rt::ColorPlanes pl, uint8_t* __restrict__ out, int n_images,
              int height, int width, bool store_vec) {
-  __shared__ uint32_t stage[kRowsY][kRunsX * kWords + 1];
+  __shared__ uint32_t stage[kRowsY][kStageWords];
   const int x_w = blockIdx.x * kRunsX * kColorRun;  // the warp's first x
   const int x0 = x_w + threadIdx.x * kColorRun;
   const bool active = x0 < width;
@@ -65,17 +71,23 @@ color_kernel(rt::ColorPlanes pl, uint8_t* __restrict__ out, int n_images,
         rt::color_run<kColorRun, kFh, kFv>(pl, b, y, x0, n, words);
       }
       uint8_t* row = rt::row_out(out, b, y, height, width);
+      const long long at = ((long long)b * height + y) * width * 3;
       if (store_vec) {
-        rt::store_run<kColorRun>(row + 3 * x0, words);
+        if (rt::ok(3LL * x0 + 3 * kColorRun - 1, 3LL * width, rt::kSiteRgb)) {
+          rt::store_run<kColorRun>(row + 3 * x0, words);
+          rt::cover(at + 3 * x0, 3 * kColorRun);
+        }
       } else {
         if (active) {
 #pragma unroll
           for (int i = 0; i < kWords; ++i) {
-            own[threadIdx.x * kWords + i] = words[i];
+            rt::st(own, threadIdx.x * kWords + i, kStageWords,
+                   rt::kSiteColorStage, words[i]);
           }
         }
         __syncwarp();
-        rt::copy_span<kRunsX>(row + 3 * x_w, own, nbytes, threadIdx.x);
+        rt::copy_span<kRunsX>(row + 3 * x_w, own, nbytes, threadIdx.x,
+                              3LL * (width - x_w), at + 3LL * x_w);
         __syncwarp();
       }
     }
@@ -99,14 +111,12 @@ int rt_upsample_color(const void* const* planes, const int* h, const int* w,
     pl.fh[c] = fh[c];
     if (fv[c] <= 0 || fh[c] <= 0) return cudaErrorInvalidValue;
   }
+  pl.n = n_images;
   pl.vec_w = rt::vector_width(pl);
   uint8_t* o = static_cast<uint8_t*>(out);
   const bool store_vec = rt::rows_aligned<kColorRun>(o, width);
-  const int runs = (width + kColorRun - 1) / kColorRun;
-  const int rows = (height + kRowsY - 1) / kRowsY;
-  const dim3 grid((runs + kRunsX - 1) / kRunsX,
-                  rows < kMaxGrid ? rows : kMaxGrid,
-                  n_images < kMaxGrid ? n_images : kMaxGrid);
+  const rt::ColorGrid g = rt::color_grid(n_images, height, width);
+  const dim3 grid(g.x, g.y, g.z);
   const dim3 block(kRunsX, kRowsY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rt::with_form(pl, [&](auto form) {

@@ -28,10 +28,16 @@
 // The functions are __host__ __device__ so that a host-only build of this
 // header (g++, see tests/test_torch_color_layout.py) runs the same code
 // on the CPU.
+//
+// The checked build (-DRT_CHECK, check.cuh) holds every sample read within
+// its plane's rows (b * h[c] + ys of n * h[c]) and columns (w[c]), and
+// every byte copy_span writes within its row, counting each byte written.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+
+#include "check.cuh"
 
 #ifndef __CUDACC__
 #define __host__
@@ -68,6 +74,7 @@ struct ColorPlanes {
   int h[3], w[3];
   int fv[3], fh[3];   // replicate factors: output row y reads row y / fv
   int vec_w;          // runs with x0 + kRun <= vec_w load 16 bytes at once
+  int n = 0x7fffffff; // images (the checked build's bound; unchecked default)
 };
 
 // one rounding per operation
@@ -108,15 +115,17 @@ __host__ __device__ __forceinline__ F4 load4(const float* p) {
 }
 
 // kN samples from row[x]: by 16-byte loads (`vec`), else the first n one
-// at a time (the others 0)
+// at a time (the others 0); `w`: the row's samples (the checked bound)
 template <int kN>
 __host__ __device__ __forceinline__ void load_samples(const float* row,
                                                       int x, int n,
-                                                      bool vec, float* s) {
+                                                      bool vec, float* s,
+                                                      int w) {
   if (vec) {
     RT_COLOR_UNROLL
     for (int i = 0; i < kN / 4; ++i) {
-      const F4 v = load4(row + x + 4 * i);
+      const F4 v = ok(x + 4 * i + 3, w, kSitePlane) ? load4(row + x + 4 * i)
+                                                    : F4{};
       s[4 * i] = v.x;
       s[4 * i + 1] = v.y;
       s[4 * i + 2] = v.z;
@@ -124,7 +133,9 @@ __host__ __device__ __forceinline__ void load_samples(const float* row,
     }
   } else {
     RT_COLOR_UNROLL
-    for (int i = 0; i < kN; ++i) s[i] = i < n ? row[x + i] : 0.f;
+    for (int i = 0; i < kN; ++i) {
+      s[i] = i < n ? ld(row, x + i, w, kSitePlane) : 0.f;
+    }
   }
 }
 
@@ -143,18 +154,20 @@ __host__ __device__ __forceinline__ void color_run(const ColorPlanes& pl,
   RT_COLOR_UNROLL
   for (int c = 0; c < 3; ++c) {
     const int ys = kFh == 0 ? y / pl.fv[c] : (c == 0 ? y : y / kFv);
-    row[c] = pl.p[c] + ((int64_t)b * pl.h[c] + ys) * pl.w[c];
+    int64_t r = (int64_t)b * pl.h[c] + ys;
+    if (!ok(r, (int64_t)pl.n * pl.h[c], kSitePlaneRow)) r = 0;
+    row[c] = pl.p[c] + r * pl.w[c];
   }
   float s[3][kRun];
   if constexpr (kFh != 0) {
     constexpr int kC = kRun / kFh;  // chroma samples of a run
     const bool vec = x0 + kRun <= pl.vec_w;
-    load_samples<kRun>(row[0], x0, n, vec, s[0]);
+    load_samples<kRun>(row[0], x0, n, vec, s[0], pl.w[0]);
     float ch[2][kC];
     RT_COLOR_UNROLL
     for (int c = 1; c < 3; ++c) {
       load_samples<kC>(row[c], x0 / kFh, (n + kFh - 1) / kFh, vec,
-                       ch[c - 1]);
+                       ch[c - 1], pl.w[c]);
       RT_COLOR_UNROLL
       for (int j = 0; j < kRun; ++j) s[c][j] = ch[c - 1][j / kFh];
     }
@@ -172,7 +185,9 @@ __host__ __device__ __forceinline__ void color_run(const ColorPlanes& pl,
       RT_COLOR_UNROLL
       for (int c = 0; c < 3; ++c) {
         if (j < n) {
-          if (j == 0 || r[c] == 0) cur[c] = row[c][q[c]];
+          if (j == 0 || r[c] == 0) {
+            cur[c] = ld(row[c], q[c], pl.w[c], kSitePlane);
+          }
           if (++r[c] == pl.fh[c]) {
             r[c] = 0;
             ++q[c];
@@ -230,24 +245,36 @@ __host__ __device__ __forceinline__ void store_run(uint8_t* o,
 // alignment: the bytes before the first 4-byte boundary of o one at a
 // time, then 4-byte stores (word k by lane k mod kLanes, so that a warp
 // stores 128 consecutive bytes at once), then the last bytes one at a
-// time.
+// time. The checked build's bounds: `room`, the bytes writable from o
+// (its row's), and `at`, o's byte in the covered output.
 template <int kLanes>
 __host__ __device__ __forceinline__ void copy_span(uint8_t* o,
                                                    const uint32_t* stage,
-                                                   int nbytes, int lane) {
+                                                   int nbytes, int lane,
+                                                   int64_t room = INT64_MAX,
+                                                   int64_t at = 0) {
   const uint8_t* bytes = reinterpret_cast<const uint8_t*>(stage);
   int head = (int)((4u - (uint32_t)(reinterpret_cast<uintptr_t>(o) & 3u)) &
                    3u);
   head = head < nbytes ? head : nbytes;
-  if (lane < head) o[lane] = bytes[lane];
+  if (lane < head && ok(lane, room, kSiteRgb)) {
+    o[lane] = bytes[lane];
+    cover(at + lane);
+  }
   const int n_words = (nbytes - head) / 4;
   uint32_t* dst = reinterpret_cast<uint32_t*>(o + head);
   for (int k = lane; k < n_words; k += kLanes) {
     const uint64_t pair = ((uint64_t)stage[k + 1] << 32) | stage[k];
-    dst[k] = (uint32_t)(pair >> (8 * head));
+    if (ok(head + 4 * k + 3, room, kSiteRgb)) {
+      dst[k] = (uint32_t)(pair >> (8 * head));
+      cover(at + head + 4 * k, 4);
+    }
   }
   const int tail = head + 4 * n_words + lane;
-  if (lane < 4 && tail < nbytes) o[tail] = bytes[tail];
+  if (lane < 4 && tail < nbytes && ok(tail, room, kSiteRgb)) {
+    o[tail] = bytes[tail];
+    cover(at + tail);
+  }
 }
 
 // The bytes of the runs from x_w up to kLanes runs on (cut at width) in

@@ -35,7 +35,7 @@
 // What is left bounds the exit kernel by instruction issue: 66
 // instructions a step in the compiled loop, 26 of them predicated (the
 // word prefetch, the secondary lookup), with the warp running as long as
-// its longest lane. Blocks of kExitThreads = 256 (8 an SM, full occupancy)
+// its longest lane. Blocks of 256 threads (8 an SM, full occupancy)
 // measured best of 128, 256 and 512 (PERF.md, tools/kernel_times.py).
 // The stream kernel writes (pos, val) rows step-major, (s_max, C), so that
 // the 32 lanes of a warp store to consecutive addresses; every lane stores
@@ -46,7 +46,7 @@
 // the stores: warps drift apart by the symbols they decode, and 128-byte
 // pieces of rows 1 MB apart reach memory interleaved. A block barrier
 // after every row (kStreamBarrierRows = 1) keeps a block's warps on the
-// same row, so each row is written in runs of 4 KB (kStreamThreads = 1024
+// same row, so each row is written in runs of 4 KB (1024
 // lanes): 1.65 -> 0.65 ms; both constants measured best of the variants in
 // PERF.md (tools/kernel_times.py --stream-variants).
 // The store kernel (fuse="full") decodes from the same sources and stores
@@ -65,33 +65,39 @@
 // cost every step, though: with 32 long lanes (sequential sync) the
 // kernel waits on each step's latency, and there the lanes' own writes
 // are faster (482 against 569 ms), so the launch takes them below a warp
-// of lanes an SM. Slots take 264 bytes a thread (kStoreSlotBytes), before
-// the tables in the block's shared memory: 3 blocks of kStoreThreads =
-// 256 an SM, as fast as 128 threads and faster than 512; int16 slots (5
+// of lanes an SM. Slots take 264 bytes a thread (rt::store_slot_bytes), before
+// the tables in the block's shared memory: 3 blocks of 256 threads an SM, as fast as 128 threads and faster than 512; int16 slots (5
 // blocks an SM) were no faster (tools/kernel_times.py --store-variants).
 // It needs no atomics: once the entries have converged the lanes'
 // coefficient ranges are disjoint and positions within a lane strictly
 // increase (the scatter-race proof, docs/KERNELS.md).
 //
 // Every entry point returns cudaGetLastError() after its launch.
+//
+// Launch sizes: each kernel is a template on its block size, instantiated
+// for each candidate of kernels/autotune.py (geometry.cuh:
+// kExitThreadChoices, kStreamThreadChoices, kStoreThreadChoices) and
+// picked by a switch on the entry point's `threads` argument; any other
+// value returns cudaErrorInvalidValue. The store kernel's writer is an
+// argument too (rt::StoreWriter: by lane count, as above, or forced). The
+// defaults named above are the wrappers' (autotune.DEFAULT_LAUNCH).
+//
+// The checked build (-DRT_CHECK, check.cuh) guards every lane read and
+// exit store, the staged tables against the block's shared memory, the
+// stream rows, the store target and the warp's slot reads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "geometry.cuh"
 #include "huffman.cuh"
 
 namespace {
 
-constexpr int kExitThreads = 256;     // exit kernel
-constexpr int kStreamThreads = 1024;  // stream kernel
-constexpr int kStreamBarrierRows = 1;  // its rows between block barriers
-constexpr int kStoreThreads = 256;   // store kernel
+constexpr int kStreamBarrierRows = 1;  // stream kernel rows between barriers
 constexpr int kSlots = 2 * rt::kMaxUpm;  // LUT slots per tableset
-// the store kernel's unit slots: 64 int32 a thread, kSlotStride apart
-// (a thread's slot row by row, [thread][k]; 66 keeps rows 8-byte aligned
-// and moves each row two banks on from the last one's)
-constexpr int kSlotStride = 66;
-constexpr int kStoreSlotBytes = kSlotStride * (int)sizeof(int32_t) *
-                                kStoreThreads;
+using rt::kSlotStride;
 
 struct LaneInputs {
   const uint32_t* words;
@@ -107,6 +113,11 @@ struct LaneInputs {
   int s_max;
   int min_code_bits;
 };
+
+// lane l's entry of a (C,) lane operand (checked against the lanes)
+__device__ __forceinline__ int32_t lane_in(const int32_t* a, int l, int n) {
+  return rt::ld(a, l, n, rt::kSiteLane);
+}
 
 // The kernels' tables: the compact tables and, per
 // tableset slot, the start of its row in them.
@@ -124,23 +135,34 @@ int shared_bytes(const CompactTables& t) {
 // The compact tables as the kernel reads them: copied into the block's
 // shared memory (kShared; the table as 16-byte words, n_tab being a
 // multiple of 128 entries, then the row starts) or left in global memory.
-// Every thread of the block must call it.
+// Every thread of the block must call it. `skip`: the shared bytes before
+// the tables (the store kernel's slots), for the checked build's bound.
 template <bool kShared>
 __device__ __forceinline__ void stage_tables(const CompactTables& t,
-                                             unsigned char* smem,
+                                             unsigned char* smem, int skip,
                                              const uint16_t*& tab,
                                              const int32_t*& offs) {
   tab = t.tab;
   offs = t.offs;
   if (kShared) {
+#ifdef RT_CHECK
+    // the staged tables must fit the block's shared memory
+    const long long room =
+        (long long)rt::dynamic_smem_bytes() - skip;
+    const long long tab_room = room / 16;
+    const long long offs_room = (room - 2LL * t.n_tab) / 4;
+#else
+    const long long tab_room = 0, offs_room = 0;
+    (void)skip;
+#endif
     uint4* s_tab = reinterpret_cast<uint4*>(smem);
     const uint4* g_tab = reinterpret_cast<const uint4*>(t.tab);
     for (int i = threadIdx.x; i < t.n_tab / 8; i += blockDim.x) {
-      s_tab[i] = g_tab[i];
+      rt::st(s_tab, i, tab_room, rt::kSiteStageTables, g_tab[i]);
     }
     int32_t* s_offs = reinterpret_cast<int32_t*>(smem + 2 * t.n_tab);
     for (int i = threadIdx.x; i < t.n_offs; i += blockDim.x) {
-      s_offs[i] = t.offs[i];
+      rt::st(s_offs, i, offs_room, rt::kSiteStageTables, t.offs[i]);
     }
     __syncthreads();
     tab = reinterpret_cast<const uint16_t*>(smem);
@@ -148,28 +170,40 @@ __device__ __forceinline__ void stage_tables(const CompactTables& t,
   }
 }
 
+// The lane's table: its tableset's row of the (staged) tables.
 template <bool kShared>
-__global__ void __launch_bounds__(kExitThreads)
+__device__ __forceinline__ rt::CompactLut<!kShared> lane_table(
+    const CompactTables& t, const uint16_t* tab, const int32_t* offs,
+    int ts) {
+  const int64_t row = (int64_t)ts * kSlots;
+  return rt::CompactLut<!kShared>{tab, offs + row, t.n_tab, t.n_offs - row};
+}
+
+template <bool kShared, int kBlock>
+__global__ void __launch_bounds__(kBlock)
 exits_kernel(LaneInputs a, CompactTables t, int32_t* __restrict__ out_p,
              int32_t* __restrict__ out_u, int32_t* __restrict__ out_z,
              int32_t* __restrict__ out_n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const uint16_t* tab;
   const int32_t* offs;
-  stage_tables<kShared>(t, smem, tab, offs);
+  stage_tables<kShared>(t, smem, 0, tab, offs);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.n_lanes) return;
-  const rt::CompactLut<!kShared> table{tab, offs + a.ts[lane] * kSlots};
-  const int wb = a.word_base[lane], limit = a.limit[lane], upm = a.upm[lane];
-  rt::LaneState st{a.in_p[lane], a.in_u[lane], a.in_z[lane], 0};
+  const int n = a.n_lanes;
+  const auto table = lane_table<kShared>(t, tab, offs, lane_in(a.ts, lane, n));
+  const int wb = lane_in(a.word_base, lane, n);
+  const int limit = lane_in(a.limit, lane, n), upm = lane_in(a.upm, lane, n);
+  rt::LaneState st{lane_in(a.in_p, lane, n), lane_in(a.in_u, lane, n),
+                   lane_in(a.in_z, lane, n), 0};
   rt::BufferedWindow window(a.words, a.n_words, wb, st.p);
   for (int i = 0; i < a.s_max && st.p < limit; ++i) {
     rt::symbol_step(window, table, limit, upm, a.min_code_bits, st);
   }
-  out_p[lane] = st.p;
-  out_u[lane] = st.u;
-  out_z[lane] = st.z;
-  out_n[lane] = st.n;
+  rt::st(out_p, lane, n, rt::kSiteLane, st.p);
+  rt::st(out_u, lane, n, rt::kSiteLane, st.u);
+  rt::st(out_z, lane, n, rt::kSiteLane, st.z);
+  rt::st(out_n, lane, n, rt::kSiteLane, st.n);
 }
 
 // pos[i, lane] = local zig-zag offset written by step i (-1: nothing),
@@ -178,25 +212,30 @@ exits_kernel(LaneInputs a, CompactTables t, int32_t* __restrict__ out_p,
 // barrier every kStreamBarrierRows rows, so that the block's warps store
 // the same rows at about the same time. A thread past the last lane runs
 // the loop for the barriers, with nothing to decode and nothing stored.
-template <bool kShared>
-__global__ void __launch_bounds__(kStreamThreads)
+template <bool kShared, int kBlock>
+__global__ void __launch_bounds__(kBlock)
 streams_kernel(LaneInputs a, CompactTables t, int32_t* __restrict__ pos,
                int32_t* __restrict__ val) {
   extern __shared__ __align__(16) unsigned char smem[];
   const uint16_t* tab;
   const int32_t* offs;
-  stage_tables<kShared>(t, smem, tab, offs);
+  stage_tables<kShared>(t, smem, 0, tab, offs);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool real = lane < a.n_lanes;
-  const int l = real ? lane : a.n_lanes - 1;
-  const rt::CompactLut<!kShared> table{tab, offs + a.ts[l] * kSlots};
-  rt::LaneState st{a.in_p[l], a.in_u[l], a.in_z[l], 0};
-  rt::BufferedWindow window(a.words, a.n_words, a.word_base[l], st.p);
-  rt::stream_lane(window, table, real ? a.limit[l] : 0, a.upm[l],
-                  a.min_code_bits, a.s_max, st, pos + l, val + l,
-                  (int64_t)a.n_lanes, real, [](int i) {
+  const int n = a.n_lanes;
+  const int l = real ? lane : n - 1;
+  const auto table = lane_table<kShared>(t, tab, offs, lane_in(a.ts, l, n));
+  rt::LaneState st{lane_in(a.in_p, l, n), lane_in(a.in_u, l, n),
+                   lane_in(a.in_z, l, n), 0};
+  rt::BufferedWindow window(a.words, a.n_words, lane_in(a.word_base, l, n),
+                            st.p);
+  rt::stream_lane(window, table, real ? lane_in(a.limit, l, n) : 0,
+                  lane_in(a.upm, l, n), a.min_code_bits, a.s_max, st,
+                  pos + l, val + l, (int64_t)n, real,
+                  [](int i) {
                     if ((i + 1) % kStreamBarrierRows == 0) __syncthreads();
-                  });
+                  },
+                  (int64_t)a.s_max * n - l);
 }
 
 // store_lane's whole units written by the warp together (WarpUnits): at
@@ -208,6 +247,7 @@ streams_kernel(LaneInputs a, CompactTables t, int32_t* __restrict__ pos,
 // write theirs one by one.
 struct WarpUnits {
   const int32_t* warp_slots;  // the slot of the warp's lane 0
+  int64_t slot_extent;        // int32 from warp_slots to the slots' end
 
   __device__ __forceinline__ bool any(bool active) const {
     return __any_sync(0xffffffffu, active);
@@ -225,10 +265,15 @@ struct WarpUnits {
       const uint32_t lo = __shfl_sync(0xffffffffu, (uint32_t)rec, j);
       const uint32_t hi = __shfl_sync(0xffffffffu, (uint32_t)(rec >> 32), j);
       const uint32_t bits = ((lane < 16 ? lo : hi) >> (2 * (lane & 15))) & 3u;
-      const int2 v = *reinterpret_cast<const int2*>(
-          warp_slots + j * kSlotStride + 2 * lane);
-      *reinterpret_cast<int2*>(out.coef + t0 + 2 * lane) =
-          make_int2(bits & 1u ? v.x : 0, bits & 2u ? v.y : 0);
+      const int64_t k = (int64_t)j * kSlotStride + 2 * lane;
+      const int2 v =
+          rt::ok(k + 1, slot_extent, rt::kSiteSlot)
+              ? *reinterpret_cast<const int2*>(warp_slots + k)
+              : make_int2(0, 0);
+      if (rt::ok((int64_t)t0 + 2 * lane + 1, out.n_coef, rt::kSiteCoef)) {
+        *reinterpret_cast<int2*>(out.coef + t0 + 2 * lane) =
+            make_int2(bits & 1u ? v.x : 0, bits & 2u ? v.y : 0);
+      }
     }
   }
 };
@@ -237,38 +282,45 @@ struct WarpUnits {
 // (zeroed by the caller), under the mask of the JAX store kernel:
 // recorded step, pos >= 0, 0 <= target <= write_max; targets past the
 // buffer are dropped as well. The exit kernel's sources; the loop is
-// rt::store_lane, whose unit slots lie in the first kStoreSlotBytes of
-// the block's shared memory, the tables after them. kWarpUnits: the warp
-// writes the whole units (WarpUnits), else each lane its own
-// (rt::LaneUnits). A thread past the last lane runs the loop with nothing
-// to decode, for its warp's votes.
-template <bool kShared, bool kWarpUnits>
-__global__ void __launch_bounds__(kStoreThreads)
+// rt::store_lane, whose unit slots lie in the first
+// rt::store_slot_bytes(kBlock) of the block's shared memory, the tables
+// after them. kWarpUnits: the warp writes the whole units (WarpUnits),
+// else each lane its own (rt::LaneUnits). A thread past the last lane runs
+// the loop with nothing to decode, for its warp's votes.
+template <bool kShared, bool kWarpUnits, int kBlock>
+__global__ void __launch_bounds__(kBlock)
 store_kernel(LaneInputs a, CompactTables t,
              const int32_t* __restrict__ write_base,
              const int32_t* __restrict__ write_max,
              int32_t* __restrict__ coef, int64_t n_coef) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kSlotBytes = rt::store_slot_bytes(kBlock);
   const uint16_t* tab;
   const int32_t* offs;
-  stage_tables<kShared>(t, smem + kStoreSlotBytes, tab, offs);
+  stage_tables<kShared>(t, smem + kSlotBytes, kSlotBytes, tab, offs);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool real = lane < a.n_lanes;
-  const int l = real ? lane : a.n_lanes - 1;
-  const rt::CompactLut<!kShared> table{tab, offs + a.ts[l] * kSlots};
-  rt::LaneState st{a.in_p[l], a.in_u[l], a.in_z[l], 0};
-  rt::BufferedWindow window(a.words, a.n_words, a.word_base[l], st.p);
-  const rt::CoefStore out{coef, n_coef, write_base[l], write_max[l]};
+  const int n = a.n_lanes;
+  const int l = real ? lane : n - 1;
+  const auto table = lane_table<kShared>(t, tab, offs, lane_in(a.ts, l, n));
+  rt::LaneState st{lane_in(a.in_p, l, n), lane_in(a.in_u, l, n),
+                   lane_in(a.in_z, l, n), 0};
+  rt::BufferedWindow window(a.words, a.n_words, lane_in(a.word_base, l, n),
+                            st.p);
+  const rt::CoefStore out{coef, n_coef, lane_in(write_base, l, n),
+                          lane_in(write_max, l, n)};
   int32_t* slots = reinterpret_cast<int32_t*>(smem);
   int32_t* slot = slots + threadIdx.x * kSlotStride;
-  const int limit = real ? a.limit[l] : 0;
+  const int limit = real ? lane_in(a.limit, l, n) : 0;
   if constexpr (kWarpUnits) {
-    const WarpUnits units{slots + (threadIdx.x & ~31) * kSlotStride};
-    rt::store_lane(window, table, limit, a.upm[l], a.min_code_bits,
-                   a.s_max, st, out, slot, units);
+    const int first = threadIdx.x & ~31;
+    const WarpUnits units{slots + first * kSlotStride,
+                          (int64_t)(kBlock - first) * kSlotStride};
+    rt::store_lane(window, table, limit, lane_in(a.upm, l, n),
+                   a.min_code_bits, a.s_max, st, out, slot, units);
   } else {
-    rt::store_lane(window, table, limit, a.upm[l], a.min_code_bits,
-                   a.s_max, st, out, slot, rt::LaneUnits{});
+    rt::store_lane(window, table, limit, lane_in(a.upm, l, n),
+                   a.min_code_bits, a.s_max, st, out, slot, rt::LaneUnits{});
   }
 }
 
@@ -290,10 +342,6 @@ LaneInputs lane_inputs(const void* words, int n_words, const void* word_base,
   a.s_max = s_max;
   a.min_code_bits = min_code_bits;
   return a;
-}
-
-int blocks_for(int n_lanes, int threads) {
-  return (n_lanes + threads - 1) / threads;
 }
 
 // The SMs of the current device (asked once per device).
@@ -327,7 +375,7 @@ cudaError_t launch_compact(Shared shared, Global global,
                            int smem_budget, int slot_bytes, cudaStream_t s,
                            Args... args) {
   const int bytes = shared_bytes(t);
-  const int blocks = blocks_for(n_lanes, kBlock);
+  const int blocks = (int)rt::blocks_for(n_lanes, kBlock);
   const bool staged = bytes <= smem_budget;
   const int smem = slot_bytes + (staged ? bytes : 0);
   const cudaError_t err = allow_shared(staged ? shared : global, smem);
@@ -340,31 +388,55 @@ cudaError_t launch_compact(Shared shared, Global global,
   return cudaGetLastError();
 }
 
+// f(std::integral_constant<int, kBlock>) for the block size `threads` of
+// the instantiated kChoices, or cudaErrorInvalidValue for any other
+template <int... kChoices, class F>
+cudaError_t with_block(int threads, F f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((threads == kChoices &&
+          (err = f(std::integral_constant<int, kChoices>{}), true)) ||
+         ...);
+  return err;
+}
+
+static_assert(rt::kExitThreadChoices[0] == 128 &&
+              rt::kExitThreadChoices[1] == 256 &&
+              rt::kExitThreadChoices[2] == 512, "exit kernel choices");
+static_assert(rt::kStreamThreadChoices[0] == 256 &&
+              rt::kStreamThreadChoices[1] == 512 &&
+              rt::kStreamThreadChoices[2] == 1024, "stream kernel choices");
+static_assert(rt::kStoreThreadChoices[0] == 128 &&
+              rt::kStoreThreadChoices[1] == 256, "store kernel choices");
+
 }  // namespace
 
 extern "C" {
 
 // Each kernel's compact tables go to shared memory when they take at most
-// `smem_budget` bytes, else they are read from global memory.
+// `smem_budget` bytes, else they are read from global memory. `threads`:
+// the block size, one of the kernel's candidates.
 int rt_decode_exits(const void* words, int n_words, const void* ctab,
                     int n_tab, const void* lut_off, int n_offs,
                     const void* word_base, const void* ts, const void* limit,
                     const void* upm, const void* in_p, const void* in_u,
                     const void* in_z, void* out_p, void* out_u, void* out_z,
                     void* out_n, int n_lanes, int s_max, int min_code_bits,
-                    int smem_budget, void* stream) {
-  if (n_lanes <= 0) return cudaSuccess;
+                    int smem_budget, int threads, void* stream) {
   if (n_tab % 128 != 0) return cudaErrorInvalidValue;
   LaneInputs a = lane_inputs(words, n_words, word_base, ts, limit, upm,
                              in_p, in_u, in_z, n_lanes, s_max,
                              min_code_bits);
   const CompactTables t{static_cast<const uint16_t*>(ctab),
                         static_cast<const int32_t*>(lut_off), n_tab, n_offs};
-  return launch_compact<kExitThreads>(
-      exits_kernel<true>, exits_kernel<false>, t, n_lanes, smem_budget, 0,
-      static_cast<cudaStream_t>(stream), a, t, static_cast<int32_t*>(out_p),
-      static_cast<int32_t*>(out_u), static_cast<int32_t*>(out_z),
-      static_cast<int32_t*>(out_n));
+  return with_block<128, 256, 512>(threads, [&](auto block) {
+    constexpr int kBlock = decltype(block)::value;
+    if (n_lanes <= 0) return cudaSuccess;
+    return launch_compact<kBlock>(
+        exits_kernel<true, kBlock>, exits_kernel<false, kBlock>, t, n_lanes,
+        smem_budget, 0, static_cast<cudaStream_t>(stream), a, t,
+        static_cast<int32_t*>(out_p), static_cast<int32_t*>(out_u),
+        static_cast<int32_t*>(out_z), static_cast<int32_t*>(out_n));
+  });
 }
 
 int rt_decode_streams(const void* words, int n_words, const void* ctab,
@@ -373,20 +445,27 @@ int rt_decode_streams(const void* words, int n_words, const void* ctab,
                       const void* limit, const void* upm, const void* in_p,
                       const void* in_u, const void* in_z, void* pos,
                       void* val, int n_lanes, int s_max, int min_code_bits,
-                      int smem_budget, void* stream) {
-  if (n_lanes <= 0) return cudaSuccess;
+                      int smem_budget, int threads, void* stream) {
   if (n_tab % 128 != 0) return cudaErrorInvalidValue;
   LaneInputs a = lane_inputs(words, n_words, word_base, ts, limit, upm,
                              in_p, in_u, in_z, n_lanes, s_max,
                              min_code_bits);
   const CompactTables t{static_cast<const uint16_t*>(ctab),
                         static_cast<const int32_t*>(lut_off), n_tab, n_offs};
-  return launch_compact<kStreamThreads>(
-      streams_kernel<true>, streams_kernel<false>, t, n_lanes, smem_budget,
-      0, static_cast<cudaStream_t>(stream), a, t, static_cast<int32_t*>(pos),
-      static_cast<int32_t*>(val));
+  return with_block<256, 512, 1024>(threads, [&](auto block) {
+    constexpr int kBlock = decltype(block)::value;
+    if (n_lanes <= 0) return cudaSuccess;
+    return launch_compact<kBlock>(
+        streams_kernel<true, kBlock>, streams_kernel<false, kBlock>, t,
+        n_lanes, smem_budget, 0, static_cast<cudaStream_t>(stream), a, t,
+        static_cast<int32_t*>(pos), static_cast<int32_t*>(val));
+  });
 }
 
+// `writer`: rt::StoreWriter. The warp writes the whole units (auto) when
+// the lanes fill at least a warp an SM; with fewer, a step's latency
+// bounds the kernel and the warp's votes would lengthen every step. The
+// warp writer is refused below a warp of lanes.
 int rt_decode_store(const void* words, int n_words, const void* ctab,
                     int n_tab, const void* lut_off, int n_offs,
                     const void* word_base, const void* ts, const void* limit,
@@ -394,28 +473,32 @@ int rt_decode_store(const void* words, int n_words, const void* ctab,
                     const void* in_z, const void* write_base,
                     const void* write_max, void* coef, long long n_coef,
                     int n_lanes, int s_max, int min_code_bits,
-                    int smem_budget, void* stream) {
-  if (n_lanes <= 0) return cudaSuccess;
+                    int smem_budget, int threads, int writer, void* stream) {
   if (n_tab % 128 != 0) return cudaErrorInvalidValue;
+  const int warp = rt::store_warp_units(writer, n_lanes, sm_count());
+  if (warp < 0) return cudaErrorInvalidValue;
   LaneInputs a = lane_inputs(words, n_words, word_base, ts, limit, upm,
                              in_p, in_u, in_z, n_lanes, s_max,
                              min_code_bits);
   const CompactTables t{static_cast<const uint16_t*>(ctab),
                         static_cast<const int32_t*>(lut_off), n_tab, n_offs};
-  // the warp writes the whole units when the lanes fill at least a warp an
-  // SM; with fewer, a step's latency bounds the kernel and the warp's
-  // votes would lengthen every step
-  const bool warp = n_lanes >= 32 * sm_count();
-  auto launch = [&](auto shared, auto global) {
-    return launch_compact<kStoreThreads>(
-        shared, global, t, n_lanes, smem_budget, kStoreSlotBytes,
-        static_cast<cudaStream_t>(stream), a, t,
-        static_cast<const int32_t*>(write_base),
-        static_cast<const int32_t*>(write_max), static_cast<int32_t*>(coef),
-        (int64_t)n_coef);
+  auto store = [&](auto block) {
+    constexpr int kBlock = decltype(block)::value;
+    if (n_lanes <= 0) return cudaSuccess;
+    auto launch = [&](auto shared, auto global) {
+      return launch_compact<kBlock>(
+          shared, global, t, n_lanes, smem_budget,
+          rt::store_slot_bytes(kBlock), static_cast<cudaStream_t>(stream),
+          a, t, static_cast<const int32_t*>(write_base),
+          static_cast<const int32_t*>(write_max),
+          static_cast<int32_t*>(coef), (int64_t)n_coef);
+    };
+    return warp ? launch(store_kernel<true, true, kBlock>,
+                         store_kernel<false, true, kBlock>)
+                : launch(store_kernel<true, false, kBlock>,
+                         store_kernel<false, false, kBlock>);
   };
-  return warp ? launch(store_kernel<true, true>, store_kernel<false, true>)
-              : launch(store_kernel<true, false>, store_kernel<false, false>);
+  return with_block<128, 256>(threads, store);
 }
 
 }  // extern "C"

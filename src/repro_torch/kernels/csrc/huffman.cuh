@@ -33,9 +33,18 @@
 // The functions are __host__ __device__ so that a host-only build of this
 // header (g++, see tests/test_torch_symbol_step.py) runs the same code on
 // the CPU.
+//
+// In the checked build (-DRT_CHECK, check.cuh) every read of the words,
+// the tables and the slot, and every store, is checked against its extent:
+// the words window against the buffer (whose segments each end in the JAX
+// kernel's two window words past chunk_words), the tables against n_tab
+// and the tableset rows,
+// the stream rows and the store target against their buffers.
 #pragma once
 
 #include <stdint.h>
+
+#include "check.cuh"
 
 #ifndef __CUDACC__
 #define __host__
@@ -76,9 +85,15 @@ __host__ __device__ __forceinline__ uint32_t window32(uint32_t hi, uint32_t lo,
 
 // Word indices in 32 bits: the planner guarantees n_words * 32 + 63 fits
 // int32 (core/contracts.check_shape_capacities), so word_base + (p >> 5) + 2
-// does too; load_word32 clamps it to the last word.
+// does too; load_word32 clamps it to the last word. A lane reads at most two
+// words past its last bit (the window's straddle and safety words: the JAX
+// kernel's chunk_words + 2), and the plan appends those two words to every
+// segment (jpeg/format.pack_bits_to_words), so no read of a clean run
+// passes the buffer; the checked build flags one that does, before the
+// clamp.
 __host__ __device__ __forceinline__ uint32_t load_word32(
     const uint32_t* words, int n_words, int idx) {
+  ok(idx, n_words, kSiteWords);
   idx = idx < 0 ? 0 : (idx >= n_words ? n_words - 1 : idx);
   return words[idx];
 }
@@ -124,8 +139,13 @@ template <bool kLdg>
 struct CompactLut {
   const uint16_t* tab;  // every row: primary, then its secondaries
   const int32_t* offs;  // the lane's tableset row of unit_lut_off: starts
+  // the checked build's extents: tab's entries, and offs' from the lane's
+  // row on (unchecked by default)
+  int64_t n_tab = INT64_MAX;
+  int64_t n_offs = INT64_MAX;
 
   __host__ __device__ __forceinline__ uint32_t load(int64_t i) const {
+    if (!ok(i, n_tab, kSiteTable)) return 0u;
 #ifdef __CUDA_ARCH__
     if (kLdg) return __ldg(tab + i);
 #endif
@@ -133,6 +153,7 @@ struct CompactLut {
   }
 
   __host__ __device__ __forceinline__ int entry(int slot, int win16) const {
+    if (!ok(slot, n_offs, kSiteTableRow)) return 0;
 #ifdef __CUDA_ARCH__
     const int64_t base = kLdg ? __ldg(offs + slot) : offs[slot];
 #else
@@ -201,12 +222,14 @@ __host__ __device__ __forceinline__ StepOut symbol_step(
 // stores, also once the lane has finished, so that the lanes of a warp
 // (stride = C, consecutive lanes) store whole rows together; nothing is
 // stored without `store`. row_done(i) runs after row i on every lane: the
-// kernel's block barrier, nothing on the host.
+// kernel's block barrier, nothing on the host. `extent`: the entries of
+// pos and val from the lane's first on (the checked build's bound).
 template <class Window, class Table, class RowDone>
 __host__ __device__ __forceinline__ void stream_lane(
     Window& window, const Table& table, int limit, int upm,
     int min_code_bits, int s_max, LaneState& st, int32_t* pos, int32_t* val,
-    int64_t stride, bool store, RowDone row_done) {
+    int64_t stride, bool store, RowDone row_done,
+    int64_t extent = INT64_MAX) {
   for (int i = 0; i < s_max; ++i) {
     int p = -1, v = 0;
     const bool active = st.p < limit;
@@ -220,8 +243,8 @@ __host__ __device__ __forceinline__ void stream_lane(
       }
     }
     if (store) {
-      pos[i * stride] = p;
-      val[i * stride] = v;
+      rt::st(pos, i * stride, extent, kSiteStream, p);
+      rt::st(val, i * stride, extent, kSiteStream, v);
     }
     row_done(i);
   }
@@ -283,7 +306,9 @@ struct CoefStore {
   // one recorded coefficient at local offset pos, under the mask
   __host__ __device__ __forceinline__ void entry(int pos, int v) const {
     const int tgt = base + pos;
-    if (pos >= 0 && tgt >= 0 && tgt <= wmax && tgt < n_coef) coef[tgt] = v;
+    if (pos >= 0 && tgt >= 0 && tgt <= wmax && tgt < n_coef) {
+      rt::st(coef, (int64_t)tgt, n_coef, kSiteCoef, v);
+    }
   }
 
   // the recorded entries of a slot (bit k of rec: offset n0 + k)
@@ -293,7 +318,7 @@ struct CoefStore {
     while (rec != 0) {
       const int k = lowest_bit(rec);
       rec &= rec - 1;
-      entry(n0 + k, slot[k]);
+      entry(n0 + k, ld(slot, k, 64, kSiteSlot));
     }
   }
 
@@ -318,7 +343,9 @@ struct CoefStore {
         const int k = 4 * q + j;
         v[j] = (rec >> k) & 1u ? slot[k] : 0;
       }
-      dst[q] = Int4{v[0], v[1], v[2], v[3]};
+      if (ok((int64_t)base + n0 + 4 * q + 3, n_coef, kSiteCoef)) {
+        dst[q] = Int4{v[0], v[1], v[2], v[3]};
+      }
     }
   }
 };
@@ -360,7 +387,7 @@ __host__ __device__ __forceinline__ int store_lane(
       const int pos = n + o.run_eff;
       const int k = pos - n0;
       if (whole && !o.invalid && k < 64) {
-        slot[k] = o.coef;
+        rt::st(slot, k, 64, kSiteSlot, o.coef);
         rec |= (uint64_t)1 << k;
       } else {
         if (whole) {  // an invalid step or a run past the unit

@@ -43,6 +43,13 @@
 // Its times on the card, against the thread-per-sample version it
 // replaces and the library call, are in PERF.md (chip_smoke.py).
 //
+// Launch size: `groups` thread groups a block (geometry.cuh launch_groups:
+// 0 is groups_for(stride), the default; kernels/autotune.py's idct_groups
+// candidates), a tile of 6 * groups units. The checked build (check.cuh)
+// also guards the output stores, counts each output sample written
+// (coverage), and holds the block's shared layout within its dynamic
+// shared memory.
+//
 // Output: (U, 64) f32, row-major pixel samples of each unit.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,23 +60,13 @@
 
 namespace {
 
+using rt::kMaxStride;
 using rt::kMaxThreads;
 using rt::kThreadsPerGroup;
 using rt::kUnits;
 using rt::kXStride;
-using rt::groups_for;
 
-constexpr int kMaxStride = 6;        // units per MCU (bitstream.MAX_UPM)
 constexpr int kSharedMatrices = 4;   // JPEG's quantization tables
-
-// Shared memory: the matrices (when staged), then a tile's coefficients
-// as copied (int32) and their matrix ids, then the coefficients as f32 in
-// padded rows and the ids.
-int shared_bytes(bool shared_m, int nq, int tile) {
-  return (shared_m ? nq * 64 * 64 * (int)sizeof(float) : 0) +
-         tile * 64 * (int)sizeof(int32_t) + tile * (int)sizeof(int32_t) +
-         tile * kXStride * (int)sizeof(float) + tile * (int)sizeof(int);
-}
 
 template <bool kSharedM>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -84,7 +81,12 @@ idct_kernel(const int32_t* __restrict__ coeffs,
   int32_t* raw_rows = raw + tile * 64;
   float* xs = reinterpret_cast<float*>(raw_rows + tile);
   int* rows = reinterpret_cast<int*>(xs + tile * kXStride);
-  const long long n_tiles = (n_units + tile - 1) / tile;
+  const long long n_tiles = rt::tiles_for(n_units, tile);
+#ifdef RT_CHECK
+  // the layout above must fit the block's shared memory
+  rt::ok(rt::idct_shared_bytes(kSharedM, nq, tile) - 1,
+         rt::dynamic_smem_bytes(), rt::kSiteTile);
+#endif
   if (blockIdx.x < n_tiles) {
     rt::fetch_tile(coeffs, unit_mrow, n_units, tile, blockIdx.x, raw,
                    raw_rows);
@@ -93,18 +95,22 @@ idct_kernel(const int32_t* __restrict__ coeffs,
   if (kSharedM) {
     const float4* src = reinterpret_cast<const float4*>(mt);
     float4* dst = reinterpret_cast<float4*>(ms);
-    for (int i = threadIdx.x; i < nq * 1024; i += blockDim.x) dst[i] = src[i];
+    const long long room = rt::dynamic_smem_bytes() / 16;  // checked build
+    for (int i = threadIdx.x; i < nq * 1024; i += blockDim.x) {
+      rt::st(dst, i, room, rt::kSiteTile, src[i]);
+    }
     m = ms;  // the first tile's barrier orders these stores
   }
   const int g = threadIdx.x / kThreadsPerGroup;
   const int k0 = (threadIdx.x % kThreadsPerGroup) * 4;
-  const int a = (g / stride) * kUnits * stride + g % stride;
+  const int a = rt::group_unit(g, 0, stride);
+  const long long n_out = n_units * 64;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long u0 = t * tile;
     const int nu = (int)min((long long)tile, n_units - u0);
     asm volatile("cp.async.wait_all;\n");
     __syncthreads();  // tile t has landed; the last tile's xs is free
-    rt::convert_tile(raw, raw_rows, nu, xs, rows);
+    rt::convert_tile(raw, raw_rows, nu, tile, xs, rows);
     __syncthreads();  // xs ready, raw free
     if (t + gridDim.x < n_tiles) {  // the next tile lands while this computes
       rt::fetch_tile(coeffs, unit_mrow, n_units, tile, t + gridDim.x, raw,
@@ -112,15 +118,22 @@ idct_kernel(const int32_t* __restrict__ coeffs,
     }
     if (a < nu) {
       float s[kUnits][8];
-      rt::idct_tile_group(xs, rows, m, a, stride, nu, k0, s);
+      rt::idct_tile_group(xs, rows, m, nq, a, stride, nu, k0, s);
 #pragma unroll
       for (int i = 0; i < kUnits; ++i) {
         if (a + i * stride < nu) {
-          float* dst = out + (u0 + a + i * stride) * 64 + k0;
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-          *reinterpret_cast<float4*>(dst + 32) =
-              make_float4(s[i][4], s[i][5], s[i][6], s[i][7]);
+          const long long o = (u0 + a + i * stride) * 64 + k0;
+          float* dst = out + o;
+          if (rt::ok(o + 3, n_out, rt::kSiteSamples)) {
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+            rt::cover(o, 4);
+          }
+          if (rt::ok(o + 35, n_out, rt::kSiteSamples)) {
+            *reinterpret_cast<float4*>(dst + 32) =
+                make_float4(s[i][4], s[i][5], s[i][6], s[i][7]);
+            rt::cover(o + 32, 4);
+          }
         }
       }
     }
@@ -135,17 +148,18 @@ idct_kernel(const int32_t* __restrict__ coeffs,
 constexpr int kMaxDevices = 64;
 
 template <bool kSharedM>
-cudaError_t resident_blocks(int stride, int nq, int* slots) {
+cudaError_t resident_blocks(int stride, int groups, int nq, int* slots) {
   static std::mutex mu;
   static bool opted_in[kMaxDevices];
-  static int cache[kMaxDevices][kMaxStride + 1][kSharedMatrices + 1];
+  static int cache[kMaxDevices][kMaxStride + 1][rt::kMaxGroups + 1]
+                  [kSharedMatrices + 1];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
   const int q = kSharedM ? nq : 0;  // the global form's bytes ignore NQ
   std::lock_guard<std::mutex> lock(mu);
-  int& cached = cache[device][stride][q];
+  int& cached = cache[device][stride][groups][q];
   if (cached > 0) {
     *slots = cached;
     return cudaSuccess;
@@ -154,8 +168,8 @@ cudaError_t resident_blocks(int stride, int nq, int* slots) {
   if (!opted_in[device]) {
     int most = 0;
     for (int s = 1; s <= kMaxStride; ++s) {
-      const int b = shared_bytes(kSharedM, kSharedMatrices,
-                                 groups_for(s) * kUnits);
+      const int b = rt::idct_shared_bytes(
+          kSharedM, kSharedMatrices, rt::tile_units(rt::groups_for(s)));
       most = b > most ? b : most;
     }
     err = cudaFuncSetAttribute(
@@ -163,13 +177,12 @@ cudaError_t resident_blocks(int stride, int nq, int* slots) {
     if (err != cudaSuccess) return err;
     opted_in[device] = true;
   }
-  const int groups = groups_for(stride);
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, kernel, groups * kThreadsPerGroup,
-        shared_bytes(kSharedM, q, groups * kUnits));
+        rt::idct_shared_bytes(kSharedM, q, rt::tile_units(groups)));
   }
   if (err != cudaSuccess) return err;
   *slots = cached = sms * (per_sm > 0 ? per_sm : 1);
@@ -179,15 +192,15 @@ cudaError_t resident_blocks(int stride, int nq, int* slots) {
 template <bool kSharedM>
 cudaError_t launch(const int32_t* coeffs, const float* mt, int nq,
                    const int32_t* unit_mrow, float* out, long long n_units,
-                   int stride, cudaStream_t stream) {
-  const int groups = groups_for(stride);
+                   int stride, int groups, cudaStream_t stream) {
   const int threads = groups * kThreadsPerGroup;
-  const int tile = groups * kUnits;
-  const int bytes = shared_bytes(kSharedM, nq, tile);
+  const int tile = rt::tile_units(groups);
+  const int bytes = rt::idct_shared_bytes(kSharedM, nq, tile);
   int slots = 0;
-  const cudaError_t err = resident_blocks<kSharedM>(stride, nq, &slots);
+  const cudaError_t err =
+      resident_blocks<kSharedM>(stride, groups, nq, &slots);
   if (err != cudaSuccess) return err;
-  const long long n_tiles = (n_units + tile - 1) / tile;
+  const long long n_tiles = rt::tiles_for(n_units, tile);
   const int blocks = (int)(n_tiles < slots ? n_tiles : slots);
   idct_kernel<kSharedM><<<blocks, threads, bytes, stream>>>(
       coeffs, mt, nq, unit_mrow, out, n_units, stride, tile);
@@ -198,30 +211,31 @@ cudaError_t launch(const int32_t* coeffs, const float* mt, int nq,
 
 extern "C" {
 
-// Units per tile at a stride, for the tests of a partial last tile.
-int rt_idct_tile_units(int stride) {
-  if (stride < 1 || stride > kMaxStride) return -1;
-  return groups_for(stride) * kUnits;
+// Units per tile at a stride and groups knob (0: the default), for the
+// tests of a partial last tile; -1 for a knob the stride refuses.
+int rt_idct_tile_units(int stride, int groups) {
+  const int g = rt::launch_groups(groups, stride);
+  return g < 0 ? -1 : rt::tile_units(g);
 }
 
 // `stride`: the units a thread's 6 units lie apart, 1..6; the units per
 // MCU of the batch's layout make them share their matrix. Any stride
-// gives the same samples.
+// gives the same samples. `groups`: the launch's thread groups a block
+// (geometry.cuh launch_groups; 0 the default).
 int rt_idct_units(const void* coeffs, const void* mt, int nq,
                   const void* unit_mrow, void* out, long long n_units,
-                  int stride, void* stream) {
+                  int stride, int groups, void* stream) {
+  const int g = rt::launch_groups(groups, stride);
+  if (g < 0 || nq < 1) return cudaErrorInvalidValue;
   if (n_units <= 0) return cudaSuccess;
-  if (stride < 1 || stride > kMaxStride || nq < 1) {
-    return cudaErrorInvalidValue;
-  }
   auto c = static_cast<const int32_t*>(coeffs);
   auto m = static_cast<const float*>(mt);
   auto r = static_cast<const int32_t*>(unit_mrow);
   auto o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   return nq <= kSharedMatrices
-             ? launch<true>(c, m, nq, r, o, n_units, stride, s)
-             : launch<false>(c, m, nq, r, o, n_units, stride, s);
+             ? launch<true>(c, m, nq, r, o, n_units, stride, g, s)
+             : launch<false>(c, m, nq, r, o, n_units, stride, g, s);
 }
 
 }  // extern "C"

@@ -20,9 +20,17 @@
 // unit and k. Per j it reads U values of x and 8 of M (two 16-byte loads)
 // for 8U multiplies and 8U adds; when the U units share one matrix it
 // reads M once for all of them, else once per unit.
+//
+// The checked build (-DRT_CHECK, check.cuh) guards the tile's copies (the
+// coefficients and matrix ids in global memory, their shared rows), the
+// matrix each unit names (a row of 64 x 64 floats within the NQ staged or
+// global ones) and the tile's reads of its shared rows.
 #pragma once
 
 #include <stdint.h>
+
+#include "check.cuh"
+#include "geometry.cuh"
 
 namespace rt {
 
@@ -101,26 +109,13 @@ __device__ __forceinline__ void idct_group(const float* const (&xu)[U],
 //
 // A thread group of kThreadsPerGroup threads computes kUnits units that lie
 // `stride` units apart (idct_group): group g of a tile takes units
-// a + i * stride, i < kUnits, a = (g / stride) * kUnits * stride +
-// g % stride, and thread t of the group samples k0 = 4 t .. +3 and
-// k0 + 32 .. +35. A tile of groups * kUnits units (groups a multiple of
-// stride) is then covered once. The tile's coefficients are copied with
-// cp.async (fetch_tile) and converted to f32 rows of kXStride floats
-// (convert_tile), padded so that the groups of a warp read distinct banks.
-
-constexpr int kUnits = 6;            // units of a thread's group
-constexpr int kThreadsPerGroup = 8;  // 8 samples each
-constexpr int kMaxGroups = 48;       // per tile
-constexpr int kMaxThreads = kMaxGroups * kThreadsPerGroup;  // 384
-constexpr int kXStride = 65;         // padded row of x
-
-// Groups per tile: the most, up to kMaxGroups, that is a multiple of the
-// stride (whole blocks of kUnits * stride units) and fills whole warps.
-inline int groups_for(int stride) {
-  int groups = kMaxGroups - kMaxGroups % stride;
-  while ((groups * kThreadsPerGroup) % 32 != 0) groups -= stride;
-  return groups;
-}
+// group_unit(g, i, stride) = a + i * stride, i < kUnits, a = (g / stride) *
+// kUnits * stride + g % stride, and thread t of the group samples
+// k0 = 4 t .. +3 and k0 + 32 .. +35. A tile of groups * kUnits units
+// (groups a multiple of stride) is then covered once (geometry.cuh). The
+// tile's coefficients are copied with cp.async (fetch_tile) and converted
+// to f32 rows of kXStride floats (convert_tile), padded so that the groups
+// of a warp read distinct banks.
 
 __device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
   const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -134,7 +129,8 @@ __device__ __forceinline__ void copy_async4(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-// Start copying tile `t`'s coefficients and matrix ids into raw, raw_rows.
+// Start copying tile `t`'s coefficients and matrix ids into raw, raw_rows
+// (shared rows for `tile` units).
 __device__ __forceinline__ void fetch_tile(const int32_t* coeffs,
                                            const int32_t* unit_mrow,
                                            long long n_units, int tile,
@@ -143,36 +139,52 @@ __device__ __forceinline__ void fetch_tile(const int32_t* coeffs,
   const long long u0 = t * tile;
   const int nu = (int)min((long long)tile, n_units - u0);
   for (int i = threadIdx.x; i < nu * 16; i += blockDim.x) {
-    copy_async16(raw + i * 4, coeffs + u0 * 64 + i * 4);
+    if (ok(u0 * 64 + i * 4 + 3, n_units * 64, kSiteCoeffs) &&
+        ok(i * 4 + 3, (long long)tile * 64, kSiteTile)) {
+      copy_async16(raw + i * 4, coeffs + u0 * 64 + i * 4);
+    }
   }
   for (int i = threadIdx.x; i < nu; i += blockDim.x) {
-    copy_async4(raw_rows + i, unit_mrow + u0 + i);
+    if (ok(u0 + i, n_units, kSiteUnitRow) && ok(i, tile, kSiteTile)) {
+      copy_async4(raw_rows + i, unit_mrow + u0 + i);
+    }
   }
   asm volatile("cp.async.commit_group;\n");
 }
 
-// The landed tile's nu units as f32 rows of kXStride, and their ids.
+// The landed tile's nu units as f32 rows of kXStride, and their ids (shared
+// rows for `tile` units).
 __device__ __forceinline__ void convert_tile(const int32_t* raw,
                                              const int32_t* raw_rows, int nu,
-                                             float* xs, int* rows) {
+                                             int tile, float* xs,
+                                             int* rows) {
   for (int i = threadIdx.x; i < nu * 16; i += blockDim.x) {
-    const int4 v = reinterpret_cast<const int4*>(raw)[i];
-    float* x = xs + (i >> 4) * kXStride + (i & 15) * 4;
+    const int4 v = ld(reinterpret_cast<const int4*>(raw), i,
+                      (long long)tile * 16, kSiteTile);
+    const long long xi = (long long)(i >> 4) * kXStride + (i & 15) * 4;
+    if (!ok(xi + 3, (long long)tile * kXStride, kSiteTile)) continue;
+    float* x = xs + xi;
     x[0] = (float)v.x;
     x[1] = (float)v.y;
     x[2] = (float)v.z;
     x[3] = (float)v.w;
   }
-  for (int i = threadIdx.x; i < nu; i += blockDim.x) rows[i] = raw_rows[i];
+  for (int i = threadIdx.x; i < nu; i += blockDim.x) {
+    st(rows, i, tile, kSiteTile, ld(raw_rows, i, tile, kSiteTile));
+  }
 }
 
 // The samples of group unit a's kUnits units (a < nu) from the converted
-// tile; m: the matrices (shared or global). Units past the tile's end
-// compute on unit a; the caller does not store them.
+// tile; m: the nq matrices (shared or global). Units past the tile's end
+// compute on unit a; the caller does not store them. The checked build
+// holds each unit's row and its matrix's last word (k0 + 35 of row 63)
+// within the tile's rows and the nq matrices; a unit that fails computes
+// on unit a and matrix 0.
 __device__ __forceinline__ void idct_tile_group(const float* xs,
                                                 const int* rows,
-                                                const float* m, int a,
-                                                int stride, int nu, int k0,
+                                                const float* m, int nq,
+                                                int a, int stride, int nu,
+                                                int k0,
                                                 float (&s)[kUnits][8]) {
   const float* xu[kUnits];
   const float* mqk[kUnits];
@@ -180,10 +192,16 @@ __device__ __forceinline__ void idct_tile_group(const float* xs,
   const int q0 = rows[a];
 #pragma unroll
   for (int i = 0; i < kUnits; ++i) {
-    const int u = a + i * stride < nu ? a + i * stride : a;
+    int u = a + i * stride < nu ? a + i * stride : a;
+    if (!ok(u, nu, kSiteTile)) u = a;
+    int q = rows[u];
+    if (!ok((long long)q * 4096 + 63 * 64 + k0 + 35, (long long)nq * 4096,
+            kSiteMatrix)) {
+      q = 0;
+    }
     xu[i] = xs + u * kXStride;
-    mqk[i] = m + rows[u] * 4096 + k0;
-    same_q = same_q && rows[u] == q0;
+    mqk[i] = m + q * 4096 + k0;
+    same_q = same_q && q == q0;
   }
   idct_group<kUnits>(xu, mqk, same_q, s);
 }

@@ -41,6 +41,17 @@
 //
 // Output: (n_mcus, 8*v_max, 8*h_max, 3) uint8; the wrapper reshapes and
 // crops it to (B, H, W, 3).
+//
+// Launch size: `groups` thread groups a block (geometry.cuh launch_groups:
+// 0 is groups_for(upm), the default; kernels/autotune.py's pixel_groups
+// candidates), a tile of 6 * groups units, groups * 6 / upm MCUs. The
+// checked build (check.cuh) also guards the unit pixels' shared stores and
+// reads and the output stores, counts each output byte written
+// (coverage), and holds the block's shared layout within its dynamic
+// shared memory. There only, rt_fused_pixels_geometry launches the kernel
+// with a tile and a grid the caller gives, as the JAX package's verifier
+// launches the Pallas kernel with a misaligned tile (its self-test seed
+// S3, kernels/seeds.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,24 +68,10 @@ using rt::kUnits;
 using rt::kXStride;
 using rt::McuLayout;
 
-constexpr int kMaxUpm = 6;          // units per MCU (bitstream.MAX_UPM)
+constexpr int kMaxUpm = rt::kMaxStride;  // units per MCU (bitstream.MAX_UPM)
 // matrices staged in shared memory: with the uint8 unit pixels, four would
 // pass the 227 KB a block may have at the largest tile
 constexpr int kSharedMatrices = 3;
-
-// Shared memory: the matrices (when staged), a tile's coefficients as
-// copied (int32) and their matrix ids, the coefficients as f32 in padded
-// rows and the ids, then the unit pixels (uint8). Every part is a multiple
-// of 8 bytes (a tile is a multiple of 6 units), so the unit pixels' rows
-// are 8-byte aligned.
-int shared_bytes(bool shared_m, int nq, int tile) {
-  return (shared_m ? nq * 64 * 64 * (int)sizeof(float) : 0) +
-         tile * 64 * (int)sizeof(int32_t) + tile * (int)sizeof(int32_t) +
-         tile * kXStride * (int)sizeof(float) + tile * (int)sizeof(int) +
-         tile * 64;
-}
-
-int tile_units(int upm) { return rt::groups_for(upm) * kUnits; }
 
 __device__ __forceinline__ uint32_t to_u8(float v) {
   return (uint32_t)fminf(fmaxf(rintf(v), 0.f), 255.f);
@@ -94,15 +91,18 @@ __device__ __forceinline__ float byte_of(unsigned long long row, int col) {
 
 // One run of 8 output pixels (y, x0..x0+7) of an MCU whose unit pixels
 // are `px`, as 24 RGB bytes into words w[12] from byte `b0` (0 or 24).
+// `n_px`: the unit pixels' bytes from px on (the checked build's bound).
 template <int kB0>
 __device__ __forceinline__ void color_run(const McuLayout& l,
-                                          const uint8_t* px, int y, int x0,
-                                          uint32_t (&w)[12]) {
+                                          const uint8_t* px, long long n_px,
+                                          int y, int x0, uint32_t (&w)[12]) {
   unsigned long long row[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    row[c] = *reinterpret_cast<const unsigned long long*>(
-        px + rt::row_source(l, c, y, x0));
+    const int src = rt::row_source(l, c, y, x0);
+    row[c] = rt::ok(src + 7, n_px, rt::kSiteTile)
+                 ? *reinterpret_cast<const unsigned long long*>(px + src)
+                 : 0ull;
   }
   const float c_r = (float)1.402, c_gb = (float)0.344136286,
               c_gr = (float)0.714136286, c_b = (float)1.772;
@@ -133,7 +133,7 @@ pixels_kernel(const int32_t* __restrict__ coeffs,
               const float* __restrict__ mt,  // (NQ, 64 j, 64 k)
               int nq, const int32_t* __restrict__ unit_mrow,
               uint8_t* __restrict__ out, McuLayout layout, long long n_mcus,
-              int tile_mcus) {
+              int tile_mcus, long long grid_tiles) {
   // a standard layout is a constant, so its mapping folds into shifts
   constexpr McuLayout kFixed =
       rt::standard_layout(kKind == rt::kGeneric ? rt::k444 : kKind);
@@ -147,7 +147,18 @@ pixels_kernel(const int32_t* __restrict__ coeffs,
   int* rows = reinterpret_cast<int*>(xs + tile * kXStride);
   uint8_t* px = reinterpret_cast<uint8_t*>(rows + tile);
   const long long n_units = n_mcus * l.upm;
-  const long long n_tiles = (n_mcus + tile_mcus - 1) / tile_mcus;
+#ifdef RT_CHECK
+  // the layout above must fit the block's shared memory
+  rt::ok(rt::pixels_shared_bytes(kSharedM, nq, tile) - 1,
+         rt::dynamic_smem_bytes(), rt::kSiteTile);
+  // the tiles the launch covers: every tile, or the grid that
+  // rt_fused_pixels_geometry gives
+  const long long n_tiles = grid_tiles;
+#else
+  // every tile, counted here: with the count as an argument the compiler
+  // schedules the kernel otherwise, 1.4% slower (tools/kernel_times.py)
+  const long long n_tiles = rt::tiles_for(n_mcus, tile_mcus);
+#endif
   if (blockIdx.x < n_tiles) {
     rt::fetch_tile(coeffs, unit_mrow, n_units, tile, blockIdx.x, raw,
                    raw_rows);
@@ -156,29 +167,33 @@ pixels_kernel(const int32_t* __restrict__ coeffs,
   if (kSharedM) {
     const float4* src = reinterpret_cast<const float4*>(mt);
     float4* dst = reinterpret_cast<float4*>(ms);
-    for (int i = threadIdx.x; i < nq * 1024; i += blockDim.x) dst[i] = src[i];
+    const long long room = rt::dynamic_smem_bytes() / 16;  // checked build
+    for (int i = threadIdx.x; i < nq * 1024; i += blockDim.x) {
+      rt::st(dst, i, room, rt::kSiteTile, src[i]);
+    }
     m = ms;  // the first tile's barrier orders these stores
   }
   // first stage: group g's units a + i * upm
   const int g = threadIdx.x / kThreadsPerGroup;
   const int k0 = (threadIdx.x % kThreadsPerGroup) * 4;
-  const int a = (g / l.upm) * kUnits * l.upm + g % l.upm;
+  const int a = rt::group_unit(g, 0, l.upm);
   // second stage: chunk c (16 pixels) of MCUs mc, mc + mstep, ...; its two
   // runs start at pixels 16 c and 16 c + 8 of the MCU, row-major
   const int mw = 8 * l.h_max;
-  const int cpm = 4 * l.h_max * l.v_max;  // chunks per MCU
+  const int cpm = rt::chunks_per_mcu(l.h_max, l.v_max);
   const int mstep = blockDim.x / cpm;
   const int mc = threadIdx.x / cpm, c = threadIdx.x % cpm;
   const int y0 = 16 * c / mw, x0 = 16 * c % mw;
   const int y1 = (16 * c + 8) / mw, x1 = (16 * c + 8) % mw;
   const int mcu_bytes = 8 * l.v_max * mw * 3;
+  const long long n_out = n_mcus * mcu_bytes;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long m0 = t * tile_mcus;
     const int tm = (int)min((long long)tile_mcus, n_mcus - m0);
     const int nu = tm * l.upm;
     asm volatile("cp.async.wait_all;\n");
     __syncthreads();  // tile t has landed; xs and px are free
-    rt::convert_tile(raw, raw_rows, nu, xs, rows);
+    rt::convert_tile(raw, raw_rows, nu, tile, xs, rows);
     __syncthreads();  // xs ready, raw free
     if (t + gridDim.x < n_tiles) {  // the next tile lands while this computes
       rt::fetch_tile(coeffs, unit_mrow, n_units, tile, t + gridDim.x, raw,
@@ -186,14 +201,18 @@ pixels_kernel(const int32_t* __restrict__ coeffs,
     }
     if (a < nu) {
       float s[kUnits][8];
-      rt::idct_tile_group(xs, rows, m, a, l.upm, nu, k0, s);
+      rt::idct_tile_group(xs, rows, m, nq, a, l.upm, nu, k0, s);
 #pragma unroll
       for (int i = 0; i < kUnits; ++i) {
         if (a + i * l.upm < nu) {
-          uint32_t* dst =
-              reinterpret_cast<uint32_t*>(px + (a + i * l.upm) * 64 + k0);
-          dst[0] = pack4(s[i][0], s[i][1], s[i][2], s[i][3]);
-          dst[8] = pack4(s[i][4], s[i][5], s[i][6], s[i][7]);  // k0 + 32
+          const int b = (a + i * l.upm) * 64 + k0;
+          uint32_t* dst = reinterpret_cast<uint32_t*>(px + b);
+          if (rt::ok(b + 3, tile * 64LL, rt::kSiteTile)) {
+            dst[0] = pack4(s[i][0], s[i][1], s[i][2], s[i][3]);
+          }
+          if (rt::ok(b + 35, tile * 64LL, rt::kSiteTile)) {  // k0 + 32
+            dst[8] = pack4(s[i][4], s[i][5], s[i][6], s[i][7]);
+          }
         }
       }
     }
@@ -201,14 +220,18 @@ pixels_kernel(const int32_t* __restrict__ coeffs,
     if (mc < mstep) {
       for (int mm = mc; mm < tm; mm += mstep) {
         const uint8_t* pm = px + mm * l.upm * 64;
+        const long long n_pm = (long long)(tile - mm * l.upm) * 64;
         uint32_t w[12] = {};
-        color_run<0>(l, pm, y0, x0, w);
-        color_run<24>(l, pm, y1, x1, w);
-        uint4* dst = reinterpret_cast<uint4*>(
-            out + (m0 + mm) * mcu_bytes + 48 * c);
-        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
-        dst[2] = make_uint4(w[8], w[9], w[10], w[11]);
+        color_run<0>(l, pm, n_pm, y0, x0, w);
+        color_run<24>(l, pm, n_pm, y1, x1, w);
+        const long long o = (m0 + mm) * mcu_bytes + 48 * c;
+        if (rt::ok(o + 47, n_out, rt::kSiteMcuOut)) {
+          uint4* dst = reinterpret_cast<uint4*>(out + o);
+          dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+          dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+          dst[2] = make_uint4(w[8], w[9], w[10], w[11]);
+          rt::cover(o, 48);
+        }
       }
     }
   }
@@ -222,17 +245,18 @@ pixels_kernel(const int32_t* __restrict__ coeffs,
 constexpr int kMaxDevices = 64;
 
 template <bool kSharedM, int kKind>
-cudaError_t resident_blocks(int upm, int nq, int* slots) {
+cudaError_t resident_blocks(int upm, int groups, int nq, int* slots) {
   static std::mutex mu;
   static bool opted_in[kMaxDevices];
-  static int cache[kMaxDevices][kMaxUpm + 1][kSharedMatrices + 1];
+  static int cache[kMaxDevices][kMaxUpm + 1][rt::kMaxGroups + 1]
+                  [kSharedMatrices + 1];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
   const int q = kSharedM ? nq : 0;  // the global form's bytes ignore NQ
   std::lock_guard<std::mutex> lock(mu);
-  int& cached = cache[device][upm][q];
+  int& cached = cache[device][upm][groups][q];
   if (cached > 0) {
     *slots = cached;
     return cudaSuccess;
@@ -241,7 +265,8 @@ cudaError_t resident_blocks(int upm, int nq, int* slots) {
   if (!opted_in[device]) {
     int most = 0;
     for (int u = 3; u <= kMaxUpm; ++u) {
-      const int b = shared_bytes(kSharedM, kSharedMatrices, tile_units(u));
+      const int b = rt::pixels_shared_bytes(
+          kSharedM, kSharedMatrices, rt::tile_units(rt::groups_for(u)));
       most = b > most ? b : most;
     }
     err = cudaFuncSetAttribute(
@@ -249,34 +274,48 @@ cudaError_t resident_blocks(int upm, int nq, int* slots) {
     if (err != cudaSuccess) return err;
     opted_in[device] = true;
   }
-  const int threads = rt::groups_for(upm) * kThreadsPerGroup;
+  const int threads = groups * kThreadsPerGroup;
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, threads, shared_bytes(kSharedM, q, tile_units(upm)));
+        &per_sm, kernel, threads,
+        rt::pixels_shared_bytes(kSharedM, q, rt::tile_units(groups)));
   }
   if (err != cudaSuccess) return err;
   *slots = cached = sms * (per_sm > 0 ? per_sm : 1);
   return cudaSuccess;
 }
 
+// The launch's geometry: `groups` thread groups a block over tiles of
+// tile_mcus MCUs. The release entry takes tile_mcus = groups * 6 / upm
+// and blocks = 0: as many blocks as fit the card, at most one a tile,
+// walking every tile. Only the checked build's rt_fused_pixels_geometry
+// gives its own tile_mcus (at most the groups' tile) and blocks, which
+// are then the tiles the launch covers, the Pallas grid.
+struct Geometry {
+  int groups;
+  int tile_mcus;
+  int blocks;
+};
+
 template <bool kSharedM, int kKind>
 cudaError_t launch(const int32_t* coeffs, const float* mt, int nq,
                    const int32_t* unit_mrow, uint8_t* out,
-                   const McuLayout& l, long long n_mcus,
+                   const McuLayout& l, long long n_mcus, const Geometry& geo,
                    cudaStream_t stream) {
-  const int tile = tile_units(l.upm);
-  const int tile_mcus = tile / l.upm;
+  const int tile = rt::tile_units(geo.groups);
   int slots = 0;
-  const cudaError_t err = resident_blocks<kSharedM, kKind>(l.upm, nq, &slots);
+  const cudaError_t err =
+      resident_blocks<kSharedM, kKind>(l.upm, geo.groups, nq, &slots);
   if (err != cudaSuccess) return err;
-  const long long n_tiles = (n_mcus + tile_mcus - 1) / tile_mcus;
-  const int blocks = (int)(n_tiles < slots ? n_tiles : slots);
+  long long n_tiles = rt::tiles_for(n_mcus, geo.tile_mcus);
+  int blocks = (int)(n_tiles < slots ? n_tiles : slots);
+  if (geo.blocks > 0) blocks = (int)(n_tiles = geo.blocks);
   pixels_kernel<kSharedM, kKind>
-      <<<blocks, rt::groups_for(l.upm) * kThreadsPerGroup,
-         shared_bytes(kSharedM, nq, tile), stream>>>(
-          coeffs, mt, nq, unit_mrow, out, l, n_mcus, tile_mcus);
+      <<<blocks, geo.groups * kThreadsPerGroup,
+         rt::pixels_shared_bytes(kSharedM, nq, tile), stream>>>(
+          coeffs, mt, nq, unit_mrow, out, l, n_mcus, geo.tile_mcus, n_tiles);
   return cudaGetLastError();
 }
 
@@ -284,12 +323,12 @@ template <int kKind>
 cudaError_t launch_kind(const int32_t* coeffs, const float* mt, int nq,
                         const int32_t* unit_mrow, uint8_t* out,
                         const McuLayout& l, long long n_mcus,
-                        cudaStream_t stream) {
+                        const Geometry& geo, cudaStream_t stream) {
   return nq <= kSharedMatrices
              ? launch<true, kKind>(coeffs, mt, nq, unit_mrow, out, l, n_mcus,
-                                   stream)
+                                   geo, stream)
              : launch<false, kKind>(coeffs, mt, nq, unit_mrow, out, l,
-                                    n_mcus, stream);
+                                    n_mcus, geo, stream);
 }
 
 bool same_layout(const McuLayout& a, const McuLayout& b) {
@@ -302,55 +341,99 @@ bool same_layout(const McuLayout& a, const McuLayout& b) {
   return a.upm == b.upm && a.h_max == b.h_max && a.v_max == b.v_max;
 }
 
-}  // namespace
 
-extern "C" {
-
-// MCUs per tile of a layout with `upm` units per MCU, for the tests of a
-// partial last tile.
-int rt_pixels_tile_mcus(int upm) {
-  if (upm < 3 || upm > kMaxUpm) return -1;
-  return tile_units(upm) / upm;
-}
-
-// comp_h, comp_v: the three components' sampling factors; each must divide
-// the largest, and the units per MCU be at most 6.
-int rt_fused_pixels(const void* coeffs, const void* mt, int nq,
-                    const void* unit_mrow, void* out, long long n_mcus,
-                    const int* comp_h, const int* comp_v, void* stream) {
-  if (n_mcus <= 0) return cudaSuccess;
+// The layout of the factors comp_h, comp_v (each must divide the largest,
+// the units per MCU at most 6), or false.
+bool layout_of(const int* comp_h, const int* comp_v, McuLayout* l) {
   // the factors are checked before make_layout divides by them
   int h_max = 0, v_max = 0, upm = 0;
   for (int c = 0; c < 3; ++c) {
     if (comp_h[c] < 1 || comp_v[c] < 1 || comp_h[c] > kMaxUpm ||
         comp_v[c] > kMaxUpm) {
-      return cudaErrorInvalidValue;
+      return false;
     }
     h_max = comp_h[c] > h_max ? comp_h[c] : h_max;
     v_max = comp_v[c] > v_max ? comp_v[c] : v_max;
     upm += comp_h[c] * comp_v[c];
   }
   for (int c = 0; c < 3; ++c) {
-    if (h_max % comp_h[c] || v_max % comp_v[c]) return cudaErrorInvalidValue;
+    if (h_max % comp_h[c] || v_max % comp_v[c]) return false;
   }
-  if (upm > kMaxUpm || nq < 1) return cudaErrorInvalidValue;
-  const McuLayout l = rt::make_layout(comp_h[0], comp_v[0], comp_h[1],
-                                      comp_v[1], comp_h[2], comp_v[2]);
+  if (upm > kMaxUpm) return false;
+  *l = rt::make_layout(comp_h[0], comp_v[0], comp_h[1], comp_v[1], comp_h[2],
+                       comp_v[2]);
+  return true;
+}
+
+cudaError_t run(const void* coeffs, const void* mt, int nq,
+                const void* unit_mrow, void* out, long long n_mcus,
+                const McuLayout& l, const Geometry& geo, void* stream) {
   auto c = static_cast<const int32_t*>(coeffs);
   auto m = static_cast<const float*>(mt);
   auto r = static_cast<const int32_t*>(unit_mrow);
   auto o = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (same_layout(l, rt::standard_layout(rt::k420))) {
-    return launch_kind<rt::k420>(c, m, nq, r, o, l, n_mcus, s);
+    return launch_kind<rt::k420>(c, m, nq, r, o, l, n_mcus, geo, s);
   }
   if (same_layout(l, rt::standard_layout(rt::k422))) {
-    return launch_kind<rt::k422>(c, m, nq, r, o, l, n_mcus, s);
+    return launch_kind<rt::k422>(c, m, nq, r, o, l, n_mcus, geo, s);
   }
   if (same_layout(l, rt::standard_layout(rt::k444))) {
-    return launch_kind<rt::k444>(c, m, nq, r, o, l, n_mcus, s);
+    return launch_kind<rt::k444>(c, m, nq, r, o, l, n_mcus, geo, s);
   }
-  return launch_kind<rt::kGeneric>(c, m, nq, r, o, l, n_mcus, s);
+  return launch_kind<rt::kGeneric>(c, m, nq, r, o, l, n_mcus, geo, s);
 }
+
+}  // namespace
+
+extern "C" {
+
+// MCUs per tile of a layout with `upm` units per MCU at a groups knob (0:
+// the default), for the tests of a partial last tile; -1 for a knob the
+// layout refuses.
+int rt_pixels_tile_mcus(int upm, int groups) {
+  if (upm < 3 || upm > kMaxUpm) return -1;
+  const int g = rt::launch_groups(groups, upm);
+  return g < 0 ? -1 : rt::tile_units(g) / upm;
+}
+
+// comp_h, comp_v: the three components' sampling factors; each must divide
+// the largest, and the units per MCU be at most 6. `groups`: the launch's
+// thread groups a block (geometry.cuh launch_groups; 0 the default).
+int rt_fused_pixels(const void* coeffs, const void* mt, int nq,
+                    const void* unit_mrow, void* out, long long n_mcus,
+                    const int* comp_h, const int* comp_v, int groups,
+                    void* stream) {
+  McuLayout l;
+  if (!layout_of(comp_h, comp_v, &l) || nq < 1) return cudaErrorInvalidValue;
+  const int g = rt::launch_groups(groups, l.upm);
+  if (g < 0) return cudaErrorInvalidValue;
+  if (n_mcus <= 0) return cudaSuccess;
+  return run(coeffs, mt, nq, unit_mrow, out, n_mcus, l,
+             Geometry{g, rt::tile_units(g) / l.upm, 0}, stream);
+}
+
+#ifdef RT_CHECK
+// The checked build only: the kernel launched over `blocks` tiles of
+// `tile_mcus` MCUs (at most the default tile's), one block a tile, as the
+// Pallas kernel runs over its grid. A grid that does not cover n_mcus
+// leaves the rest unwritten, which the coverage count shows.
+int rt_fused_pixels_geometry(const void* coeffs, const void* mt, int nq,
+                             const void* unit_mrow, void* out,
+                             long long n_mcus, const int* comp_h,
+                             const int* comp_v, int tile_mcus, int blocks,
+                             void* stream) {
+  McuLayout l;
+  if (!layout_of(comp_h, comp_v, &l) || nq < 1) return cudaErrorInvalidValue;
+  const int g = rt::groups_for(l.upm);
+  if (tile_mcus < 1 || tile_mcus * l.upm > rt::tile_units(g) || blocks < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (n_mcus <= 0) return cudaSuccess;
+  return run(coeffs, mt, nq, unit_mrow, out, n_mcus, l,
+             Geometry{g, tile_mcus, blocks}, stream);
+}
+#endif
 
 }  // extern "C"

@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from ..autotune import DEFAULT_LAUNCH, LaunchConfig
 from .pixels import fused_pixels
 
 
@@ -24,7 +25,9 @@ def pixels_fusible(geometry) -> bool:
 
 def decode_pixels_fused(coeffs: torch.Tensor, m_t: torch.Tensor,
                         unit_mrow: torch.Tensor, *, geometry,
-                        n_images: int) -> torch.Tensor:
+                        n_images: int,
+                        launch: LaunchConfig = DEFAULT_LAUNCH
+                        ) -> torch.Tensor:
     """(B, H, W, 3) uint8 RGB from (B*g.n_units, 64) zig-zag coefficients
     with absolute DC; ``m_t`` is ``dev["m_matrices_t"]``."""
     g = geometry
@@ -34,7 +37,8 @@ def decode_pixels_fused(coeffs: torch.Tensor, m_t: torch.Tensor,
             f"got {g!r}")
     blocks = fused_pixels(coeffs, m_t, unit_mrow,
                           comp_h=tuple(g.comp_h), comp_v=tuple(g.comp_v),
-                          h_max=g.h_max, v_max=g.v_max, upm=g.units_per_mcu)
+                          h_max=g.h_max, v_max=g.v_max, upm=g.units_per_mcu,
+                          launch=launch)
     mcu_h, mcu_w = 8 * g.v_max, 8 * g.h_max
     img = blocks.reshape(n_images, g.mcus_y, g.mcus_x, mcu_h, mcu_w, 3)
     img = img.permute(0, 1, 3, 2, 4, 5).reshape(

@@ -16,6 +16,12 @@ kernel's threads read consecutive words. The kernel has its own code for
 4:2:0, 4:2:2 and 4:4:4 and one generic path for every other layout whose
 sampling factors divide the largest (``csrc/pixels.cuh`` holds its
 pixel-to-sample mapping; :func:`mcu_planes` is the plain version's).
+
+``launch.pixel_groups`` (a ``kernels.autotune.LaunchConfig``) sets the
+kernel's thread groups a block: 0 is its default, any other value must be
+a multiple of the units per MCU (else ``ValueError``).
+:func:`run_pixel_kernel` is one launch, uncounted, also of the checked
+build (``checked=True``, the kernel verifier's).
 """
 from __future__ import annotations
 
@@ -26,11 +32,14 @@ import torch
 
 from ...core import decode as D
 from .. import build as B
+from ..autotune import DEFAULT_LAUNCH, LaunchConfig
 
 _VP = ctypes.c_void_p
 _INTS = ctypes.POINTER(ctypes.c_int)
 _ARGS = [_VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_longlong, _INTS, _INTS,
-         _VP]
+         ctypes.c_int, _VP]
+# rt_fused_pixels_geometry (checked build): _ARGS with tile_mcus and blocks
+GEOMETRY_ARGS = _ARGS[:8] + [ctypes.c_int, ctypes.c_int, _VP]
 MAX_UNITS_PER_MCU = 6
 
 
@@ -84,15 +93,10 @@ def fused_pixels_plain(coeffs: torch.Tensor, m_t: torch.Tensor,
                                       h_max=h_max, v_max=v_max, upm=upm))
 
 
-def fused_pixels(coeffs: torch.Tensor, m_t: torch.Tensor,
-                 unit_mrow: torch.Tensor, *, comp_h: Tuple[int, ...],
-                 comp_v: Tuple[int, ...], h_max: int, v_max: int,
-                 upm: int) -> torch.Tensor:
-    """:func:`fused_pixels_plain`, by the pixel kernel on the card."""
-    if coeffs.device.type == "cpu":
-        return fused_pixels_plain(coeffs, m_t, unit_mrow, comp_h=comp_h,
-                                  comp_v=comp_v, h_max=h_max, v_max=v_max,
-                                  upm=upm)
+def kernel_operands(coeffs: torch.Tensor, m_t: torch.Tensor,
+                    unit_mrow: torch.Tensor, comp_h, comp_v, h_max: int,
+                    v_max: int, upm: int) -> int:
+    """Check the pixel kernel's operands on the card; return its MCUs."""
     n_mcus = _check_layout(coeffs, comp_h, comp_v, h_max, v_max, upm)
     dev = coeffs.device
     for t, dt in ((coeffs, torch.int32), (unit_mrow, torch.int32),
@@ -106,13 +110,44 @@ def fused_pixels(coeffs: torch.Tensor, m_t: torch.Tensor,
     if coeffs.data_ptr() % 16 or m_t.data_ptr() % 16:
         raise ValueError("the pixel kernel reads coeffs and m_t as 16-byte "
                          "words: they must be 16-byte aligned")
+    return n_mcus
+
+
+def run_pixel_kernel(coeffs: torch.Tensor, m_t: torch.Tensor,
+                     unit_mrow: torch.Tensor, *, comp_h: Tuple[int, ...],
+                     comp_v: Tuple[int, ...], h_max: int, v_max: int,
+                     upm: int, launch: LaunchConfig = DEFAULT_LAUNCH,
+                     checked: bool = False) -> torch.Tensor:
+    """One launch of the pixel kernel (``rt_fused_pixels``), uncounted."""
+    n_mcus = kernel_operands(coeffs, m_t, unit_mrow, comp_h, comp_v, h_max,
+                             v_max, upm)
+    groups = launch.pixel_groups
+    if groups and groups % upm:
+        raise ValueError(f"pixel_groups={groups} is not a multiple of the "
+                         f"{upm} units per MCU")
     out = torch.empty((n_mcus, 8 * v_max, 8 * h_max, 3), dtype=torch.uint8,
-                      device=dev)
+                      device=coeffs.device)
     ints3 = ctypes.c_int * 3
-    B.check(B.entry("pixels", "rt_fused_pixels", _ARGS)(
+    B.check(B.entry("pixels", "rt_fused_pixels", _ARGS, checked)(
         B.ptr(coeffs), B.ptr(m_t), m_t.shape[0], B.ptr(unit_mrow),
-        B.ptr(out), n_mcus, ints3(*comp_h), ints3(*comp_v),
+        B.ptr(out), n_mcus, ints3(*comp_h), ints3(*comp_v), groups,
         B.stream_of(out)), "rt_fused_pixels")
+    return out
+
+
+def fused_pixels(coeffs: torch.Tensor, m_t: torch.Tensor,
+                 unit_mrow: torch.Tensor, *, comp_h: Tuple[int, ...],
+                 comp_v: Tuple[int, ...], h_max: int, v_max: int,
+                 upm: int, launch: LaunchConfig = DEFAULT_LAUNCH
+                 ) -> torch.Tensor:
+    """:func:`fused_pixels_plain`, by the pixel kernel on the card."""
+    if coeffs.device.type == "cpu":
+        return fused_pixels_plain(coeffs, m_t, unit_mrow, comp_h=comp_h,
+                                  comp_v=comp_v, h_max=h_max, v_max=v_max,
+                                  upm=upm)
+    out = run_pixel_kernel(coeffs, m_t, unit_mrow, comp_h=comp_h,
+                           comp_v=comp_v, h_max=h_max, v_max=v_max, upm=upm,
+                           launch=launch)
     fused_pixels.launches += 1
     return out
 
@@ -120,7 +155,9 @@ def fused_pixels(coeffs: torch.Tensor, m_t: torch.Tensor,
 fused_pixels.launches = 0
 
 
-def tile_mcus(upm: int) -> int:
-    """MCUs per tile of the pixel kernel at ``upm`` units per MCU (a
-    partial last tile is the edge the card's tests cover)."""
-    return B.entry("pixels", "rt_pixels_tile_mcus", [ctypes.c_int])(upm)
+def tile_mcus(upm: int, groups: int = 0) -> int:
+    """MCUs per tile of the pixel kernel at ``upm`` units per MCU and a
+    ``pixel_groups`` knob (a partial last tile is the edge the card's
+    tests cover); -1 for a knob the layout refuses."""
+    return B.entry("pixels", "rt_pixels_tile_mcus",
+                   [ctypes.c_int, ctypes.c_int])(upm, groups)

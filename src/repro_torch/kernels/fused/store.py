@@ -22,6 +22,7 @@ import torch
 from ...core import decode as D
 from ...core.state import DecodeState
 from .. import build as B
+from ..autotune import DEFAULT_LAUNCH, WRITER_CODES, LaunchConfig
 from ..huffman.ops import (EXIT_SMEM_BUDGET, check_out, copy_into,
                            exit_args, kernel_fn)
 
@@ -48,8 +49,12 @@ def run_store_kernel(dev: Dev, meta: Dev, entry: DecodeState,
                      write_base: torch.Tensor, write_max: torch.Tensor,
                      n_coef: int, *, s_max: int, min_code_bits: int,
                      smem_budget: int,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the store kernel (``rt_decode_store``), uncounted.
+                     out: Optional[torch.Tensor] = None,
+                     launch: LaunchConfig = DEFAULT_LAUNCH,
+                     checked: bool = False) -> torch.Tensor:
+    """One launch of the store kernel (``rt_decode_store``), uncounted, in
+    blocks of ``launch.store_threads`` with ``launch.store_writer``'s
+    writer of whole units (``"warp"`` is refused below a warp of lanes).
 
     Its tables go to shared memory when ``ops.exit_table_bytes`` is at
     most ``smem_budget``, else the kernel reads them from global memory.
@@ -58,6 +63,9 @@ def run_store_kernel(dev: Dev, meta: Dev, entry: DecodeState,
     """
     args = exit_args(dev, meta, entry)
     c = entry.p.shape[0]
+    if launch.store_writer == "warp" and c < 32:
+        raise ValueError(f"the warp writer needs a warp of lanes; the "
+                         f"launch has {c}")
     for t in (write_base, write_max):
         if t.dtype != torch.int32 or t.shape != (c,) \
                 or t.device != entry.p.device or not t.is_contiguous():
@@ -68,9 +76,10 @@ def run_store_kernel(dev: Dev, meta: Dev, entry: DecodeState,
     else:
         check_out((out,), (n_coef,), entry.p.device)
         out.zero_()
-    B.check(kernel_fn("rt_decode_store")(
+    B.check(kernel_fn("rt_decode_store", checked)(
         *args, B.ptr(write_base), B.ptr(write_max), B.ptr(out), n_coef, c,
-        s_max, min_code_bits, smem_budget, B.stream_of(out)),
+        s_max, min_code_bits, smem_budget, launch.store_threads,
+        WRITER_CODES[launch.store_writer], B.stream_of(out)),
         "rt_decode_store")
     return out
 
@@ -78,7 +87,9 @@ def run_store_kernel(dev: Dev, meta: Dev, entry: DecodeState,
 def decode_coeffs_store(dev: Dev, meta: Dev, entry: DecodeState,
                         write_base: torch.Tensor, write_max: torch.Tensor,
                         n_coef: int, *, s_max: int, min_code_bits: int,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None,
+                        launch: LaunchConfig = DEFAULT_LAUNCH
+                        ) -> torch.Tensor:
     """:func:`decode_coeffs_store_plain`, by the store kernel on the card."""
     if dev["words"].device.type == "cpu":
         return decode_coeffs_store_plain(
@@ -86,7 +97,8 @@ def decode_coeffs_store(dev: Dev, meta: Dev, entry: DecodeState,
             min_code_bits=min_code_bits, out=out)
     out = run_store_kernel(dev, meta, entry, write_base, write_max, n_coef,
                            s_max=s_max, min_code_bits=min_code_bits,
-                           smem_budget=EXIT_SMEM_BUDGET, out=out)
+                           smem_budget=EXIT_SMEM_BUDGET, out=out,
+                           launch=launch)
     decode_coeffs_store.launches += 1
     return out
 

@@ -18,7 +18,10 @@ the exit, stream and store kernels all read them); ``meta`` is
 ``ts``, ``upm``); ``entry`` is the lanes' entry state. ``out=`` hands a
 wrapper buffers of its result's shape to write into (the ones a
 ``core.api.DecodeProgram`` holds), which it returns; the plain versions
-copy their result into them.
+copy their result into them. ``launch=`` (a ``kernels.autotune.
+LaunchConfig``) gives the kernels' block sizes; the ``run_*`` launches
+also take ``checked=True``, the checked build of the kernel verifier
+(``kernels/build.py``), which the counted wrappers never load.
 """
 from __future__ import annotations
 
@@ -31,16 +34,17 @@ from ...core import decode as D
 from ...core.contracts import INT32_MAX
 from ...core.state import DecodeState
 from .. import build as B
+from ..autotune import DEFAULT_LAUNCH, LaunchConfig
 
 Dev = Dict[str, torch.Tensor]
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "rt_decode_exits": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 11 + [_I] * 4
+    "rt_decode_exits": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 11 + [_I] * 5
     + [_VP],
     "rt_decode_streams": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 9
-    + [_I] * 4 + [_VP],
+    + [_I] * 5 + [_VP],
     "rt_decode_store": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 10
-    + [_LL] + [_I] * 4 + [_VP],
+    + [_LL] + [_I] * 6 + [_VP],
 }
 
 # The shared memory the exit, stream and store kernels may give their
@@ -106,9 +110,10 @@ def exit_tables(dev: Dev) -> Dev:
             "unit_lut_off": start.to(rows.device)[rows]}
 
 
-def kernel_fn(name: str):
-    """The C entry point ``name`` of ``csrc/huffman.cu``, typed."""
-    return B.entry("huffman", name, _SIGNATURES[name])
+def kernel_fn(name: str, checked: bool = False):
+    """The C entry point ``name`` of ``csrc/huffman.cu``, typed (of the
+    checked build with ``checked``)."""
+    return B.entry("huffman", name, _SIGNATURES[name], checked)
 
 
 def copy_into(out, result):
@@ -205,8 +210,11 @@ def decode_exits_plain(dev: Dev, meta: Dev, entry: DecodeState,
 def run_exit_kernel(dev: Dev, meta: Dev, entry: DecodeState,
                     idx: Optional[torch.Tensor] = None, *, s_max: int,
                     min_code_bits: int, smem_budget: int,
-                    out: Optional[DecodeState] = None) -> DecodeState:
-    """One launch of the exit kernel (``rt_decode_exits``), uncounted.
+                    out: Optional[DecodeState] = None,
+                    launch: LaunchConfig = DEFAULT_LAUNCH,
+                    checked: bool = False) -> DecodeState:
+    """One launch of the exit kernel (``rt_decode_exits``), uncounted, in
+    blocks of ``launch.exit_threads``.
 
     The tables go to shared memory when :func:`exit_table_bytes` is at
     most ``smem_budget``, else the kernel reads them from global memory.
@@ -217,16 +225,18 @@ def run_exit_kernel(dev: Dev, meta: Dev, entry: DecodeState,
     if out is None:
         out = DecodeState(*(torch.empty_like(entry.p) for _ in range(4)))
     check_out(out, (c,), entry.p.device)
-    B.check(kernel_fn("rt_decode_exits")(
+    B.check(kernel_fn("rt_decode_exits", checked)(
         *args, *(B.ptr(t) for t in out), c, s_max, min_code_bits,
-        smem_budget, B.stream_of(entry.p)), "rt_decode_exits")
+        smem_budget, launch.exit_threads, B.stream_of(entry.p)),
+        "rt_decode_exits")
     return out
 
 
 def decode_exits(dev: Dev, meta: Dev, entry: DecodeState,
                  idx: Optional[torch.Tensor] = None, *, s_max: int,
                  min_code_bits: int,
-                 out: Optional[DecodeState] = None) -> DecodeState:
+                 out: Optional[DecodeState] = None,
+                 launch: LaunchConfig = DEFAULT_LAUNCH) -> DecodeState:
     """:func:`decode_exits_plain`, by the exit kernel on the card.
 
     The ``idx`` form (faithful sync's ``decode_at``) runs the same kernel
@@ -239,7 +249,8 @@ def decode_exits(dev: Dev, meta: Dev, entry: DecodeState,
                                   min_code_bits=min_code_bits, out=out)
     out = run_exit_kernel(dev, meta, entry, idx, s_max=s_max,
                           min_code_bits=min_code_bits,
-                          smem_budget=EXIT_SMEM_BUDGET, out=out)
+                          smem_budget=EXIT_SMEM_BUDGET, out=out,
+                          launch=launch)
     if idx is None:
         decode_exits.launches += 1
     else:
@@ -277,9 +288,12 @@ def decode_streams_plain(dev: Dev, meta: Dev, entry: DecodeState, *,
 
 def run_stream_kernel(dev: Dev, meta: Dev, entry: DecodeState, *,
                       s_max: int, min_code_bits: int, smem_budget: int,
-                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      launch: LaunchConfig = DEFAULT_LAUNCH,
+                      checked: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the stream kernel (``rt_decode_streams``), uncounted.
+    """One launch of the stream kernel (``rt_decode_streams``), uncounted,
+    in blocks of ``launch.stream_threads``.
 
     Its tables go to shared memory when :func:`exit_table_bytes` is at
     most ``smem_budget``, else the kernel reads them from global memory.
@@ -292,15 +306,16 @@ def run_stream_kernel(dev: Dev, meta: Dev, entry: DecodeState, *,
                                 device=entry.p.device) for _ in range(2))
     check_out(out, (s_max, c), entry.p.device)
     pos, val = out
-    B.check(kernel_fn("rt_decode_streams")(
+    B.check(kernel_fn("rt_decode_streams", checked)(
         *args, B.ptr(pos), B.ptr(val), c, s_max, min_code_bits, smem_budget,
-        B.stream_of(pos)), "rt_decode_streams")
+        launch.stream_threads, B.stream_of(pos)), "rt_decode_streams")
     return pos, val
 
 
 def decode_streams(dev: Dev, meta: Dev, entry: DecodeState, *, s_max: int,
                    min_code_bits: int,
-                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   launch: LaunchConfig = DEFAULT_LAUNCH
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`decode_streams_plain`, by the stream kernel on the card."""
     if dev["words"].device.type == "cpu":
@@ -308,7 +323,8 @@ def decode_streams(dev: Dev, meta: Dev, entry: DecodeState, *, s_max: int,
             dev, meta, entry, s_max=s_max, min_code_bits=min_code_bits))
     out = run_stream_kernel(dev, meta, entry, s_max=s_max,
                             min_code_bits=min_code_bits,
-                            smem_budget=EXIT_SMEM_BUDGET, out=out)
+                            smem_budget=EXIT_SMEM_BUDGET, out=out,
+                            launch=launch)
     decode_streams.launches += 1
     return out
 
@@ -354,9 +370,11 @@ def decode_coeffs(dev: Dev, meta: Dev, entry: DecodeState,
                   write_base: torch.Tensor, write_max: torch.Tensor,
                   n_coef: int, *, s_max: int, min_code_bits: int,
                   streams: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  out: Optional[torch.Tensor] = None,
+                  launch: LaunchConfig = DEFAULT_LAUNCH) -> torch.Tensor:
     """The ``fuse="post"`` write pass: streams, then the scatter
     (``streams`` and ``out`` the buffers of each)."""
     pos, val = decode_streams(dev, meta, entry, s_max=s_max,
-                              min_code_bits=min_code_bits, out=streams)
+                              min_code_bits=min_code_bits, out=streams,
+                              launch=launch)
     return scatter_streams(pos, val, write_base, write_max, n_coef, out)

@@ -10,6 +10,12 @@ the color kernel (``kernels/color``) or, for one plane, a crop and cast.
 Both take the folded operators transposed, ``m_t[q, j, k] = M_q[k, j]``
 (``dev["m_matrices_t"]``, made once per plan): for each ``j`` the kernel
 reads a run of consecutive ``k`` as 16-byte words.
+
+``launch.idct_groups`` (a ``kernels.autotune.LaunchConfig``) sets the
+kernel's thread groups a block: 0 is its default, any other value must be
+a multiple of ``units_per_mcu`` (else ``ValueError``).
+:func:`run_idct_kernel` is one launch, uncounted, also of the checked
+build (``checked=True``, the kernel verifier's).
 """
 from __future__ import annotations
 
@@ -19,10 +25,11 @@ import torch
 
 from ...core import decode as D
 from .. import build as B
+from ..autotune import DEFAULT_LAUNCH, LaunchConfig
 
 _VP = ctypes.c_void_p
 _ARGS = [_VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
-         _VP]
+         ctypes.c_int, _VP]
 MAX_UNITS_PER_MCU = 6
 
 
@@ -33,8 +40,8 @@ def idct_units_plain(coeffs: torch.Tensor, m_t: torch.Tensor,
 
 
 def idct_units(coeffs: torch.Tensor, m_t: torch.Tensor,
-               unit_mrow: torch.Tensor,
-               units_per_mcu: int = 1) -> torch.Tensor:
+               unit_mrow: torch.Tensor, units_per_mcu: int = 1,
+               launch: LaunchConfig = DEFAULT_LAUNCH) -> torch.Tensor:
     """:func:`idct_units_plain`, by the IDCT kernel on the card.
 
     Each thread of the kernel computes 6 units that lie ``units_per_mcu``
@@ -48,6 +55,23 @@ def idct_units(coeffs: torch.Tensor, m_t: torch.Tensor,
                          f"got {units_per_mcu}")
     if coeffs.device.type == "cpu":
         return idct_units_plain(coeffs, m_t, unit_mrow)
+    out = run_idct_kernel(coeffs, m_t, unit_mrow, units_per_mcu, launch)
+    idct_units.launches += 1
+    return out
+
+
+idct_units.launches = 0
+
+
+def run_idct_kernel(coeffs: torch.Tensor, m_t: torch.Tensor,
+                    unit_mrow: torch.Tensor, units_per_mcu: int = 1,
+                    launch: LaunchConfig = DEFAULT_LAUNCH,
+                    checked: bool = False) -> torch.Tensor:
+    """One launch of the IDCT kernel (``rt_idct_units``), uncounted."""
+    groups = launch.idct_groups
+    if groups and groups % units_per_mcu:
+        raise ValueError(f"idct_groups={groups} is not a multiple of "
+                         f"units_per_mcu {units_per_mcu}")
     dev = coeffs.device
     for t, dt in ((coeffs, torch.int32), (unit_mrow, torch.int32),
                   (m_t, torch.float32)):
@@ -63,18 +87,16 @@ def idct_units(coeffs: torch.Tensor, m_t: torch.Tensor,
         raise ValueError("the IDCT kernel reads coeffs and m_t as 16-byte "
                          "words: they must be 16-byte aligned")
     out = torch.empty((u, 64), dtype=torch.float32, device=dev)
-    B.check(B.entry("idct", "rt_idct_units", _ARGS)(
+    B.check(B.entry("idct", "rt_idct_units", _ARGS, checked)(
         B.ptr(coeffs), B.ptr(m_t), m_t.shape[0], B.ptr(unit_mrow),
-        B.ptr(out), u, units_per_mcu, B.stream_of(out)), "rt_idct_units")
-    idct_units.launches += 1
+        B.ptr(out), u, units_per_mcu, groups, B.stream_of(out)),
+        "rt_idct_units")
     return out
 
 
-idct_units.launches = 0
-
-
-def tile_units(units_per_mcu: int = 1) -> int:
-    """Units per tile of the IDCT kernel (a partial last tile is the edge
-    the card's tests cover)."""
-    return B.entry("idct", "rt_idct_tile_units", [ctypes.c_int])(
-        units_per_mcu)
+def tile_units(units_per_mcu: int = 1, groups: int = 0) -> int:
+    """Units per tile of the IDCT kernel at an ``idct_groups`` knob (a
+    partial last tile is the edge the card's tests cover); -1 for a knob
+    the stride refuses."""
+    return B.entry("idct", "rt_idct_tile_units",
+                   [ctypes.c_int, ctypes.c_int])(units_per_mcu, groups)

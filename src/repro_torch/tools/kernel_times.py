@@ -5,10 +5,10 @@ Run as a file from the root of a checkout, on a machine with one card::
 
     python3 src/repro_torch/tools/kernel_times.py \\
         --tree parent=build/parent/src --tree change=src \\
-        [--exit-threads 128,256,512] [--scatter-parts] \\
-        [--stream-variants "kStreamThreads=256;kStreamBarrierRows=8"] \\
-        [--store-variants "kStoreThreads=128;kStoreThreads=512"] \\
-        [--color-variants "kColorRun=16;kRowsY=4"]
+        [--launch "exit=128;stream=512,store=128;writer=lane"] \\
+        [--stream-variants "kStreamBarrierRows=4;threads=128"] \\
+        [--store-variants "threads=512"] [--exit-variants "threads=64"] \\
+        [--color-variants "kColorRun=16;kRowsY=4"] [--scatter-parts]
 
 Each ``--tree LABEL=DIR`` loads ``DIR/repro_torch`` under a name of its
 own (its kernels build into that checkout's ``build/``), plans the same
@@ -27,19 +27,24 @@ wrapper's host time is not counted), and the trees take turns call by
 call, so that a drift of the card's clock falls on all of them alike.
 Each kernel must give the same output in every tree.
 
-``--exit-threads`` also builds this checkout's ``csrc/huffman.cu`` once
-per block size, with ``kExitThreads`` set to it, times each build's exit
-kernel in the same turns (tables in shared memory) and prints the blocks
-an SM holds at that size (the CUDA occupancy calculator).
-``--stream-variants`` does the same for the stream kernel, one build per
-';'-separated spec of other values of constants of ``huffman.cu`` (say
-``kStreamThreads=512,kStreamBarrierRows=4``), and times a plain fill of
-the streams' bytes beside them; ``--store-variants`` for the store kernel
-(``kStoreThreads``),
-``--color-variants`` for the color kernel (constants of ``csrc/color.cu``,
-say ``kColorRun=16,kRowsY=4``). ``--scatter-parts`` profiles one call of
-each tree's scatter, printing its device time by kernel: the elementwise
-passes and the ``index_put``.
+``--launch`` also times the kernels of each tree that has
+``kernels/autotune.py`` under other launch configs, one per ';'-separated
+spec in the grammar of its ``REPRO_TORCH_LAUNCH`` override (say
+``exit=128;stream=512,store=128``): each kernel whose knob the spec
+changes, in the same turns, with the same output required.
+``--exit-variants``, ``--stream-variants``, ``--store-variants`` and
+``--color-variants`` time what no launch config reaches: this checkout's
+``csrc/<source>.cu`` built once per ';'-separated spec, each a
+comma-separated list of ``CONST=VALUE`` (a ``constexpr int`` of the
+source or of the headers it includes, say ``kStreamBarrierRows=4`` or
+``kColorRun=16,kRowsY=4``) and, for the exit, stream and store kernels,
+``threads=N`` (blocks of N whatever the launch asks, also outside the
+candidates). Each build's kernel runs through this checkout's wrapper in
+the same turns, with the same output required, and its blocks an SM (the
+CUDA occupancy calculator) are printed; beside the stream variants, a
+plain fill of the streams' bytes.
+``--scatter-parts`` profiles one call of each tree's scatter, printing
+its device time by kernel: the elementwise passes and the ``index_put``.
 
 The line before the last is the card's name and power limit; the last is
 one JSON object with every median time in ms.
@@ -63,19 +68,23 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[3]
 
-# a variant build of a kernel source: kind -> (source, block-size
-# expression, kernel, its dynamic shared memory besides the tables, entry
-# point); the variant appends the kernel's blocks per SM
+# a variant build of a kernel: kind -> (source, entry point, kernel timed,
+# the kernel's instantiation and its block size for the occupancy
+# calculator, its dynamic shared memory besides the tables); {t} is the
+# block size
 VARIANTS = {
-    "exit": ("huffman", "kExitThreads", "exits_kernel<true>", "0",
-             "rt_decode_exits"),
-    "stream": ("huffman", "kStreamThreads", "streams_kernel<true>", "0",
-               "rt_decode_streams"),
-    "store": ("huffman", "kStoreThreads", "store_kernel<true, true>",
-              "kStoreSlotBytes", "rt_decode_store"),
-    "color": ("color", "kRunsX * kRowsY", "color_kernel<2, 2>", "0",
-              "rt_upsample_color"),
+    "exit": ("huffman", "rt_decode_exits", "huffman_exits",
+             "exits_kernel<true, {t}>", "{t}", "0"),
+    "stream": ("huffman", "rt_decode_streams", "huffman_streams",
+               "streams_kernel<true, {t}>", "{t}", "0"),
+    "store": ("huffman", "rt_decode_store", "huffman_store",
+              "store_kernel<true, true, {t}>", "{t}",
+              "rt::store_slot_bytes({t})"),
+    "color": ("color", "rt_upsample_color", "color", "color_kernel<2, 2>",
+              "rt::kRunsX * rt::kRowsY", "0"),
 }
+_THREADS = {"exit": "exit_threads", "stream": "stream_threads",
+            "store": "store_threads"}
 _OCCUPANCY = """
 extern "C" int kt_blocks_per_sm(int smem_bytes) {{
   int blocks = 0;
@@ -84,6 +93,96 @@ extern "C" int kt_blocks_per_sm(int smem_bytes) {{
   return err == cudaSuccess ? blocks : -(int)err;
 }}
 """
+
+
+def variant_sources(kind: str, spec: dict, build, default_threads: int
+                    ) -> dict:
+    """{file name: text}: this checkout's ``csrc/<source>.cu`` and every
+    header with the spec's constants set, the entry point's block-size
+    dispatch pinned to ``threads`` where the spec gives it, and the
+    occupancy helper appended."""
+    source, entry, _, kernel, threads, extra = VARIANTS[kind]
+    texts = {f.name: f.read_text() for f in build.CSRC.glob("*.cuh")}
+    cu = f"{source}.cu"
+    texts[cu] = (build.CSRC / cu).read_text()
+    spec = dict(spec)
+    t = spec.pop("threads", None)
+    if t is not None:
+        if kind not in _THREADS:
+            raise SystemExit(f"the {kind} kernel has no threads knob")
+        at = texts[cu].index(f"int {entry}(")
+        m = re.compile(r"with_block<[\d, ]+>\(threads").search(texts[cu], at)
+        if m is None:
+            raise SystemExit(f"{cu}: no block-size dispatch in {entry}")
+        texts[cu] = (texts[cu][:m.start()] + f"with_block<{t}>({t}"
+                     + texts[cu][m.end():])
+    for const, value in spec.items():
+        pattern = rf"constexpr int {const} = [^;]+;"
+        hits = [n for n, text in texts.items() if re.search(pattern, text)]
+        if len(hits) != 1 or len(re.findall(pattern, texts[hits[0]])) != 1:
+            raise SystemExit(f"no single {const} constant in {cu} and the "
+                             f"headers ({hits})")
+        texts[hits[0]] = re.sub(pattern, f"constexpr int {const} = {value};",
+                                texts[hits[0]])
+    t = t or default_threads
+    texts[cu] += _OCCUPANCY.format(kernel=kernel.format(t=t),
+                                   threads=threads.format(t=t),
+                                   extra=extra.format(t=t))
+    return texts
+
+
+def build_variants(kind: str, specs: list, build, default_threads: int
+                   ) -> dict:
+    """This checkout's ``kind`` kernel built once per spec (a {constant:
+    value} dict), all at once: {label: loaded library}."""
+    source = VARIANTS[kind][0]
+    procs = {}
+    for n, spec in enumerate(specs):
+        out_dir = build.BUILD_DIR / "variants" / f"{kind}_v{n}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for name, text in variant_sources(kind, spec, build,
+                                          default_threads).items():
+            (out_dir / name).write_text(text)
+        so = out_dir / f"lib{source}.so"
+        label = ",".join(f"{k}={v}" for k, v in spec.items())
+        procs[label] = (subprocess.Popen(
+            [build.nvcc_path(), *build.flags(), f"-I{out_dir}", "-o",
+             str(so), str(out_dir / f"{source}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for label, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {kind} {label}:\n{log}")
+        libs[label] = ctypes.CDLL(str(so))
+    return libs
+
+
+def variant_call(kind: str, lib, build, call, smem: int):
+    """``call`` (the tree's wrapper of the ``kind`` kernel) with its entry
+    point taken from the variant library ``lib``; and the kernel's blocks
+    an SM at ``smem`` bytes of tables (after a first call, which opts the
+    kernel into its shared memory)."""
+    source = VARIANTS[kind][0]
+    entry = build.entry
+
+    def variant_entry(lib_name, name, argtypes, checked=False):
+        if lib_name != source or checked:
+            return entry(lib_name, name, argtypes, checked)
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn
+
+    def run():
+        build.entry = variant_entry
+        try:
+            return call()
+        finally:
+            build.entry = entry
+
+    occ = lib.kt_blocks_per_sm
+    occ.argtypes, occ.restype = [ctypes.c_int], ctypes.c_int
+    return run, lambda: occ(0 if kind == "color" else smem)
 
 
 def load_tree(label: str, src: Path):
@@ -101,8 +200,10 @@ def load_tree(label: str, src: Path):
 
 
 def tree_kernels(pkg: str, blobs, args, gpu):
-    """{kernel: a call of it} on one tree's plan of ``blobs``, and the
-    kernels' operands for the variant builds."""
+    """{kernel: a call of it} on one tree's plan of ``blobs``, the library
+    yardstick, {spec: {kernel: a call of it under the spec's launch
+    config}} for ``--launch`` (empty for a tree without autotune), and the
+    bytes of the Huffman kernels' tables."""
     mod = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
     api, D, SY = mod("core.api"), mod("core.decode"), mod("core.sync")
     DecodeState = mod("core.state").DecodeState
@@ -172,105 +273,35 @@ def tree_kernels(pkg: str, blobs, args, gpu):
     x = units.to(torch.float32)
     library = lambda: [torch.matmul(x, m_t[q])  # noqa: E731
                        for q in range(plan.m_matrices.shape[0])]
-    ops = dict(HK=HK, CK=CK, dev=dev, meta=meta, entries=entries, kw=kw,
-               bases=bases, write_max=write_max, n_coef=n_coef,
-               planes=planes, cgeo=cgeo)
-    return fns, library, ops
-
-
-def build_variants(kind, specs, build):
-    """This checkout's source of the ``kind`` kernel (``VARIANTS``) built
-    once per spec, a {constant: value} dict: {label: loaded library}. The
-    builds run at once."""
-    source, threads, kernel, extra, _ = VARIANTS[kind]
-    src = (build.CSRC / f"{source}.cu").read_text()
-    out_dir = build.BUILD_DIR / f"{kind}_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n, spec in enumerate(specs):
-        text = src
-        for const, value in spec.items():
-            pattern = rf"constexpr int {const} = \d+;"
-            if len(re.findall(pattern, text)) != 1:
-                raise SystemExit(f"{source}.cu has no single {const} "
-                                 f"constant")
-            text = re.sub(pattern, f"constexpr int {const} = {value};", text)
-        cu = out_dir / f"{source}_v{n}.cu"
-        cu.write_text(text + _OCCUPANCY.format(kernel=kernel, threads=threads,
-                                               extra=extra))
-        so = out_dir / f"lib{source}_v{n}.so"
-        label = ",".join(f"{k}={v}" for k, v in spec.items())
-        procs[label] = (subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
-             str(so), str(cu)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for label, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {kind} {label}:\n{log}")
-        libs[label] = ctypes.CDLL(str(so))
-    return libs
-
-
-def variant_call(kind, lib, ops):
-    """A call of a variant library's kernel on the tree's operands (the
-    Huffman kernels' tables in shared memory, on the converged entries);
-    returns (call, blocks per SM), the latter a function to call after the
-    first call (which opts the kernel into its shared memory)."""
-    HK, CK, kw = ops["HK"], ops["CK"], ops["kw"]
-    name = VARIANTS[kind][4]
-    fn = getattr(lib, name)
-    fn.argtypes = CK._ARGS if kind == "color" else HK._SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    occ = lib.kt_blocks_per_sm
-    occ.argtypes, occ.restype = [ctypes.c_int], ctypes.c_int
-    if kind == "color":
-        planes, cgeo = ops["planes"], ops["cgeo"]
-        fv, fh = CK._check(planes, *cgeo)
-        height, width = cgeo[4], cgeo[5]
-        ints3 = ctypes.c_int * 3
-        n = planes[0].shape[0]
-
-        def call():
-            out = torch.empty((n, height, width, 3), dtype=torch.uint8,
-                              device=planes[0].device)
-            HK.B.check(fn(
-                (ctypes.c_void_p * 3)(*(p.data_ptr() for p in planes)),
-                ints3(*(p.shape[1] for p in planes)),
-                ints3(*(p.shape[2] for p in planes)), ints3(*fv),
-                ints3(*fh), HK.B.ptr(out), n, height, width,
-                HK.B.stream_of(out)), name)
-            return out
-
-        return call, lambda: occ(0)
-    dev, meta, entries = ops["dev"], ops["meta"], ops["entries"]
-    args = HK.exit_args(dev, meta, entries)
-    c = entries.p.shape[0]
-    smem = HK.exit_table_bytes(dev)
-    stream = HK.B.stream_of(entries.p)
-
-    def call():
-        if kind == "exit":
-            out = [torch.empty_like(entries.p) for _ in range(4)]
-        elif kind == "stream":
-            out = [torch.empty((kw["s_max"], c), dtype=torch.int32,
-                               device=entries.p.device) for _ in range(2)]
-        else:
-            out = [torch.zeros(ops["n_coef"], dtype=torch.int32,
-                               device=entries.p.device)]
-            err = fn(*args, HK.B.ptr(ops["bases"]),
-                     HK.B.ptr(ops["write_max"]), HK.B.ptr(out[0]),
-                     ops["n_coef"], c, kw["s_max"], kw["min_code_bits"],
-                     smem, stream)
-            HK.B.check(err, name)
-            return tuple(out)
-        err = fn(*args, *(HK.B.ptr(t) for t in out), c, kw["s_max"],
-                 kw["min_code_bits"], smem, stream)
-        HK.B.check(err, name)
-        return tuple(out)
-
-    return call, lambda: occ(smem)
+    variants = {}
+    specs = [v for v in args.launch.split(";") if v]
+    try:
+        AT = mod("kernels.autotune")
+    except ImportError:
+        specs = []
+    for spec in specs:
+        cfg = AT.parse_launch_override(spec)
+        d = AT.DEFAULT_LAUNCH
+        calls = {}
+        if cfg.exit_threads != d.exit_threads:
+            calls["huffman_exits"] = lambda c=cfg: HK.decode_exits(
+                dev, meta, entries, **kw, launch=c)
+        if cfg.stream_threads != d.stream_threads:
+            calls["huffman_streams"] = lambda c=cfg: HK.decode_streams(
+                dev, meta, entries, **kw, launch=c)
+        if (cfg.store_threads, cfg.store_writer) != (d.store_threads,
+                                                     d.store_writer):
+            calls["huffman_store"] = lambda c=cfg: FS.decode_coeffs_store(
+                dev, meta, entries, bases, write_max, n_coef, **kw,
+                launch=c)
+        if cfg.pixel_groups != d.pixel_groups:
+            calls["fused_pixels"] = lambda c=cfg: FP.fused_pixels(
+                units, m_t, mrow, **geo, launch=c)
+        if cfg.idct_groups != d.idct_groups:
+            calls["idct"] = lambda c=cfg: IK.idct_units(
+                units, m_t, mrow, **hint, launch=c)
+        variants[spec] = calls
+    return fns, library, variants, HK.exit_table_bytes(dev)
 
 
 def scatter_parts(fn) -> list:
@@ -302,19 +333,15 @@ def main() -> None:
     ap.add_argument("--tree", action="append", default=[],
                     metavar="LABEL=DIR", help="a checkout's src directory "
                     "(default: this checkout's, as 'this')")
-    ap.add_argument("--exit-threads", default="",
-                    help="block sizes of this checkout's exit kernel to "
-                    "time, comma-separated")
-    ap.add_argument("--stream-variants", default="",
-                    help="builds of this checkout's stream kernel with other "
-                    "constants of huffman.cu, ';'-separated specs of "
-                    "comma-separated CONST=VALUE")
-    ap.add_argument("--store-variants", default="",
-                    help="builds of this checkout's store kernel with other "
-                    "constants of huffman.cu, as --stream-variants")
-    ap.add_argument("--color-variants", default="",
-                    help="builds of this checkout's color kernel with other "
-                    "constants of color.cu, as --stream-variants")
+    ap.add_argument("--launch", default="",
+                    help="launch configs to time each tree's kernels under "
+                    "too, ';'-separated specs in the REPRO_TORCH_LAUNCH "
+                    "grammar (trees with kernels/autotune.py)")
+    for kind in VARIANTS:
+        ap.add_argument(f"--{kind}-variants", default="",
+                        help=f"builds of this checkout's {kind} kernel, "
+                        "';'-separated specs of comma-separated CONST=VALUE"
+                        + (" or threads=N" if kind in _THREADS else ""))
     ap.add_argument("--scatter-parts", action="store_true",
                     help="profile each tree's scatter by kernel")
     ap.add_argument("--seed", type=int, default=0)
@@ -338,8 +365,9 @@ def main() -> None:
             for label, d in trees}
     first = next(iter(pkgs.values()))
     cr = importlib.import_module(f"{first}.jpeg.codec_ref")
+    synth_frame = importlib.import_module(f"{first}.jpeg.encoder").synth_frame
     rng = np.random.default_rng(args.seed)
-    frames = [CS.synth_frame(rng, args.width, args.height, t=0.13 * i)
+    frames = [synth_frame(rng, args.width, args.height, t=0.13 * i)
               for i in range(args.distinct)]
     distinct = [cr.encode_baseline(f, quality=args.quality,
                                    subsampling="4:2:0").jpeg_bytes
@@ -348,30 +376,28 @@ def main() -> None:
     del frames
 
     # (kernel, tree, call)
-    calls, outs, tree_ops, library = [], {}, {}, None
+    calls, outs, library, tree_fns = [], {}, None, {}
     for label, pkg in pkgs.items():
-        fns, lib_call, tree_ops[label] = tree_kernels(pkg, blobs, args, gpu)
+        fns, lib_call, variants, table_bytes = tree_kernels(pkg, blobs, args,
+                                                            gpu)
+        tree_fns[label] = fns
         library = library or lib_call
-        for name, fn in fns.items():
-            calls.append((name, label, fn))
-            got = flat(fn())
-            ref = outs.setdefault(name.removesuffix("_global"), got)
-            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-                raise SystemExit(f"{name}: tree {label} gives another "
-                                 f"output than tree {next(iter(pkgs))}")
+        runs = [(label, fns)] + [(f"{label} {spec}", v)
+                                 for spec, v in variants.items()]
+        for run_label, run_fns in runs:
+            for name, fn in run_fns.items():
+                calls.append((name, run_label, fn))
+                got = flat(fn())
+                ref = outs.setdefault(name.removesuffix("_global"), got)
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise SystemExit(f"{name}: {run_label} gives another "
+                                     f"output than tree {next(iter(pkgs))}")
     calls.append(("idct_library", "torch", library))
     occupancy = {}
-    def parse(variants):
-        return [dict(kv.split("=") for kv in v.split(","))
-                for v in variants.split(";") if v]
-
-    specs = {"exit": [{"kExitThreads": int(t)}
-                      for t in args.exit_threads.split(",") if t],
-             "stream": parse(args.stream_variants),
-             "store": parse(args.store_variants),
-             "color": parse(args.color_variants)}
-    for kind, kind_specs in specs.items():
-        if not kind_specs:
+    for kind in VARIANTS:
+        specs = [dict(kv.split("=") for kv in v.split(","))
+                 for v in getattr(args, f"{kind}_variants").split(";") if v]
+        if not specs:
             continue
         this = [lb for lb, d in trees
                 if (ROOT / d).resolve() == (ROOT / "src").resolve()]
@@ -379,11 +405,14 @@ def main() -> None:
             raise SystemExit(f"variants of the {kind} kernel need this "
                              f"checkout's src among the trees")
         build = importlib.import_module(f"{pkgs[this[0]]}.kernels.build")
-        kernel = {"exit": "huffman_exits", "stream": "huffman_streams",
-                  "store": "huffman_store", "color": "color"}[kind]
+        AT = importlib.import_module(f"{pkgs[this[0]]}.kernels.autotune")
+        default = getattr(AT.DEFAULT_LAUNCH, _THREADS.get(kind, ""), 0)
+        kernel = VARIANTS[kind][2]
         ref = outs[kernel]
-        for label, lib in build_variants(kind, kind_specs, build).items():
-            call, blocks = variant_call(kind, lib, tree_ops[this[0]])
+        smem = table_bytes  # every tree plans the same batch
+        for label, lib in build_variants(kind, specs, build, default).items():
+            call, blocks = variant_call(kind, lib, build,
+                                        tree_fns[this[0]][kernel], smem)
             if not all(torch.equal(a, b) for a, b in zip(flat(call()), ref)):
                 raise SystemExit(f"the {kind} kernel {label} gives another "
                                  f"output")

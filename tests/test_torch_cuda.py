@@ -412,7 +412,7 @@ def test_pixel_entry_point_refuses_bad_factors(card, comp_h, comp_v):
     buf = torch.zeros(64 * 64, dtype=torch.int32, device=card)
     err = B.entry("pixels", "rt_fused_pixels", FP._ARGS)(
         B.ptr(buf), B.ptr(buf), 1, B.ptr(buf), B.ptr(buf), 1,
-        ints3(*comp_h), ints3(*comp_v), B.stream_of(buf))
+        ints3(*comp_h), ints3(*comp_v), 0, B.stream_of(buf))
     assert err == 1
 
 
@@ -593,3 +593,85 @@ emit({"digest": hashlib.blake2b(co.tobytes()).hexdigest(),
             np.ascontiguousarray(rows).tobytes()).hexdigest()
         assert r["device"] == "cuda:0" and r["rgb"] == [2, 48, 64, 3]
     assert [r["offset"] for r in results] == [0, half]
+
+
+# -- the kernel verifier and the launch autotuner ----------------------------
+
+@pytest.mark.parametrize("name", ["420", "restart", "mixed"])
+def test_checked_build_equals_release_under_every_candidate(card, name):
+    """Every kernel's checked build under each of its launch candidates on
+    a small plan: an empty record, every IDCT / pixel / color output
+    element written once, and the release build's output, equal to the
+    plain version's; the 4:2:2 and 4:4:4 layouts' pixel kernels too."""
+    from repro_torch.analysis import kernel_check as K
+
+    dec = ParallelDecoder.from_bytes(corpus(name), chunk_bits=256,
+                                     device=card)
+    layouts = [ParallelDecoder.from_bytes(corpus(s), device=card)
+               for s in ("422", "444")] if name == "420" else []
+    g = dec.plan.geometry
+    crops = [(g.height - 1, g.width - 3)] if g is not None and \
+        len(g.comp_h) == 3 else []
+    vs, n, refused = K.verify_batch(dec, name, layouts=layouts, crops=crops)
+    assert not vs, "\n".join(v.format() for v in vs)
+    assert n >= 20
+    assert all("warp" in r for r in refused), refused
+
+
+def test_self_test_catches_the_seeds_on_the_card(card):
+    """S1 by kernel-bounds, S2 and S3 by kernel-tiling, the duplicate
+    scatter by kernel-scatter-race; each seed equals its plain version."""
+    from repro_torch.analysis import kernel_check as K
+    from repro_torch.kernels import seeds as S
+
+    failures, caught = K.run_self_test(device="cuda")
+    assert failures == []
+    assert [v.family for v in caught] == [
+        "kernel-bounds", "kernel-tiling", "kernel-tiling",
+        "kernel-scatter-race"]
+    assert "kSiteSeedRows" in caught[0].detail
+    x = torch.arange(32, dtype=torch.float32).reshape(8, 4)
+    assert torch.equal(S.seed_oob_rows(x.to(card)).cpu(),
+                       S.seed_oob_rows_plain(x, strict=False))
+    y = torch.arange(10, dtype=torch.float32)
+    assert torch.equal(S.seed_ident(y.to(card)).cpu(),
+                       S.seed_ident_plain(y)[0])
+    coeffs, m_t, mrow, geo = S.seed_pixel_operands(card)
+    got = S.seed_misaligned_tile(coeffs, m_t, mrow, **geo)
+    exp, _ = S.seed_misaligned_tile_plain(coeffs, m_t, mrow, **geo)
+    assert torch.equal(got, exp)
+
+
+def test_autotune_search_on_a_small_bucket(card, tmp_path, monkeypatch):
+    """REPRO_TORCH_AUTOTUNE=1 measures every candidate on the bucket; the
+    winner decodes bit-identically to the defaults, the losers' programs
+    are dropped, and a second resolution reads the table and measures
+    nothing."""
+    from repro_torch.core import api
+    from repro_torch.kernels import autotune as AT
+
+    table = tmp_path / "launch.json"
+    monkeypatch.setenv(AT.TABLE_ENV, str(table))
+    monkeypatch.setenv(AT.AUTOTUNE_ENV, "1")
+    monkeypatch.delenv(AT.LAUNCH_ENV, raising=False)
+    AT.clear_launch_cache()
+    api.clear_decode_programs()
+    blobs = corpus("420")
+    dec = ParallelDecoder.from_bytes(blobs, device=card, fuse="full")
+    assert dec.launch in AT.candidate_configs()
+    assert table.exists()
+    keys = {b["bucket"] for b in api.decode_program_stats()["buckets"]}
+    assert api.decode_program_stats()["programs"] == len(keys) == 1
+    monkeypatch.delenv(AT.AUTOTUNE_ENV)
+    ref = ParallelDecoder.from_bytes(blobs, device=card, fuse="full",
+                                     launch=AT.DEFAULT_LAUNCH)
+    a, b = dec.decode(), ref.decode()
+    assert torch.equal(a.coeffs, b.coeffs) and torch.equal(a.rgb, b.rgb)
+    AT.clear_launch_cache()
+
+    def measure(cfg):
+        raise AssertionError("a warm bucket measured again")
+
+    assert AT.resolve_launch(dec.shape, "cuda", "full",
+                             measure=measure) == dec.launch
+    AT.clear_launch_cache()
