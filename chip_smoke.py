@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch + CUDA decoder (``src/repro_torch``) on one GPU.
+"""Smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
 CUDA device and ``nvcc``, and exits non-zero without printing a result
@@ -92,10 +92,29 @@ otherwise. Phases, each of which exits non-zero on failure:
    coefficients and RGB equal to the default's; a second resolution
    reads the table and measures nothing; the losers' programs freed.
    Then the store kernel's ``lane`` and ``warp`` writers at 32 lanes
-   (sequential), 208,960 and 835,776 lanes.
+   (sequential), 208,960 and 835,776 lanes;
+12. LM/VLM serving (``repro_torch.models``, ``repro_torch.launch.serve``):
+   the five served archs' smoke configs in f32 (TF32 off), built on the
+   CPU from ``--seed`` and copied to the card, prefill and 8 decode
+   steps on both, logits within rtol 1e-4, atol 5e-4 with the KV cache
+   in f32 on both sides and within rtol 0.08, atol 0.15 with the bf16
+   cache, greedy tokens equal where the top-2 margin exceeds the
+   tolerance; then llava-next-mistral-7b
+   at full width through ``launch.serve.run`` (bf16 weights drawn on the
+   card from ``--seed``): 4 requests, each a 1920x384 4:2:0 frame decoded
+   by ``JpegVisionPipeline(patch=16, embed_dim=1024)`` on the card into
+   its 2,880 patch tokens (B1, B2, B4; the launch counts set to 0 before
+   the requests and read after), and a 64-token prompt; a prefill of
+   11,776 tokens and 31 greedy decode steps (32 tokens). Checks: the
+   patch tokens equal the embedding of the plain-path RGB, every logit is
+   finite, the first decode step's logits are within rtol 0.08, atol 0.15
+   of a prefill of prompt + token. Prints the prefill ms, decode ms a
+   step, tokens/s, peak memory, the decode loop's idle share, the top
+   kernels of a prefill and of 4 decode steps, and each figure's bound.
 
-``launches`` in the kernel record counts phase 4's paths and phase 7's
-stream, and for the seeds S1-S3 phase 10's self-test. The line before the
+``launches`` in the kernel record counts phase 4's paths, phase 7's
+stream and phase 12's requests, and for the seeds S1-S3 phase 10's
+self-test. The line before the
 last is the per-kernel JSON record; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -604,6 +623,288 @@ def tune_launch(args, blobs, gpu) -> None:
         torch.cuda.empty_cache()
     print(f"[tune] store kernel writers, zero fill included: "
           + "; ".join(line), flush=True)
+
+
+# -- phase 12: LM/VLM serving -------------------------------------------------
+
+# the dense decoder-only and VLM archs the port serves
+SERVED_ARCHS = ("llava-next-mistral-7b", "llama3-8b", "command-r-plus-104b",
+                "gemma-7b", "nemotron-4-15b")
+# the JAX package's tolerance for decode against prefill
+# (tests/test_models.py), which the CPU tests hold bf16 logits to
+LM_TOL = dict(rtol=0.08, atol=0.15)
+# f32 logits with the KV cache in f32 on both sides, card against CPU:
+# about 3x the largest difference measured on an H100 (1.56e-4,
+# command-r-plus-104b; PERF.md section 6, PR 19)
+LM_F32_TOL = dict(rtol=1e-4, atol=5e-4)
+BF16_FLOP_PER_S = 989e12      # dense bf16 on the tensor cores
+# the full-width requests: 4, each one 1920x384 frame (120 x 24 = 2,880
+# patches of 16, the model's n_patches) and a 64-token prompt; 32 tokens
+# generated (one by the prefill), as launch/serve.py counts them
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 64, 32
+LM_FRAME = (1920, 384)
+LM_PROFILE_STEPS = 4
+
+
+def lm_close(got: torch.Tensor, exp: torch.Tensor, tol=LM_TOL
+             ) -> torch.Tensor:
+    """Where ``got`` is within ``tol`` of ``exp``."""
+    return (got - exp).abs() <= tol["atol"] + tol["rtol"] * exp.abs()
+
+
+def lm_smoke_parity(args, gpu) -> None:
+    """Phase 12a: each served arch's smoke config in f32, built once on the
+    CPU from ``--seed``, its weights copied to the card; 2 prompts of 24
+    positions, then 8 decode steps, both sides fed the CPU's greedy token.
+    Twice: with the KV cache in f32, logits within ``LM_F32_TOL``; with the
+    config's bf16 cache (which rounds the f32 keys and values, so a last-
+    bit difference can flip a rounding), within ``LM_TOL``. Each time the
+    card's greedy token is the CPU's wherever the CPU's top-2 margin
+    exceeds the tolerance."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as TM
+
+    def caches(cfg, device, f32):
+        cs = TM.init_caches(cfg, 2, 32, device=device)
+        return [c._replace(k=c.k.float(), v=c.v.float()) for c in cs] \
+            if f32 else cs
+
+    for arch in SERVED_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  param_dtype="float32")
+        cpu = TM.init_params(torch.Generator().manual_seed(args.seed), cfg,
+                             device="cpu")
+        card = copy.deepcopy(cpu).to(gpu)
+        rng = np.random.default_rng(args.seed)
+        nv = cfg.n_patches if cfg.frontend == "vision" else 0
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, 24 - nv))).to(torch.int32)}
+        if nv:
+            batch["patches"] = torch.from_numpy(
+                rng.normal(0, 1, (2, nv, 1024))).to(torch.bfloat16)
+        on_card = {k: v.to(gpu) for k, v in batch.items()}
+        line = []
+        for f32, tol in ((True, LM_F32_TOL), (False, LM_TOL)):
+            what = f"phase 12 {arch} ({'f32' if f32 else 'bf16'} cache)"
+            lc, cc = TM.forward_prefill(cpu, batch, caches(cfg, "cpu", f32))
+            lg, cg = TM.forward_prefill(card, on_card, caches(cfg, gpu, f32))
+            worst, sure = 0.0, 0
+            for step in range(9):
+                exp, got = lc[:, -1].float(), lg[:, -1].float().cpu()
+                gap = float((got - exp).abs().max())
+                check(bool(lm_close(got, exp, tol).all()), f"{what}: logits "
+                      f"on the card differ from the CPU's at step {step} by "
+                      f"{gap}")
+                worst = max(worst, gap)
+                tok = torch.argmax(exp, -1)
+                top2 = torch.topk(exp, 2).values
+                clear = (top2[:, 0] - top2[:, 1]) > tol["atol"] \
+                    + tol["rtol"] * top2[:, 0].abs()
+                check(torch.equal(torch.argmax(got, -1)[clear], tok[clear]),
+                      f"{what}: a greedy token differs at step {step}")
+                sure += int(clear.sum())
+                if step == 8:
+                    break
+                tok = tok[:, None].to(torch.int32)
+                lc, cc = TM.forward_decode(cpu, tok, 24 + step, cc)
+                lg, cg = TM.forward_decode(card, tok.to(gpu), 24 + step, cg)
+            line.append(f"{'f32' if f32 else 'bf16'} cache within rtol "
+                        f"{tol['rtol']} atol {tol['atol']} (largest "
+                        f"difference {worst:.3g}; greedy tokens equal at "
+                        f"the {sure} of 18 positions whose top-2 margin "
+                        f"exceeds it)")
+        print(f"[serve] smoke {arch} (f32, TF32 off), prefill and 8 decode "
+              f"steps, card against CPU: " + "; ".join(line), flush=True)
+
+
+def profile_rows(fn, top: int = 8):
+    """(device busy ms, wall ms) of one call of ``fn`` under the profiler,
+    printing its ``top`` kernel rows by device time."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((device_us(e) / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    for ms, n, key in rows[:top]:
+        print(f"[serve]   {ms:9.3f} ms {n:6d}x  {key[:100]}")
+    return sum(r[0] for r in rows), wall
+
+
+def serve_lm(args, gpu, card, counters, kernels) -> None:
+    """Phase 12: LM/VLM serving. 12a the smoke parity; 12b
+    llava-next-mistral-7b at full width through ``launch.serve.run``, its
+    patch tokens from ``JpegVisionPipeline`` on the card (B1, B2, B4)."""
+    from repro_torch import decode_batch
+    from repro_torch.configs import get_config
+    from repro_torch.data.jpeg_pipeline import JpegVisionPipeline
+    from repro_torch.jpeg.encoder import DatasetSpec, build_dataset
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import model as TM
+
+    lm_smoke_parity(args, gpu)
+
+    cfg = get_config("llava-next-mistral-7b")
+    w, h = LM_FRAME
+    spec = DatasetSpec("llava-requests", LM_BATCH, w, h, args.quality)
+    blobs = build_dataset(spec, seed=args.seed).jpeg_bytes
+    pipe = JpegVisionPipeline(patch=16, embed_dim=1024, device=gpu,
+                              chunk_bits=args.chunk_bits)
+    check((h // pipe.patch) * (w // pipe.patch) == cfg.n_patches,
+          f"phase 12: {w}x{h} frames do not give {cfg.n_patches} patches")
+    plain = decode_batch(blobs, chunk_bits=args.chunk_bits, backend="torch",
+                         device=gpu).rgb
+    seen = []
+    embed = pipe.embed
+    pipe.embed = lambda rgb: seen.append(rgb) or embed(rgb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    patches, _ = pipe.patches_for(blobs)
+    torch.cuda.synchronize()
+    patch_ms = (time.perf_counter() - t0) * 1e3
+    r = LS.run(cfg, LM_BATCH, LM_PROMPT, LM_GEN, device=gpu, patches=patches,
+               seed=args.seed)
+    torch.cuda.synchronize()
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for rec in kernels:  # the seeds S1-S3 have no counter
+        rec["launches"] += counts.get(rec["name"], 0)
+    launched = {k for k, n in counts.items() if n > 0}
+    check(launched == {"huffman_exits", "huffman_streams", "fused_pixels"},
+          f"phase 12: the requests' decode launched {sorted(launched)}")
+    # param_count() leaves out the projector and the final norm
+    n_params = sum(p.numel() for p in r.model.parameters())
+    check(len(r.model.blocks) == cfg.n_layers and n_params == (
+        cfg.param_count() + r.model.vis_proj1.numel()
+        + r.model.vis_proj2.numel() + cfg.d_model), f"phase 12: the model "
+        f"has {len(r.model.blocks)} layers and {n_params} parameters")
+
+    rgb = seen.pop()
+    worst = int((rgb.to(torch.int16) - plain.to(torch.int16)).abs().max())
+    exp = embed(plain)
+    same = [i for i in range(LM_BATCH) if torch.equal(rgb[i], plain[i])]
+    check(worst <= 1 and tuple(patches.shape) == (
+        LM_BATCH, cfg.n_patches, 1024) and all(
+        torch.equal(patches[i], exp[i]) for i in same),
+        f"phase 12: patch tokens {tuple(patches.shape)} differ from the "
+        f"embedding of the plain-path RGB (RGB within {worst})")
+    check(r.logits_finite, "phase 12: a logit is not finite")
+    del rgb, exp, plain
+    print(f"[serve] {LM_BATCH} requests, {w}x{h} 4:2:0 q{args.quality} "
+          f"frames ({sum(map(len, blobs)) / 1e3:.1f} KB): launches " +
+          ", ".join(f"{k} {n}" for k, n in counts.items() if n) +
+          f"; RGB within {worst} of the plain path, "
+          f"{len(same)} of {LM_BATCH} images equal and their tokens equal "
+          f"the plain RGB's embedding; patches_for {patch_ms:.1f} ms "
+          f"(cold bucket); {card}", flush=True)
+
+    # the decode loop's idle share and warm step time: a few more steps on
+    # the run's caches (max_len leaves 8 positions after the run's tokens)
+    tok = r.tokens[:, -1:]
+
+    def steps(n, pos):
+        nonlocal tok
+        for i in range(n):
+            logits, _ = TM.forward_decode(r.model, tok, pos + i, r.caches)
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+
+    print(f"[serve] {LM_PROFILE_STEPS} decode steps, device time by "
+          f"kernel:", flush=True)
+    busy, prof_ms = profile_rows(lambda: steps(LM_PROFILE_STEPS, r.pos))
+    t0 = time.perf_counter()
+    steps(LM_PROFILE_STEPS, r.pos + LM_PROFILE_STEPS)
+    warm_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILE_STEPS
+    # device busy and wall time of the same profiled steps; the profiler's
+    # own host cost is in that wall, so the share is an upper estimate
+    step_busy = busy / LM_PROFILE_STEPS
+    dec_ms = r.decode_s * 1e3 / r.decode_steps
+    idle = f"{1 - busy / prof_ms:.3f}" if busy else "not measured"
+
+    # decode against prefill: the first decode step's logits against the
+    # last logits of a prefill of prompt + that token
+    caches_bytes = nbytes(*(t for c in r.caches for t in (c.k, c.v)))
+    r.caches = None
+    caches = TM.init_caches(cfg, LM_BATCH, r.max_len, device=gpu)
+    batch = dict(r.batch, tokens=torch.cat([r.batch["tokens"],
+                                            r.tokens[:, :1]], 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = TM.forward_prefill(r.model, batch, caches)
+    torch.cuda.synchronize()
+    prefill2_ms = (time.perf_counter() - t0) * 1e3
+    ref = logits[:, -1].float()
+    err = float((r.first_decode_logits - ref).abs().max())
+    check(bool(lm_close(r.first_decode_logits, ref).all())
+          and bool(torch.isfinite(ref).all()), f"phase 12: the first decode "
+          f"step's logits differ from the prefill of prompt + token by {err}")
+    print(f"[serve] a prefill of the same {LM_BATCH} x "
+          f"{batch['tokens'].shape[1] + cfg.n_patches} tokens, device time "
+          f"by kernel:", flush=True)
+    pf_busy, pf_prof_ms = profile_rows(
+        lambda: TM.forward_prefill(r.model, batch, caches))
+    del caches, logits, batch
+
+    # bounds from the shapes: a decode step reads every parameter but the
+    # embedding (gathered) and the whole cache (the mask covers all of
+    # max_len); a prefill's products are 2 x (block parameters) a token, the
+    # projector's a patch and the head's a request, in bf16, plus the f32
+    # scores and values over the whole cache (TF32 off)
+    blk = sum(p.numel() for p in r.model.blocks.parameters())
+    vis = r.model.vis_proj1.numel() + r.model.vis_proj2.numel()
+    head = r.model.lm_head.numel()
+    step_bytes = 2 * (n_params - r.model.embed.numel()) + caches_bytes
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    seq = LM_PROMPT + cfg.n_patches
+    bf16_flop = 2 * (blk * LM_BATCH * seq + vis * LM_BATCH * cfg.n_patches
+                     + head * LM_BATCH)
+    f32_flop = 2 * 2 * LM_BATCH * seq * cfg.n_heads * r.max_len \
+        * cfg.head_dim * cfg.n_periods
+    pf_bound = (bf16_flop / BF16_FLOP_PER_S + f32_flop / F32_FLOP_PER_S) * 1e3
+    # the causal work alone: query i scores and weighs i + 1 keys
+    causal_flop = f32_flop / r.max_len * (seq + 1) / 2
+    causal_bound = (bf16_flop / BF16_FLOP_PER_S
+                    + causal_flop / F32_FLOP_PER_S) * 1e3
+    tps = LM_BATCH * r.decode_steps / r.decode_s
+    floor_gb = (2 * n_params + caches_bytes) / 1e9
+    print(f"[serve] llava-next-mistral-7b full width ({len(r.model.blocks)} "
+          f"layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+          f"parameters, bf16), batch {LM_BATCH}, max_len {r.max_len}: "
+          f"prefill of {LM_BATCH} x {seq} = {LM_BATCH * seq} tokens "
+          f"{r.prefill_s * 1e3:.1f} ms (the run's; again with one more "
+          f"token {prefill2_ms:.1f} ms; device busy {pf_busy:.1f} of "
+          f"{pf_prof_ms:.1f} ms profiled), bound {pf_bound:.1f} ms "
+          f"({bf16_flop / 1e12:.1f} TFLOP bf16 over 989 TFLOP/s + "
+          f"{f32_flop / 1e12:.1f} TFLOP f32 over 67 TFLOP/s: the score "
+          f"block over all of max_len, as the reference computes it; the "
+          f"causal work alone {causal_flop / 1e12:.1f} TFLOP f32, bound "
+          f"{causal_bound:.1f} ms); {card}",
+          flush=True)
+    print(f"[serve] decode: {r.decode_steps} greedy steps {dec_ms:.2f} ms a "
+          f"step ({tps:.1f} tokens/s; warm steps after the run "
+          f"{warm_ms:.2f} ms), bound {step_bound:.2f} ms a step "
+          f"({step_bytes / 1e9:.2f} GB: weights but the embedding, and the "
+          f"{caches_bytes / 1e9:.2f} GB cache, over 3.35 TB/s); decode loop "
+          f"idle share {idle} (device busy {step_busy:.2f} ms a step over "
+          f"{LM_PROFILE_STEPS} profiled steps of "
+          f"{prof_ms / LM_PROFILE_STEPS:.2f} ms wall, the profiler's host "
+          f"cost included); peak memory "
+          f"{peak / 1e9:.2f} GB (weights and cache {floor_gb:.2f} GB); "
+          f"decode against prefill of prompt + token: largest difference "
+          f"{err:.3g}, within rtol {LM_TOL['rtol']} atol {LM_TOL['atol']}; "
+          f"every logit finite; sample tokens "
+          f"{r.tokens[0, :8].tolist()}; {card}", flush=True)
+    del r, pipe, patches
 
 
 def main() -> None:
@@ -1624,6 +1925,10 @@ def main() -> None:
 
     # -- 11. the launch autotuner -----------------------------------------------
     tune_launch(args, blobs, gpu)
+    api.clear_decode_programs()
+
+    # -- 12. LM/VLM serving -------------------------------------------------------
+    serve_lm(args, gpu, card, counters, kernels)
     api.clear_decode_programs()
 
     print(json.dumps({"kernels": kernels}))

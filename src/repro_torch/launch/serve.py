@@ -1,0 +1,193 @@
+"""Batched serving: prefill a batch of prompts, then decode tokens.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --batch 4 --prompt-len 64 --gen 32 [--device cpu]
+
+The port of the JAX package's ``launch/serve.py``, with its flags and
+``--device`` (default ``cuda``: raises without a card). ``main`` serves
+the arch's smoke config; :func:`run` serves any config. The dense
+decoder-only and VLM families are served; the others fail with the
+ROADMAP item they wait for (A11b).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.api import resolve_device
+from ..models.config import ModelConfig
+from ..models.model import Model, check_served, init_caches, init_params
+from ..serve.step import make_decode_step, make_prefill_step
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one :func:`run` served, and its times (host clock around work
+    that ends in a device synchronise)."""
+
+    model: Model
+    batch: Dict[str, torch.Tensor]  # tokens (B, prompt_len); VLM: patches
+    caches: List                    # filled up to position `pos`
+    tokens: torch.Tensor            # (B, gen) int32: greedy, prefill's first
+    first_decode_logits: torch.Tensor  # (B, vocab) f32 of the first step
+    logits_finite: bool             # every logit of the run was finite
+    pos: int                        # the next free cache position
+    max_len: int
+    prefill_s: float
+    decode_s: float                 # the gen - 1 decode steps
+
+    @property
+    def decode_steps(self) -> int:
+        return self.tokens.shape[1] - 1
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
+        device="cuda", patches: Optional[torch.Tensor] = None,
+        seed: int = 0) -> ServeRun:
+    """Serve ``batch`` requests of ``prompt_len`` tokens (and, for the VLM,
+    ``patches`` (batch, n_patches, 1024), drawn from ``seed`` when None):
+    one prefill, then ``gen - 1`` greedy decode steps, ``gen`` tokens a
+    request. Weights come from a ``torch.Generator`` seeded ``seed`` on
+    ``device``, prompts from ``numpy`` with the seed."""
+    check_served(cfg)
+    dev = resolve_device(device)
+    n_vis = cfg.n_patches if cfg.frontend == "vision" else 0
+    max_len = prompt_len + gen + 8 + n_vis
+    maxpos = max_len if cfg.norm == "layernorm" else 0
+    model = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        max_positions=maxpos, device=dev)
+
+    rng = np.random.default_rng(seed)
+    inputs = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, prompt_len))).to(
+        device=dev, dtype=torch.int32)}
+    if cfg.frontend == "vision":
+        if patches is None:
+            patches = torch.from_numpy(
+                rng.normal(0, 1, (batch, cfg.n_patches, 1024))).to(
+                torch.bfloat16)
+        if tuple(patches.shape) != (batch, cfg.n_patches, 1024):
+            raise ValueError(f"patches of shape {tuple(patches.shape)}; "
+                             f"{cfg.name} takes "
+                             f"{(batch, cfg.n_patches, 1024)}")
+        inputs["patches"] = patches.to(dev)
+    elif patches is not None:
+        raise ValueError(f"{cfg.name} has no vision frontend")
+
+    caches = init_caches(cfg, batch, max_len, dev)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, inputs, caches)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    finite = torch.isfinite(logits).all()  # on the device: no host read
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    out = [tok]
+    pos0 = prompt_len + n_vis
+    first = None
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        tok, logits, caches = decode(model, tok, pos0 + i, caches)
+        finite &= torch.isfinite(logits).all()
+        if first is None:
+            first = logits[:, -1].float()
+        out.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return ServeRun(model=model, batch=inputs, caches=caches,
+                    tokens=torch.cat(out, dim=1), first_decode_logits=first,
+                    logits_finite=bool(finite), pos=pos0 + gen - 1,
+                    max_len=max_len, prefill_s=t_prefill, decode_s=t_decode)
+
+
+def main():
+    from ..configs import ARCH_IDS, get_smoke_config
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3-8b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a card) or cpu")
+    ap.add_argument("--jpeg-stream", type=int, default=0, metavar="N",
+                    help="dry-run the JPEG input pipeline over N distinct "
+                         "batches first and report the streaming decode "
+                         "stats (compile-once buckets, warm-step ms)")
+    ap.add_argument("--decode-serve", type=int, default=0, metavar="N",
+                    help="dry-run the continuous-batching decode service "
+                         "with N open-loop requests first and report its "
+                         "serve stats (occupancy, deadline misses, "
+                         "admitted buckets)")
+    ap.add_argument("--serve-rate", type=float, default=0.0, metavar="IPS",
+                    help="Poisson arrival rate for --decode-serve "
+                         "(images/sec; 0 = saturated backlog drain)")
+    ap.add_argument("--serve-slo", type=float, default=250.0, metavar="MS",
+                    help="per-request deadline for --decode-serve")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="store address of a multi-process launch (or "
+                         "REPRO_COORDINATOR); the JPEG stream is then fed "
+                         "per process")
+    ap.add_argument("--processes", type=int, default=None,
+                    help="total process count of the multi-process launch "
+                         "(or REPRO_NUM_PROCESSES)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's id (or REPRO_PROCESS_ID)")
+    args = ap.parse_args()
+
+    cfg = get_smoke_config(args.arch)
+    try:
+        check_served(cfg)
+    except NotImplementedError as e:
+        sys.exit(f"--arch {args.arch}: {e}")
+
+    from .multihost import init_distributed, shutdown_distributed
+    ctx = init_distributed(args.coordinator, args.processes, args.process_id)
+    try:
+        if args.jpeg_stream:
+            from .report import jpeg_stream_dryrun, render_decode_stats
+            stats = jpeg_stream_dryrun(args.jpeg_stream,
+                                       batch_size=args.batch,
+                                       device=args.device, ctx=ctx)
+            if ctx.is_main:
+                print(render_decode_stats(stats), flush=True)
+
+        if args.decode_serve and ctx.is_main:
+            from .report import decode_serve_dryrun, render_serve_stats
+            sstats, load = decode_serve_dryrun(args.decode_serve,
+                                               batch_size=args.batch,
+                                               rate_ips=args.serve_rate,
+                                               slo_ms=args.serve_slo,
+                                               device=args.device)
+            print(render_serve_stats(sstats, load), flush=True)
+
+        r = run(cfg, args.batch, args.prompt_len, args.gen, args.device)
+    finally:
+        if ctx.initialized:
+            shutdown_distributed()
+    print(f"arch={cfg.name} batch={args.batch} device={r.tokens.device}")
+    print(f"prefill: {args.prompt_len} tokens x {args.batch} in "
+          f"{r.prefill_s * 1e3:.1f}ms")
+    print(f"decode : {r.decode_steps} steps in {r.decode_s * 1e3:.1f}ms "
+          f"({r.decode_steps * args.batch / max(r.decode_s, 1e-9):.1f} "
+          f"tok/s)")
+    print("sample token ids:", r.tokens[0, :16].tolist())
+
+
+if __name__ == "__main__":
+    main()
