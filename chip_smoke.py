@@ -110,7 +110,24 @@ otherwise. Phases, each of which exits non-zero on failure:
    finite, the first decode step's logits are within rtol 0.08, atol 0.15
    of a prefill of prompt + token. Prints the prefill ms, decode ms a
    step, tokens/s, peak memory, the decode loop's idle share, the top
-   kernels of a prefill and of 4 decode steps, and each figure's bound.
+   kernels of a prefill and of 4 decode steps, and each figure's bound;
+13. MoE, MLA, SSD and encoder-decoder serving: 13a as 12a for
+   deepseek-v2, deepseek-v3, mamba2, jamba and whisper (every floating
+   cache tensor in f32, jamba within atol 2e-3; the MoE archs' prefill
+   routing equal, card against CPU; the encoder-decoder's frames drawn
+   from ``--seed``); 13b three archs at full width through
+   ``launch.serve.run`` (bf16 weights drawn on the card from ``--seed``),
+   4 requests of 32 generated tokens each: deepseek-v2-236b at its
+   published widths with 7 of its 60 layers (``n_periods=6``: 25.22 B
+   parameters) and 512-token prompts; mamba2-780m whole with 2,048-token
+   prompts (8 SSD chunks); whisper-base whole over 1,500 frames with
+   64-token prompts. Checks every logit finite and, for mamba2, the first
+   decode step within rtol 0.08, atol 0.15 of a prefill of prompt +
+   token (deepseek's and whisper's gaps reported: see ``FAMILY_RUNS``).
+   Prints each run's prefill ms, decode ms a step,
+   tokens/s, peak memory, decode idle share, top kernels and bounds, and
+   deepseek's dropped_frac at prefill. Phase 13 launches no kernel of
+   the port: no Pallas kernel lies on these paths.
 
 ``launches`` in the kernel record counts phase 4's paths, phase 7's
 stream and phase 12's requests, and for the seeds S1-S3 phase 10's
@@ -652,15 +669,45 @@ def lm_close(got: torch.Tensor, exp: torch.Tensor, tol=LM_TOL
     return (got - exp).abs() <= tol["atol"] + tol["rtol"] * exp.abs()
 
 
-def lm_smoke_parity(args, gpu) -> None:
-    """Phase 12a: each served arch's smoke config in f32, built once on the
+def f32_caches(caches):
+    """Every floating tensor of the model's caches in f32."""
+    from repro_torch.models import model as TM
+
+    def one(c):
+        return None if c is None else type(c)(*(
+            t.float() if isinstance(t, torch.Tensor) and t.is_floating_point()
+            else t for t in c))
+
+    return TM.Caches(one(c) for c in caches)
+
+
+def moe_recorder():
+    """(records, restore): while installed, each MoE layer's call appends
+    its routing (``idx``, on the CPU) and ``dropped_frac``."""
+    from repro_torch.models import model as TM
+    moe_ffn, records = TM.moe_ffn, []
+
+    def recorded(p, cfg, x):
+        y, aux = moe_ffn(p, cfg, x)
+        records.append((aux["idx"].cpu(), float(aux["dropped_frac"])))
+        return y, aux
+
+    TM.moe_ffn = recorded
+    return records, lambda: setattr(TM, "moe_ffn", moe_ffn)
+
+
+def lm_smoke_parity(args, gpu, archs=SERVED_ARCHS, phase=12,
+                    f32_tol=None) -> None:
+    """Phase 12a (13a): each arch's smoke config in f32, built once on the
     CPU from ``--seed``, its weights copied to the card; 2 prompts of 24
-    positions, then 8 decode steps, both sides fed the CPU's greedy token.
-    Twice: with the KV cache in f32, logits within ``LM_F32_TOL``; with the
-    config's bf16 cache (which rounds the f32 keys and values, so a last-
-    bit difference can flip a rounding), within ``LM_TOL``. Each time the
-    card's greedy token is the CPU's wherever the CPU's top-2 margin
-    exceeds the tolerance."""
+    positions (and the encoder-decoder's frames), then 8 decode steps, both
+    sides fed the CPU's greedy token. Twice: with every floating cache
+    tensor in f32, logits within ``LM_F32_TOL`` (or the arch's entry of
+    ``f32_tol``) and each MoE layer's prefill routing equal; with the
+    config's own caches (which round the f32 keys, values and conv inputs,
+    so a last-bit difference can flip a rounding), within ``LM_TOL``. Each
+    time the card's greedy token is the CPU's wherever the CPU's top-2
+    margin exceeds the tolerance."""
     import copy
     import dataclasses
     from repro_torch.configs import get_smoke_config
@@ -668,10 +715,9 @@ def lm_smoke_parity(args, gpu) -> None:
 
     def caches(cfg, device, f32):
         cs = TM.init_caches(cfg, 2, 32, device=device)
-        return [c._replace(k=c.k.float(), v=c.v.float()) for c in cs] \
-            if f32 else cs
+        return f32_caches(cs) if f32 else cs
 
-    for arch in SERVED_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                                   param_dtype="float32")
         cpu = TM.init_params(torch.Generator().manual_seed(args.seed), cfg,
@@ -684,12 +730,29 @@ def lm_smoke_parity(args, gpu) -> None:
         if nv:
             batch["patches"] = torch.from_numpy(
                 rng.normal(0, 1, (2, nv, 1024))).to(torch.bfloat16)
+        if cfg.is_encdec:
+            batch["frames"] = torch.from_numpy(
+                rng.normal(0, 1, (2, cfg.enc_seq, 128))).to(torch.bfloat16)
         on_card = {k: v.to(gpu) for k, v in batch.items()}
         line = []
-        for f32, tol in ((True, LM_F32_TOL), (False, LM_TOL)):
-            what = f"phase 12 {arch} ({'f32' if f32 else 'bf16'} cache)"
-            lc, cc = TM.forward_prefill(cpu, batch, caches(cfg, "cpu", f32))
-            lg, cg = TM.forward_prefill(card, on_card, caches(cfg, gpu, f32))
+        for f32, tol in ((True, (f32_tol or {}).get(arch, LM_F32_TOL)),
+                         (False, LM_TOL)):
+            what = f"phase {phase} {arch} ({'f32' if f32 else 'own'} " \
+                   f"cache)"
+            routes, restore = moe_recorder()
+            try:
+                lc, cc = TM.forward_prefill(cpu, batch,
+                                            caches(cfg, "cpu", f32))
+                n_cpu = len(routes)
+                lg, cg = TM.forward_prefill(card, on_card,
+                                            caches(cfg, gpu, f32))
+            finally:
+                restore()
+            if f32:
+                check(len(routes) == 2 * n_cpu and all(
+                    torch.equal(a[0], b[0]) and a[1] == b[1] for a, b in
+                    zip(routes[:n_cpu], routes[n_cpu:])), f"{what}: the "
+                    f"prefill's MoE routing differs between card and CPU")
             worst, sure = 0.0, 0
             for step in range(9):
                 exp, got = lc[:, -1].float(), lg[:, -1].float().cpu()
@@ -710,11 +773,13 @@ def lm_smoke_parity(args, gpu) -> None:
                 tok = tok[:, None].to(torch.int32)
                 lc, cc = TM.forward_decode(cpu, tok, 24 + step, cc)
                 lg, cg = TM.forward_decode(card, tok.to(gpu), 24 + step, cg)
-            line.append(f"{'f32' if f32 else 'bf16'} cache within rtol "
+            routed = f", prefill routing of {n_cpu} MoE layers equal" \
+                if f32 and n_cpu else ""
+            line.append(f"{'f32' if f32 else 'own'} cache within rtol "
                         f"{tol['rtol']} atol {tol['atol']} (largest "
                         f"difference {worst:.3g}; greedy tokens equal at "
                         f"the {sure} of 18 positions whose top-2 margin "
-                        f"exceeds it)")
+                        f"exceeds it{routed})")
         print(f"[serve] smoke {arch} (f32, TF32 off), prefill and 8 decode "
               f"steps, card against CPU: " + "; ".join(line), flush=True)
 
@@ -905,6 +970,234 @@ def serve_lm(args, gpu, card, counters, kernels) -> None:
           f"every logit finite; sample tokens "
           f"{r.tokens[0, :8].tolist()}; {card}", flush=True)
     del r, pipe, patches
+
+
+# -- phase 13: MoE, MLA, SSD and encoder-decoder serving ---------------------
+
+# the families this phase serves: MLA + MoE (deepseek-v2, deepseek-v3 with
+# the sigmoid_bias router), SSD (mamba2), hybrid SSD/attention + MoE
+# (jamba), encoder-decoder (whisper)
+FAMILY_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "mamba2-780m",
+                "jamba-v0.1-52b", "whisper-base")
+# jamba's f32 logits move 10x more than the others' under the same last-
+# bit differences: its attention outputs reach 70 with sharp scores, and
+# the CPU differs from the JAX package by up to 4.7e-4 (the CPU tests,
+# tests/test_torch_ssm.py); about 4x that
+JAMBA_F32_TOL = dict(rtol=1e-4, atol=2e-3)
+# the full-width runs: (arch, n_periods or None for the whole model,
+# requests, prompt tokens, generated tokens, whether the first decode step
+# is held within LM_TOL of a prefill of prompt + token or only reported);
+# deepseek-v2 keeps its published widths and 7 of its 60 layers (the
+# dense prefix layer and 6 MoE layers: 25.22 B parameters, 50.4 GB in
+# bf16). Reported only: deepseek's 2,052-token prefill drops slots at
+# capacity factor 1.25, where a 4-token step drops none; whisper's decode
+# differs from its prefill at full width in the JAX package itself, by
+# up to 3.1 in bf16 and 0.79 in f32 with f32 caches (JAX on the CPU,
+# random weights: a last-bit difference between an M=1 and an M=65
+# product moves its attention, which these weights make near one-hot).
+FAMILY_RUNS = (("deepseek-v2-236b", 6, 4, 512, 32, False),
+               ("mamba2-780m", None, 4, 2048, 32, True),
+               ("whisper-base", None, 4, 64, 32, False))
+
+
+def family_flops(model, cfg, batch, seq, max_len):
+    """(bf16, f32) FLOP of a prefill of ``batch`` x ``seq`` tokens into
+    caches of ``max_len``, as the reference computes it: 2 x (parameters)
+    a token for the products outside the experts (the cross-attention's
+    keys and values a frame, the encoder's products a frame, the head's
+    a request), every expert's whole capacity buffer, the attention's f32
+    scores and values over the whole cache (MLA: the absorbed form over
+    its latents; whisper's cross-attention over every frame; the
+    encoder's over every frame), and the SSD's chunked products (its
+    Q x Q block per chunk in f32)."""
+    from repro_torch.models.ffn import capacity
+    t, tok = batch * seq, 0
+    bf16 = f32 = 0.0
+    enc_t = batch * cfg.enc_seq
+    for blk in model.enc:
+        bf16 += 2 * enc_t * sum(p.numel() for p in blk.parameters())
+        f32 += 2 * 2 * batch * cfg.enc_seq ** 2 * cfg.n_heads * cfg.head_dim
+    if model.aud_proj is not None:
+        bf16 += 2 * enc_t * model.aud_proj.numel()
+    for blk in model.blocks:
+        n = sum(p.numel() for p in blk.parameters())
+        if blk.ffn_kind == "moe":
+            ex = blk.ffn.w_gate.numel() + blk.ffn.w_up.numel() \
+                + blk.ffn.w_down.numel()
+            n -= ex
+            bf16 += 2 * ex * capacity(cfg, t)
+        if blk.xattn is not None:
+            kv = blk.xattn.wk.numel() + blk.xattn.wv.numel()
+            n -= kv
+            bf16 += 2 * enc_t * kv
+            f32 += 2 * 2 * t * cfg.n_heads * cfg.enc_seq * cfg.head_dim
+        bf16 += 2 * t * n
+        if blk.mixer == "attn":
+            f32 += 2 * 2 * t * cfg.n_heads * max_len * cfg.head_dim
+        elif blk.mixer == "mla":
+            m = cfg.mla
+            f32 += 2 * t * cfg.n_heads * max_len * (2 * m.kv_lora
+                                                     + m.rope_dim)
+        elif blk.mixer == "ssm":
+            s = cfg.ssm
+            nh = s.expand * cfg.d_model // s.head_dim
+            q = s.chunk
+            nc = -(-seq // q)
+            bf16 += 2 * batch * nc * q * q * s.d_state
+            f32 += 2 * batch * nc * q * (q * nh * s.head_dim
+                                         + 2 * nh * s.d_state * s.head_dim)
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    bf16 += 2 * batch * head.numel()
+    return bf16, f32
+
+
+def serve_family(args, gpu, card, arch, n_periods, batch, prompt, gen,
+                 hold) -> None:
+    """Phase 13b, one arch at full width through ``launch.serve.run``
+    (bf16 weights drawn on the card from ``--seed``): ``batch`` requests
+    of ``prompt`` tokens, ``gen`` generated. Prints the prefill ms and its
+    bound, the decode ms a step and its bound, tokens/s, peak memory, the
+    decode loop's idle share, the top kernels of a prefill and of 4 decode
+    steps, and deepseek's dropped_frac at prefill; checks every logit is
+    finite and, with ``hold``, the first decode step within ``LM_TOL`` of
+    a prefill of prompt + token."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import model as TM
+
+    cfg = get_config(arch)
+    cut = ""
+    if n_periods is not None and n_periods != cfg.n_periods:
+        cut = (f"depth cut to n_periods={n_periods}: {n_periods + len(cfg.prefix_layers)} "
+               f"of {cfg.n_layers} layers; ")
+        cfg = dataclasses.replace(cfg, n_periods=n_periods)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    routes, restore = moe_recorder()
+    try:
+        r = LS.run(cfg, batch, prompt, gen, device=gpu, seed=args.seed)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(r.logits_finite, f"phase 13 {arch}: a logit is not finite")
+    n_params = sum(p.numel() for p in r.model.parameters())
+    check(len(r.model.blocks) == cfg.n_layers, f"phase 13 {arch}: "
+          f"{len(r.model.blocks)} layers")
+    drops = [d for idx, d in routes if idx.shape[0] == batch * prompt]
+    check(len(drops) == sum(f == "moe" for _, f in cfg.layer_specs),
+          f"phase 13 {arch}: {len(drops)} MoE layers ran at prefill")
+
+    tok = r.tokens[:, -1:]
+
+    def steps(n, pos):
+        nonlocal tok
+        for i in range(n):
+            logits, _ = TM.forward_decode(r.model, tok, pos + i, r.caches)
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+
+    print(f"[serve] {arch}: {LM_PROFILE_STEPS} decode steps, device time "
+          f"by kernel:", flush=True)
+    busy, prof_ms = profile_rows(lambda: steps(LM_PROFILE_STEPS, r.pos))
+    t0 = time.perf_counter()
+    steps(LM_PROFILE_STEPS, r.pos + LM_PROFILE_STEPS)
+    warm_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILE_STEPS
+    step_busy = busy / LM_PROFILE_STEPS
+    dec_ms = r.decode_s * 1e3 / r.decode_steps
+    idle = f"{1 - busy / prof_ms:.3f}" if busy else "not measured"
+
+    cache_t = [t for c in r.caches if c is not None for t in c
+               if isinstance(t, torch.Tensor)]
+    caches_bytes = nbytes(*cache_t)
+    enc_bytes = nbytes(r.caches.enc_out) if r.caches.enc_out is not None \
+        else 0
+    r.caches = None
+    # decode against prefill: the first decode step's logits against the
+    # last logits of a prefill of prompt + that token
+    caches = TM.init_caches(cfg, batch, r.max_len, device=gpu)
+    inputs = dict(r.batch, tokens=torch.cat([r.batch["tokens"],
+                                             r.tokens[:, :1]], 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = TM.forward_prefill(r.model, inputs, caches)
+    torch.cuda.synchronize()
+    prefill2_ms = (time.perf_counter() - t0) * 1e3
+    ref = logits[:, -1].float()
+    err = float((r.first_decode_logits - ref).abs().max())
+    close = bool(lm_close(r.first_decode_logits, ref).all())
+    n_off = int((~lm_close(r.first_decode_logits, ref)).sum())
+    check(bool(torch.isfinite(ref).all()), f"phase 13 {arch}: the prefill "
+          f"of prompt + token gave a logit that is not finite")
+    check(close or not hold, f"phase 13 {arch}: the first decode step's "
+          f"logits differ from the prefill of prompt + token by {err}")
+    held = "held" if hold else "reported, not held"
+    print(f"[serve] {arch}: a prefill of {batch} x {prompt + 1} tokens, "
+          f"device time by kernel:", flush=True)
+    pf_busy, pf_prof_ms = profile_rows(
+        lambda: TM.forward_prefill(r.model, inputs, caches))
+    del caches, logits, inputs
+
+    # bounds from the shapes: a decode step reads every decoder parameter
+    # (every expert's, as the capacity buffers of all of them are
+    # computed; not the embedding, gathered, nor the encoder's) and the
+    # whole cache, and whisper's encoding once; a prefill reads every
+    # parameter once and does family_flops' work
+    dec_params = sum(p.numel() for p in r.model.blocks.parameters()) \
+        + sum(p.numel() for p in r.model.final_norm.parameters()) \
+        + (0 if cfg.tie_embeddings else r.model.lm_head.numel())
+    step_bytes = 2 * dec_params + caches_bytes + enc_bytes
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    bf16_flop, f32_flop = family_flops(r.model, cfg, batch, prompt,
+                                       r.max_len)
+    pf_ops = (bf16_flop / BF16_FLOP_PER_S + f32_flop / F32_FLOP_PER_S) * 1e3
+    pf_bytes = (2 * n_params + caches_bytes) / HBM_BYTES_PER_S * 1e3
+    pf_bound, pf_by = (pf_ops, "operations") if pf_ops >= pf_bytes \
+        else (pf_bytes, "bytes")
+    tps = batch * r.decode_steps / r.decode_s
+    drop = (f"; dropped_frac at prefill by MoE layer "
+            f"{[round(d, 4) for d in drops]}" if drops else "")
+    print(f"[serve] {arch} full width ({cut}{len(r.model.blocks)} decoder "
+          f"layers{f' + {cfg.n_enc_layers} encoder layers over {cfg.enc_seq} frames' if cfg.is_encdec else ''}, "
+          f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B parameters, "
+          f"bf16), batch {batch}, max_len {r.max_len}: prefill of {batch} x "
+          f"{prompt} tokens {r.prefill_s * 1e3:.1f} ms (the run's; again "
+          f"with one more token {prefill2_ms:.1f} ms; device busy "
+          f"{pf_busy:.1f} of {pf_prof_ms:.1f} ms profiled), bound "
+          f"{pf_bound:.2f} ms by {pf_by} ({bf16_flop / 1e12:.2f} TFLOP bf16 "
+          f"over 989 TFLOP/s + {f32_flop / 1e12:.2f} TFLOP f32 over 67 "
+          f"TFLOP/s = {pf_ops:.2f} ms; {(2 * n_params + caches_bytes) / 1e9:.2f} "
+          f"GB over 3.35 TB/s = {pf_bytes:.2f} ms){drop}; {card}",
+          flush=True)
+    print(f"[serve] {arch} decode: {r.decode_steps} greedy steps "
+          f"{dec_ms:.2f} ms a step ({tps:.1f} tokens/s; warm steps after "
+          f"the run {warm_ms:.2f} ms), bound {step_bound:.3f} ms a step "
+          f"({step_bytes / 1e9:.3f} GB: decoder weights, the "
+          f"{caches_bytes / 1e9:.3f} GB cache"
+          f"{f' and the {enc_bytes / 1e9:.3f} GB encoding' if enc_bytes else ''}"
+          f", over 3.35 TB/s); decode loop idle share {idle} (device busy "
+          f"{step_busy:.2f} ms a step over {LM_PROFILE_STEPS} profiled "
+          f"steps of {prof_ms / LM_PROFILE_STEPS:.2f} ms wall, the "
+          f"profiler's host cost included); peak memory {peak / 1e9:.2f} GB "
+          f"(weights and cache {(2 * n_params + caches_bytes) / 1e9:.2f} "
+          f"GB); decode against prefill of prompt + token: largest "
+          f"difference {err:.3g}, {n_off} logits outside rtol "
+          f"{LM_TOL['rtol']} atol {LM_TOL['atol']} ({held}); every logit "
+          f"finite; sample tokens {r.tokens[0, :8].tolist()}; {card}",
+          flush=True)
+    del r
+    torch.cuda.empty_cache()
+
+
+def serve_families(args, gpu, card) -> None:
+    """Phase 13: 13a the five archs' smoke parity, card against CPU;
+    13b deepseek-v2 (7 of 60 layers), mamba2 and whisper at full width."""
+    lm_smoke_parity(args, gpu, FAMILY_ARCHS, 13,
+                    {"jamba-v0.1-52b": JAMBA_F32_TOL})
+    for run in FAMILY_RUNS:
+        serve_family(args, gpu, card, *run)
 
 
 def main() -> None:
@@ -1930,6 +2223,9 @@ def main() -> None:
     # -- 12. LM/VLM serving -------------------------------------------------------
     serve_lm(args, gpu, card, counters, kernels)
     api.clear_decode_programs()
+
+    # -- 13. MoE, MLA, SSD and encoder-decoder serving ----------------------------
+    serve_families(args, gpu, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ with the LM shape set (train_4k / prefill_32k / decode_32k / long_500k).
 ``long_500k`` runs only for sub-quadratic archs (ssm/hybrid).
 
 The port of the JAX package's ``configs/``. Its ``input_specs`` (stand-ins
-for the XLA dry run) has no counterpart here. ``repro_torch.models`` runs
-the dense decoder-only and VLM families; the others wait for ROADMAP A11b.
+for the XLA dry run) has no counterpart here. ``repro_torch.models``
+serves all ten archs.
 """
 from __future__ import annotations
 

@@ -5,15 +5,12 @@
 
 The port of the JAX package's ``launch/serve.py``, with its flags and
 ``--device`` (default ``cuda``: raises without a card). ``main`` serves
-the arch's smoke config; :func:`run` serves any config. The dense
-decoder-only and VLM families are served; the others fail with the
-ROADMAP item they wait for (A11b).
+the arch's smoke config; :func:`run` serves any config of the ten archs.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import sys
 import time
 from typing import Dict, List, Optional
 
@@ -32,7 +29,8 @@ class ServeRun:
     that ends in a device synchronise)."""
 
     model: Model
-    batch: Dict[str, torch.Tensor]  # tokens (B, prompt_len); VLM: patches
+    batch: Dict[str, torch.Tensor]  # tokens (B, prompt_len); VLM: patches;
+                                    # encoder-decoder: frames
     caches: List                    # filled up to position `pos`
     tokens: torch.Tensor            # (B, gen) int32: greedy, prefill's first
     first_decode_logits: torch.Tensor  # (B, vocab) f32 of the first step
@@ -56,10 +54,11 @@ def run(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
         device="cuda", patches: Optional[torch.Tensor] = None,
         seed: int = 0) -> ServeRun:
     """Serve ``batch`` requests of ``prompt_len`` tokens (and, for the VLM,
-    ``patches`` (batch, n_patches, 1024), drawn from ``seed`` when None):
-    one prefill, then ``gen - 1`` greedy decode steps, ``gen`` tokens a
-    request. Weights come from a ``torch.Generator`` seeded ``seed`` on
-    ``device``, prompts from ``numpy`` with the seed."""
+    ``patches`` (batch, n_patches, 1024), drawn from ``seed`` when None;
+    for the encoder-decoder, frames (batch, enc_seq, 128) drawn from
+    ``seed``): one prefill, then ``gen - 1`` greedy decode steps, ``gen``
+    tokens a request. Weights come from a ``torch.Generator`` seeded
+    ``seed`` on ``device``, prompts from ``numpy`` with the seed."""
     check_served(cfg)
     dev = resolve_device(device)
     n_vis = cfg.n_patches if cfg.frontend == "vision" else 0
@@ -84,6 +83,10 @@ def run(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
         inputs["patches"] = patches.to(dev)
     elif patches is not None:
         raise ValueError(f"{cfg.name} has no vision frontend")
+    if cfg.is_encdec:
+        inputs["frames"] = torch.from_numpy(
+            rng.normal(0, 1, (batch, cfg.enc_seq, 128))).to(
+            device=dev, dtype=torch.bfloat16)
 
     caches = init_caches(cfg, batch, max_len, dev)
     prefill = make_prefill_step(cfg)
@@ -151,11 +154,6 @@ def main():
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch)
-    try:
-        check_served(cfg)
-    except NotImplementedError as e:
-        sys.exit(f"--arch {args.arch}: {e}")
-
     from .multihost import init_distributed, shutdown_distributed
     ctx = init_distributed(args.coordinator, args.processes, args.process_id)
     try:

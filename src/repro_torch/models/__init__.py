@@ -1,2 +1,2 @@
-"""The LM/VLM substrate: configs, layers and the model, for serving the
-dense decoder-only and VLM families on one card (ROADMAP A11a)."""
+"""The LM/VLM substrate: configs, layers and the model, for serving every
+family of the JAX package on one card (ROADMAP A11a, A11b)."""

@@ -1,14 +1,15 @@
-"""Attention mixers: GQA/MHA (chunked flash-style) with a KV cache.
+"""Attention mixers: GQA/MHA (chunked flash-style) and DeepSeek MLA.
 
-The port of the GQA half of the JAX package's ``models/attention.py``:
-the same functions and numerics (scores, softmax and the value product in
-f32; an optional int8 cache with a scale per position and head). The
-``lax.scan``/``lax.map`` over chunks are Python loops. MLA waits for
-ROADMAP A11b.
+The port of the JAX package's ``models/attention.py``: the same functions
+and numerics (scores, softmax and the value product in f32; an optional
+int8 GQA cache with a scale per position and head; MLA's latent cache of
+``(c_kv, k_rope)`` a position, attended in the absorbed form). The
+``lax.scan``/``lax.map`` over chunks are Python loops.
 
-A KV cache here is updated in place: :func:`cache_update` writes the new
-positions into the preallocated tensors and returns a cache that shares
-them, where the JAX function returns new arrays.
+A cache here is updated in place: :func:`cache_update` and
+:func:`mla_forward` write the new positions into the preallocated tensors
+and return a cache that shares them, where the JAX functions return new
+arrays.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import (ParamBuilder, apply_rope, resolve_model_device,
-                     weak_scalar)
+                     rmsnorm, weak_scalar)
 
 NEG_INF = -1e30
 
@@ -210,15 +211,23 @@ class GQA(nn.Module):
 def gqa_forward(
     p: GQA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
     causal: bool = True, cache: Optional[KVCache] = None,
-    cache_pos: Optional[int] = None,
+    cache_pos: Optional[int] = None, kv_x: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x (B,S,d). With a cache: writes k/v at ``cache_pos`` and attends
-    over the whole cache under the causal (and window) mask."""
+    over the whole cache under the causal (and window) mask. ``kv_x``
+    (encoder states) switches to cross-attention (no cache, no causal
+    mask); without ``use_rope`` no position is rotated."""
+    kv_src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p.wv)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kv_pos = positions if kv_x is None else torch.arange(
+            kv_src.shape[1], device=x.device)[None].expand(
+            kv_src.shape[0], -1)
+        k = apply_rope(k, kv_pos, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -233,7 +242,8 @@ def gqa_forward(
         o = _cached_attention(q, k, v, mask, cfg.attn_logit_softcap)
     else:
         o = chunked_attention(
-            q, k, v, causal=causal, sliding_window=cfg.sliding_window,
+            q, k, v, causal=causal and kv_x is None,
+            sliding_window=cfg.sliding_window,
             softcap=cfg.attn_logit_softcap, q_chunk=cfg.attn_chunk // 2,
             kv_chunk=cfg.attn_chunk,
         )
@@ -246,3 +256,106 @@ def _cached_attention(q, k, v, mask, softcap):
     ob, mb, lb = _attend_block(q * weak_scalar(scale, q.dtype), k, v, mask,
                                softcap)
     return (ob / torch.clamp_min(lb[..., None], 1e-30)).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # (B, Smax, kv_lora)
+    k_rope: torch.Tensor     # (B, Smax, rope_dim)
+    length: int
+
+
+def init_mla_cache(batch, max_len, cfg: ModelConfig, dtype="bfloat16",
+                   device="cuda") -> MLACache:
+    if dtype == "int8":
+        raise NotImplementedError("int8 MLA cache: use kv_seq sharding "
+                                  "instead")
+    device = resolve_model_device(device)
+    m = cfg.mla
+    return MLACache(
+        torch.zeros((batch, max_len, m.kv_lora), dtype=torch.bfloat16,
+                    device=device),
+        torch.zeros((batch, max_len, m.rope_dim), dtype=torch.bfloat16,
+                    device=device),
+        0,
+    )
+
+
+class MLA(nn.Module):
+    """The projections of one MLA layer: the query's down (``w_dq``) and
+    up (``w_uq``) projections around ``q_norm``; the latent ``w_dkv`` with
+    ``kv_norm``, the shared rotary key ``w_kr``; the latent's key and value
+    up-projections ``w_uk``/``w_uv``; ``wo``."""
+
+    def __init__(self, b: ParamBuilder, cfg: ModelConfig):
+        super().__init__()
+        d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
+        self.w_dq = b.add((d, m.q_lora))
+        self.q_norm = b.add((m.q_lora,), init="zeros")
+        self.w_uq = b.add((m.q_lora, h, m.nope_dim + m.rope_dim))
+        self.w_dkv = b.add((d, m.kv_lora))
+        self.kv_norm = b.add((m.kv_lora,), init="zeros")
+        self.w_kr = b.add((d, m.rope_dim))
+        self.w_uk = b.add((m.kv_lora, h, m.nope_dim))
+        self.w_uv = b.add((m.kv_lora, h, m.v_dim))
+        self.wo = b.add((h, m.v_dim, d))
+
+
+def mla_forward(
+    p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
+    cache: Optional[MLACache] = None, cache_pos: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[MLACache]]:
+    """x (B,S,d). With a cache (prefill and decode): writes the latent and
+    rotary key at ``cache_pos`` and attends in the absorbed form over the
+    whole cache, an f32 (B, S, H, Smax) score block. Without one: the
+    keys and values expanded per head, through :func:`chunked_attention`.
+    """
+    m = cfg.mla
+    bsz, s, _ = x.shape
+    h = cfg.n_heads
+    cq = rmsnorm(torch.einsum("bsd,dq->bsq", x, p.w_dq), p.q_norm)
+    q = torch.einsum("bsq,qhk->bshk", cq, p.w_uq)
+    q_nope, q_rope = q[..., : m.nope_dim], q[..., m.nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = rmsnorm(torch.einsum("bsd,dc->bsc", x, p.w_dkv), p.kv_norm)
+    k_rope = torch.einsum("bsd,dr->bsr", x, p.w_kr)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+
+    scale = (m.nope_dim + m.rope_dim) ** -0.5
+
+    if cache is not None:
+        at = slice(cache_pos, cache_pos + s)
+        cache.c_kv[:, at] = ckv.to(cache.c_kv.dtype)
+        cache.k_rope[:, at] = k_rope.to(cache.k_rope.dtype)
+        new_cache = cache._replace(length=cache.length + s)
+        ckv_all = cache.c_kv.float()
+        # absorbed scores: q_lat = W_uk^T q_nope  (B,S,H,kv_lora)
+        q_lat = torch.einsum("bshk,chk->bshc", q_nope, p.w_uk)
+        logits = torch.einsum("bshc,btc->bsht", q_lat.float(), ckv_all)
+        logits += torch.einsum("bshr,btr->bsht", q_rope.float(),
+                               cache.k_rope.float())
+        logits *= scale
+        kpos = torch.arange(ckv_all.shape[1], device=x.device)
+        mask = kpos[None, None, None, :] <= positions[:, :, None, None]
+        w = torch.softmax(logits.masked_fill_(~mask, NEG_INF), dim=-1)
+        del logits
+        o_lat = torch.einsum("bsht,btc->bshc", w, ckv_all)
+        o = torch.einsum("bshc,chk->bshk", o_lat.to(x.dtype), p.w_uv)
+    else:
+        k_nope = torch.einsum("bsc,chk->bshk", ckv, p.w_uk)
+        v = torch.einsum("bsc,chk->bshk", ckv, p.w_uv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            bsz, s, h, m.rope_dim)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        o = chunked_attention(
+            qq, k, v, causal=True, q_chunk=cfg.attn_chunk // 2,
+            kv_chunk=cfg.attn_chunk, scale=scale,
+        )
+        new_cache = None
+    out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
+    return out, new_cache

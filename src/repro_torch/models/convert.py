@@ -2,7 +2,10 @@
 
 The JAX package's ``init_params(...).params`` is a dict whose ``pattern``
 entry holds the periodic layers' parameters stacked over periods. Here it
-travels flat, as ``dict[str, np.ndarray]``: each top-level name as it is,
+travels flat, as ``dict[str, np.ndarray]``: each top-level name as it is
+(the encoder's ``enc.{i}.*``, ``enc_norm``, the frontends' ``aud_proj``,
+``enc_pos``, ``vis_proj*`` and ``dec_pos``, the MTP head's ``mtp.*``: the
+port's model has the same names), ``prefix.{i}.*`` as ``blocks.{i}.*``,
 and each pattern leaf as ``pattern.<name>`` with its leading period axis,
 every value an f32 array (``np.asarray(x.astype(jnp.float32))``: bf16 ->
 f32 -> bf16 is lossless).

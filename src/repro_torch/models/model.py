@@ -1,17 +1,15 @@
-"""Model assembly for serving: decoder-only LMs and the VLM (llava).
+"""Model assembly for serving: decoder-only LMs, hybrid SSM/attention
+stacks, MoE, encoder-decoder (whisper) and the VLM (llava).
 
-The port of the JAX package's ``models/model.py`` for the dense families:
-every layer GQA attention (``attn``) with a dense or no FFN, the vision
-frontend stub and LayerNorm's learned positions. The layer layout (an
+The port of the JAX package's ``models/model.py``. The layer layout (an
 unrolled prefix, then a periodic pattern) becomes one ``ModuleList`` of
 blocks, the prefix first and then each period's slots in turn, run by a
-Python loop. The model runs on one card: the JAX package's sharding
-annotations have no counterpart.
+Python loop; the encoder is a ``ModuleList`` of its own. The model runs
+on one card: the JAX package's sharding annotations have no counterpart.
+The multi-token prediction head's parameters are built, so weights carry
+across whole; it serves nothing.
 
-Not yet ported: the ``mla``, ``ssm`` and ``attn_bidir`` mixers, MoE,
-cross-attention and the encoder (ROADMAP A11b), and training
-(``forward_train``, ROADMAP A11c). Building a model that needs them
-raises ``NotImplementedError``.
+Not yet ported: training (``forward_train``, ROADMAP A11c).
 """
 from __future__ import annotations
 
@@ -21,13 +19,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import GQA, KVCache, gqa_forward, init_kv_cache
+from .attention import (GQA, MLA, gqa_forward, init_kv_cache,
+                        init_mla_cache, mla_forward)
 from .config import ModelConfig
-from .ffn import DenseFFN, dense_ffn
+from .ffn import DenseFFN, MoEFFN, dense_ffn, moe_ffn
 from .layers import Norm, ParamBuilder, gelu, matmul, resolve_model_device
+from .ssm import SSD, SSMCache, ssd_decode_step, ssd_forward
 
-A11B = "waits for ROADMAP A11b (MoE, MLA, SSD and encoder-decoder serving)"
 A11C = "waits for ROADMAP A11c (training)"
+MIXERS = ("attn", "attn_bidir", "mla", "ssm")
+FFNS = ("dense", "moe", "none")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -35,20 +36,13 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item a config
-    waits for, unless the port can build and serve it."""
-    if cfg.is_encdec or cfg.frontend == "audio":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder model "
-                                  f"{A11B}")
+    """Raise ``ValueError`` for a layer the port cannot build: a mixer or
+    FFN name outside ``MIXERS``/``FFNS``."""
     for mixer, ffn in cfg.layer_specs:
-        if mixer != "attn":
-            raise NotImplementedError(f"{cfg.name}: the {mixer!r} mixer "
-                                      f"{A11B}")
-        if ffn not in ("dense", "none"):
-            raise NotImplementedError(f"{cfg.name}: the {ffn!r} FFN {A11B}")
-    if cfg.mtp:
-        raise NotImplementedError(f"{cfg.name}: the multi-token prediction "
-                                  f"head {A11C}")
+        if mixer not in MIXERS or ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: no {mixer!r} mixer or {ffn!r} "
+                             f"FFN in the port (mixers {MIXERS}, FFNs "
+                             f"{FFNS})")
 
 
 # ---------------------------------------------------------------------------
@@ -56,32 +50,82 @@ def check_served(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One ``("attn", "dense"|"none")`` layer: ``norm1`` and the attention,
-    then ``norm2`` and the FFN, each with a residual (``make_block`` and
-    ``block_forward`` of the JAX package)."""
+    """One ``(mixer, ffn)`` layer (``make_block`` and ``block_forward`` of
+    the JAX package): ``norm1`` and the mixer (``attn``: GQA or MLA;
+    ``ssm``: SSD), then with ``cross`` ``norm_x`` and the cross-attention
+    ``xattn``, then ``norm2`` and the FFN (dense or MoE), each with a
+    residual."""
 
-    def __init__(self, b: ParamBuilder, cfg: ModelConfig, spec):
+    def __init__(self, b: ParamBuilder, cfg: ModelConfig, spec,
+                 cross: bool = False):
         super().__init__()
-        ffn = spec[1]
         self.cfg = cfg
+        self.mixer, self.ffn_kind = spec
         self.norm1 = Norm(b, cfg.d_model, cfg.norm)
-        self.attn = GQA(b, cfg)
+        self.attn = self.ssm = None
+        if self.mixer in ("attn", "attn_bidir"):
+            self.attn = GQA(b, cfg)
+        elif self.mixer == "mla":
+            self.attn = MLA(b, cfg)
+        elif self.mixer == "ssm":
+            self.ssm = SSD(b, cfg)
+        self.norm_x = self.xattn = None
+        if cross:
+            self.norm_x = Norm(b, cfg.d_model, cfg.norm)
+            self.xattn = GQA(b, cfg)
         self.norm2 = self.ffn = None
-        if ffn != "none":
+        if self.ffn_kind != "none":
             self.norm2 = Norm(b, cfg.d_model, cfg.norm)
-            self.ffn = DenseFFN(b, cfg)
+            self.ffn = MoEFFN(b, cfg) if self.ffn_kind == "moe" \
+                else DenseFFN(b, cfg)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                cache: Optional[KVCache] = None,
-                cache_pos: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-        h, new_cache = gqa_forward(self.attn, self.cfg, self.norm1(x),
-                                   positions, causal=True, cache=cache,
-                                   cache_pos=cache_pos)
+                cache=None, cache_pos: Optional[int] = None,
+                enc_out: Optional[torch.Tensor] = None, decode: bool = False
+                ) -> Tuple[torch.Tensor, object, Dict]:
+        """(x, the block's cache, the MoE FFN's aux stats or {})."""
+        cfg, aux = self.cfg, {}
+        h = self.norm1(x)
+        new_cache = cache
+        if self.mixer == "attn":
+            h, new_cache = gqa_forward(self.attn, cfg, h, positions,
+                                       causal=True, cache=cache,
+                                       cache_pos=cache_pos)
+        elif self.mixer == "attn_bidir":
+            h, _ = gqa_forward(self.attn, cfg, h, positions, causal=False)
+        elif self.mixer == "mla":
+            h, new_cache = mla_forward(self.attn, cfg, h, positions,
+                                       cache=cache, cache_pos=cache_pos)
+        elif decode:
+            h, new_cache = ssd_decode_step(self.ssm, cfg, h, cache)
+        else:
+            h, new_cache = ssd_forward(self.ssm, cfg, h, cache=cache)
         x = x + h
+        if enc_out is not None and self.xattn is not None:
+            h, _ = gqa_forward(self.xattn, cfg, self.norm_x(x), positions,
+                               kv_x=enc_out, use_rope=False)
+            x = x + h
         if self.ffn is not None:
-            x = x + dense_ffn(self.ffn, self.cfg, self.norm2(x))
-        return x, new_cache
+            h = self.norm2(x)
+            if self.ffn_kind == "moe":
+                h, aux = moe_ffn(self.ffn, cfg, h)
+            else:
+                h = dense_ffn(self.ffn, cfg, h)
+            x = x + h
+        return x, new_cache, aux
+
+
+class MTPHead(nn.Module):
+    """DeepSeek-V3's multi-token prediction head (``mtp.*``): ``norm_h``,
+    ``norm_e``, ``proj`` (2d, d) and one ``("attn", "dense")`` block. Its
+    loss is training's (ROADMAP A11c)."""
+
+    def __init__(self, b: ParamBuilder, cfg: ModelConfig):
+        super().__init__()
+        self.norm_h = Norm(b, cfg.d_model, cfg.norm)
+        self.norm_e = Norm(b, cfg.d_model, cfg.norm)
+        self.proj = b.add((2 * cfg.d_model, cfg.d_model))
+        self.block = Block(b, cfg, ("attn", "dense"))
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +137,8 @@ class Model(nn.Module):
     :func:`forward_decode` run it. Parameter names follow the JAX
     package's, with ``blocks.{i}.`` for its ``prefix.{i}.`` and for period
     ``p``, slot ``s`` of its stacked ``pattern`` (block ``len(prefix) +
-    p * len(pattern) + s``)."""
+    p * len(pattern) + s``); the encoder's ``enc.{i}.`` and the others
+    as they are."""
 
     def __init__(self, b: ParamBuilder, cfg: ModelConfig,
                  max_positions: int = 0):
@@ -109,11 +154,22 @@ class Model(nn.Module):
         if cfg.frontend == "vision":
             self.vis_proj1 = b.add((1024, d))
             self.vis_proj2 = b.add((d, d))
+        # audio frontend stub: a projection from precomputed frames
+        self.aud_proj = self.enc_pos = None
+        if cfg.frontend == "audio":
+            self.aud_proj = b.add((128, d))
+            if cfg.enc_seq:
+                self.enc_pos = b.add((cfg.enc_seq, d), scale=0.02)
         self.dec_pos = None
         if cfg.norm == "layernorm" and max_positions:
             self.dec_pos = b.add((max_positions, d), scale=0.02)
-        self.blocks = nn.ModuleList(Block(b, cfg, spec)
+        # encoder stack (whisper)
+        self.enc = nn.ModuleList(Block(b, cfg, ("attn_bidir", "dense"))
+                                 for _ in range(cfg.n_enc_layers))
+        self.enc_norm = Norm(b, d, cfg.norm) if cfg.n_enc_layers else None
+        self.blocks = nn.ModuleList(Block(b, cfg, spec, cross=cfg.is_encdec)
                                     for spec in cfg.layer_specs)
+        self.mtp = MTPHead(b, cfg) if cfg.mtp else None
 
 
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -147,16 +203,30 @@ def _embed_inputs(model: Model, batch: Dict) -> torch.Tensor:
     return x
 
 
+def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings (B, T, 128)."""
+    x = matmul(frames, model.aud_proj)
+    if model.enc_pos is not None:
+        x = x + model.enc_pos[None, : x.shape[1]]
+    pos = torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[0], -1)
+    for block in model.enc:
+        x, _, _ = block(x, pos)
+    return model.enc_norm(x)
+
+
 def _run_stack(model: Model, x: torch.Tensor, positions: torch.Tensor, *,
-               caches: Optional[List] = None, cache_pos: Optional[int] = None
+               caches: Optional[List] = None, cache_pos: Optional[int] = None,
+               enc_out: Optional[torch.Tensor] = None, decode: bool = False
                ) -> Tuple[torch.Tensor, Optional[List]]:
     """Every block in turn; with ``caches`` (one a block), each block's
-    cache is updated at ``cache_pos``."""
+    cache is updated at ``cache_pos``. The blocks' aux stats are dropped,
+    as the JAX package's ``_run_stack`` drops them."""
     new_caches = []
     for i, block in enumerate(model.blocks):
-        x, nc = block(x, positions,
-                      cache=caches[i] if caches is not None else None,
-                      cache_pos=cache_pos)
+        x, nc, _ = block(x, positions,
+                         cache=caches[i] if caches is not None else None,
+                         cache_pos=cache_pos, enc_out=enc_out, decode=decode)
         new_caches.append(nc)
     return x, (new_caches if caches is not None else None)
 
@@ -182,37 +252,75 @@ def _mtp_loss(model: Model, x, batch, positions):
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
+class Caches(list):
+    """One cache a block (a ``KVCache``, ``MLACache`` or ``SSMCache``, or
+    None for a block that keeps none) and, for the encoder-decoder,
+    ``enc_out``: the encoder's output, which the prefill sets and each
+    decode step reads."""
+
+    enc_out: Optional[torch.Tensor] = None
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device="cuda") -> List[KVCache]:
-    """One KV cache a block, ``max_len`` positions each."""
+                device="cuda") -> Caches:
+    """One cache a block, ``max_len`` positions each: GQA's in
+    ``cfg.kv_cache_dtype``, MLA's latent cache in bf16, and SSD's conv
+    inputs in bf16 and state in f32, as the JAX package keeps them."""
     device = resolve_model_device(device)
     check_served(cfg)
-    return [init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                          cfg.kv_cache_dtype, device)
-            for _ in cfg.layer_specs]
+
+    def one(spec):
+        mixer, _ = spec
+        if mixer == "attn":
+            return init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                 cfg.head_dim, cfg.kv_cache_dtype, device)
+        if mixer == "mla":
+            return init_mla_cache(batch, max_len, cfg, device=device)
+        if mixer == "ssm":
+            s = cfg.ssm
+            di = s.expand * cfg.d_model
+            return SSMCache(
+                torch.zeros((batch, s.d_conv - 1, di + 2 * s.d_state),
+                            dtype=torch.bfloat16, device=device),
+                torch.zeros((batch, di // s.head_dim, s.d_state,
+                             s.head_dim), dtype=torch.float32,
+                            device=device))
+        return None
+
+    return Caches(one(spec) for spec in cfg.layer_specs)
 
 
 def forward_prefill(model: Model, batch: Dict, caches: List
-                    ) -> Tuple[torch.Tensor, List]:
+                    ) -> Tuple[torch.Tensor, Caches]:
     """Run the full prompt, fill caches; returns (last-position logits,
-    caches). ``batch``: ``tokens`` (B, S) and, for the VLM, ``patches``
-    (B, n_patches, 1024), which come first in the sequence."""
+    caches). ``batch``: ``tokens`` (B, S); for the VLM ``patches``
+    (B, n_patches, 1024), which come first in the sequence; for the
+    encoder-decoder ``frames`` (B, enc_seq, 128), whose encoding the
+    caches then carry."""
     x = _embed_inputs(model, batch)
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
-    x, caches = _run_stack(model, x, positions, caches=caches, cache_pos=0)
+    enc_out = _encode(model, batch["frames"]) if model.cfg.is_encdec \
+        else None
+    x, new = _run_stack(model, x, positions, caches=caches, cache_pos=0,
+                        enc_out=enc_out)
+    caches = Caches(new)
+    caches.enc_out = enc_out
     x = model.final_norm(x[:, -1:])
     return _logits(model, x), caches
 
 
 def forward_decode(model: Model, token: torch.Tensor, pos: int,
-                   caches: List) -> Tuple[torch.Tensor, List]:
+                   caches: List) -> Tuple[torch.Tensor, Caches]:
     """One decode step. token (B, 1) int; pos the step's position."""
     x = F.embedding(token, model.embed)
     if model.dec_pos is not None:
         x = x + model.dec_pos[pos: pos + 1][None]
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
-    x, new_caches = _run_stack(model, x, positions, caches=caches,
-                               cache_pos=pos)
-    return _logits(model, model.final_norm(x)), new_caches
+    enc_out = getattr(caches, "enc_out", None)
+    x, new = _run_stack(model, x, positions, caches=caches, cache_pos=pos,
+                        enc_out=enc_out, decode=True)
+    new = Caches(new)
+    new.enc_out = enc_out
+    return _logits(model, model.final_norm(x)), new

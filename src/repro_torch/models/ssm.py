@@ -1,0 +1,207 @@
+"""Mamba-2 SSD (state-space duality) mixer with chunked scan + decode cache.
+
+The port of the JAX package's ``models/ssm.py``. Chunked form (Mamba-2
+paper §6): within a chunk the output is a masked "attention" G = (C B^T)
+⊙ L; across chunks a size-(H, P, N) state is carried by an exponential
+recurrence, here a Python loop over the chunks (the JAX package's
+``lax.scan``).
+
+The JAX functions mix bf16 and f32 operands, which ``jnp`` promotes to
+f32 (``torch.einsum`` refuses mixed dtypes): each such product is written
+here with its operands cast as ``jnp`` casts them, and with the
+roundings the JAX functions make (the state rounded to the input's dtype
+before the inter-chunk product; the conv summed in f32 and rounded once).
+The cache is updated in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ModelConfig
+from .layers import ParamBuilder, rmsnorm, silu
+
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor    # (B, d_conv-1, d_conv_channels) rolling conv input
+    state: torch.Tensor   # (B, H, N, P) SSD state
+
+
+class SSD(nn.Module):
+    """One SSD mixer: ``w_in`` (d, 2*di + 2*N + H) to (z, x, B, C, dt);
+    the causal depthwise conv ``conv_w`` (d_conv, di + 2*N) and
+    ``conv_b``; ``a_log``, ``dt_bias``, ``d_skip`` a head; ``out_norm``
+    and ``w_out`` (di, d)."""
+
+    def __init__(self, b: ParamBuilder, cfg: ModelConfig):
+        super().__init__()
+        d, s = cfg.d_model, cfg.ssm
+        di = s.expand * d
+        nh = di // s.head_dim
+        conv_ch = di + 2 * s.d_state
+        self.w_in = b.add((d, 2 * di + 2 * s.d_state + nh))
+        self.conv_w = b.add((s.d_conv, conv_ch))
+        self.conv_b = b.add((conv_ch,), init="zeros")
+        self.a_log = b.add((nh,), init="zeros")
+        self.dt_bias = b.add((nh,), init="zeros")
+        self.d_skip = b.add((nh,), init="zeros")
+        self.out_norm = b.add((di,), init="zeros")
+        self.w_out = b.add((di, d))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _split_in(cfg: ModelConfig, proj: torch.Tensor):
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    nh = di // s.head_dim
+    z, xbc, dt = torch.split(proj, [di, di + 2 * s.d_state, nh], dim=-1)
+    return z, xbc, dt, di, nh
+
+
+def _conv(window: torch.Tensor, p: SSD, k: int) -> torch.Tensor:
+    """The depthwise conv over ``k`` positions of ``window`` (..., k+i, C)
+    for every output i: products and sum in f32, one term a tap in order,
+    then the bias, then silu in f32."""
+    w = p.conv_w.float()
+    n = window.shape[-2] - k + 1
+    conv = window[..., 0:n, :].float() * w[0]
+    for i in range(1, k):
+        conv = conv + window[..., i: i + n, :].float() * w[i]
+    return silu(conv + p.conv_b.float())
+
+
+def _ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
+    """Chunked SSD.
+
+    xh (B,S,H,P)  dt (B,S,H)  a (H,) negative decay
+    bmat/cmat (B,S,N) single group. Returns (B,S,H,P) f32 and the final
+    state (B,H,N,P) f32.
+    """
+    bsz, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, pad))
+    nc = xh.shape[1] // chunk
+    xc = xh.reshape(bsz, nc, chunk, h, p)
+    dtc = dt.reshape(bsz, nc, chunk, h)
+    bc = bmat.reshape(bsz, nc, chunk, n)
+    cc = cmat.reshape(bsz, nc, chunk, n)
+    xf = xc.float()
+
+    da = dtc * a[None, None, None, :]              # (B,nc,Q,H) negative
+    cum = torch.cumsum(da, dim=2)                  # within-chunk cumulative
+
+    # intra-chunk: G[i,j] = C_i . B_j * exp(cum_i - cum_j) * dt_j  (i >= j)
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,nc,Q,Q,H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=xh.device))
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(li), 0.0)
+    del li
+    gb = torch.einsum("bcin,bcjn->bcij", cc, bc)            # (B,nc,Q,Q)
+    w = gb.float()[..., None] * decay * dtc[:, :, None, :, :]
+    del decay
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xf)
+    del w
+
+    # chunk summary states: S_c = sum_j exp(cum_Q - cum_j) dt_j B_j x_j^T
+    decay_out = torch.exp(cum[:, :, -1:, :] - cum)          # (B,nc,Q,H)
+    sc = torch.einsum("bcqn,bcqhp->bchnp", bc.float(),
+                      (decay_out * dtc)[..., None] * xf)    # (B,nc,H,N,P)
+    chunk_decay = torch.exp(cum[:, :, -1, :])               # (B,nc,H)
+
+    hstate = torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                         device=xh.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(hstate)                                  # entering state
+        hstate = hstate * chunk_decay[:, c, :, None, None] + sc[:, c]
+    h_in = torch.stack(h_in, dim=1)                          # (B,nc,H,N,P)
+
+    # inter-chunk contribution: y_i += C_i exp(cum_i) H_in, the entering
+    # state rounded to C's dtype first
+    y_inter = torch.einsum("bcqn,bchnp->bcqhp", cc.float(),
+                           h_in.to(cc.dtype).float())
+    y_inter *= torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, nc * chunk, h, p)[:, :s]
+    return y, hstate
+
+
+def ssd_forward(
+    p: SSD, cfg: ModelConfig, x: torch.Tensor, *,
+    cache: Optional[SSMCache] = None,
+) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+    """Full-sequence (prefill) forward. Returns the output and, with a
+    cache, the cache holding the last conv inputs and the final state."""
+    s_cfg = cfg.ssm
+    bsz, s, _ = x.shape
+    proj = torch.einsum("bsd,de->bse", x, p.w_in)
+    z, xbc, dt, di, nh = _split_in(cfg, proj)
+
+    # causal depthwise conv over (x, B, C) channels, accumulated in f32
+    # and rounded once, as ssd_decode_step's
+    k = s_cfg.d_conv
+    pad_in = F.pad(xbc, (0, 0, k - 1, 0))
+    conv = _conv(pad_in, p, k).to(xbc.dtype)
+
+    xh, bmat, cmat = torch.split(conv, [di, s_cfg.d_state, s_cfg.d_state],
+                                 dim=-1)
+    xh = xh.reshape(bsz, s, nh, s_cfg.head_dim)
+    a = -torch.exp(p.a_log.float())
+    dt = softplus(dt.float() + p.dt_bias.float())
+
+    y, h_final = _ssd_chunked(xh, dt, a, bmat, cmat, s_cfg.chunk)
+    y = y + xh.float() * p.d_skip.float()[None, None, :, None]
+    y = y.reshape(bsz, s, di)
+    y = rmsnorm(y * silu(z).float(), p.out_norm)
+    out = torch.einsum("bse,ed->bsd", y.to(x.dtype), p.w_out)
+
+    new_cache = None
+    if cache is not None:
+        cache.conv.copy_(pad_in[:, -(k - 1):, :])
+        cache.state.copy_(h_final)
+        new_cache = cache
+    return out, new_cache
+
+
+def ssd_decode_step(
+    p: SSD, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache,
+) -> Tuple[torch.Tensor, SSMCache]:
+    """Single-token recurrent step. x (B, 1, d)."""
+    s_cfg = cfg.ssm
+    bsz = x.shape[0]
+    proj = torch.einsum("bsd,de->bse", x, p.w_in)
+    z, xbc, dt, di, nh = _split_in(cfg, proj)
+    k = s_cfg.d_conv
+    wdt = torch.promote_types(cache.conv.dtype, xbc.dtype)
+    window = torch.cat([cache.conv.to(wdt), xbc.to(wdt)], dim=1)  # (B,k,C)
+    conv = _conv(window, p, k).to(xbc.dtype)
+    xh, bmat, cmat = torch.split(conv, [di, s_cfg.d_state, s_cfg.d_state],
+                                 dim=-1)
+    xh = xh.reshape(bsz, nh, s_cfg.head_dim).float()         # (B,H,P)
+    bmat = bmat[:, 0].float()                                # (B,N)
+    cmat = cmat[:, 0].float()
+    a = -torch.exp(p.a_log.float())
+    dt_ = softplus(dt[:, 0].float() + p.dt_bias.float())
+    dec = torch.exp(dt_ * a[None, :])                        # (B,H)
+    state = cache.state.float()
+    state = state * dec[..., None, None] + (
+        dt_[:, :, None, None] * bmat[:, None, :, None] * xh[:, :, None, :])
+    y = torch.einsum("bn,bhnp->bhp", cmat, state)
+    y = y + xh * p.d_skip.float()[None, :, None]
+    y = y.reshape(bsz, 1, di)
+    y = rmsnorm(y.to(x.dtype) * silu(z), p.out_norm)
+    out = torch.einsum("bse,ed->bsd", y.to(x.dtype), p.w_out)
+    cache.conv.copy_(window[:, 1:, :])
+    cache.state.copy_(state)
+    return out, cache

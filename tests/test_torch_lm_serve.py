@@ -32,7 +32,7 @@ from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import step as TS
 
-from test_torch_models import BF16_TOL, jax_flat
+from _torch_lm import BF16_TOL, jax_flat
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -156,9 +156,16 @@ def test_serve_cli_runs_on_cpu(extra):
         assert "### Decode stream (plan buckets)" in r.stdout
 
 
-def test_serve_cli_names_the_roadmap_item():
-    r = _serve("--device", "cpu", "--arch", "mamba2-780m")
-    assert r.returncode != 0 and "A11b" in r.stderr
+@pytest.mark.parametrize("arch,name", [("mamba2-780m", "mamba2-smoke"),
+                                       ("whisper-base", "whisper-smoke")])
+def test_serve_cli_serves_ssm_and_encdec(arch, name):
+    """The SSD and encoder-decoder families serve from the command line
+    (the encoder-decoder's frames drawn from the seed)."""
+    r = _serve("--device", "cpu", "--arch", arch, "--batch", "2",
+               "--prompt-len", "8", "--gen", "4")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert f"arch={name} batch=2 device=cpu" in r.stdout
+    assert "decode : 3 steps" in r.stdout
 
 
 def test_run_on_cpu():
@@ -204,10 +211,15 @@ def test_entry_points_need_a_card(monkeypatch):
                                    r_smoke("llama3-8b")).params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax(flat, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TA.init_mla_cache(1, 8, get_smoke_config("deepseek-v2-236b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_caches(get_smoke_config("mamba2-780m"), 1, 8)
     # the meta device allocates nothing and needs no card
     assert TA.init_kv_cache(1, 8, 2, 4, device="meta").k.is_meta
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        TSV.run(cfg, 1, 4, 2)
+    for served in (cfg, get_smoke_config("whisper-base")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TSV.run(served, 1, 4, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TR.jpeg_stream_dryrun(1, batch_size=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -34,105 +34,18 @@ from repro_torch import configs as TC
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
-from repro_torch.models.convert import params_from_jax
+
+from _torch_lm import (BF16_TOL, F32_TOL, ROUNDED_CACHE_TOL, configs, f32,
+                       jax_flat, load, serve_both, to_flat)
 
 DENSE_ARCHS = ["llava-next-mistral-7b", "llama3-8b", "command-r-plus-104b",
                "gemma-7b", "nemotron-4-15b"]
-OTHER_ARCHS = [a for a in RC.ARCH_IDS if a not in DENSE_ARCHS]
-F32_TOL = dict(rtol=1e-4, atol=1e-4)
-ROUNDED_CACHE_TOL = dict(rtol=1e-4, atol=2e-2)  # f32, bf16 or int8 cache
-BF16_TOL = dict(rtol=0.08, atol=0.15)
-B, S, MAX_LEN, STEPS = 2, 24, 64, 4
-
-
-def jax_flat(params) -> dict:
-    """``init_params(...).params`` as ``params_from_jax`` takes it."""
-    flat = {}
-    for k, v in params.items():
-        if k == "pattern":
-            flat.update({f"pattern.{kk}": np.asarray(vv.astype(jnp.float32))
-                         for kk, vv in v.items()})
-        else:
-            flat[k] = np.asarray(v.astype(jnp.float32))
-    return flat
-
-
-def load(flat, cfg):
-    """``params_from_jax`` on the CPU."""
-    return params_from_jax(flat, cfg, device="cpu")
-
-
-def configs(arch, **kw):
-    return (dataclasses.replace(RC.get_smoke_config(arch), **kw),
-            dataclasses.replace(TC.get_smoke_config(arch), **kw))
-
-
-def prompts(cfg, seed=0):
-    """(JAX batch, torch batch): S positions, the VLM's patches first."""
-    rng = np.random.default_rng(seed)
-    nv = cfg.n_patches if cfg.frontend == "vision" else 0
-    toks = rng.integers(0, cfg.vocab, (B, S - nv)).astype(np.int32)
-    bj, bt = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
-    if nv:
-        p = rng.normal(0, 1, (B, nv, 1024)).astype(np.float32)
-        bj["patches"] = jnp.asarray(p, jnp.bfloat16)
-        bt["patches"] = torch.from_numpy(p).to(torch.bfloat16)
-    return bj, bt
-
-
-def f32(a) -> np.ndarray:
-    return np.asarray(a.astype(jnp.float32)) if isinstance(a, jax.Array) \
-        else a.float().numpy()
-
-
-def serve_both(arch, tol, **kw):
-    """Prefill, then STEPS greedy decode steps on both packages (each fed
-    the JAX package's token); every step's logits held at ``tol``."""
-    cj, ct = configs(arch, **kw)
-    m = RM.init_params(jax.random.key(1), cj)
-    tm = load(jax_flat(m.params), ct)
-    bj, bt = prompts(cj)
-    lj, caj = RM.forward_prefill(m.params, cj, bj, RM.init_caches(cj, B,
-                                                                  MAX_LEN))
-    lt, cat = TM.forward_prefill(tm, bt, TM.init_caches(ct, B, MAX_LEN,
-                                                        device="cpu"))
-    worst = []
-    for i in range(STEPS + 1):
-        assert lt.shape == lj.shape == (B, 1, cj.vocab)
-        np.testing.assert_allclose(f32(lt), f32(lj), **tol,
-                                   err_msg=f"{arch} step {i}")
-        worst.append(float(np.abs(f32(lt) - f32(lj)).max()))
-        if i == STEPS:
-            break
-        tok = jnp.argmax(lj[:, -1], -1)[:, None].astype(jnp.int32)
-        lj, caj = RM.forward_decode(m.params, cj, tok, S + i, caj)
-        lt, cat = TM.forward_decode(tm, torch.from_numpy(np.array(tok)),
-                                    S + i, cat)
-    print(f"{arch} {kw}: largest |logit difference| by step {worst}")
-
-
-@pytest.fixture
-def f32_caches(monkeypatch):
-    """Both packages' KV caches in f32 (each cache update casts to the
-    cache's dtype, so the keys and values are never rounded)."""
-    rj, rt = RM.init_kv_cache, TM.init_kv_cache
-
-    def jax_cache(*a, **k):
-        c = rj(*a, **k)
-        return c._replace(k=c.k.astype(jnp.float32),
-                          v=c.v.astype(jnp.float32))
-
-    def torch_cache(*a, **k):
-        c = rt(*a, **k)
-        return c._replace(k=c.k.float(), v=c.v.float())
-
-    monkeypatch.setattr(RM, "init_kv_cache", jax_cache)
-    monkeypatch.setattr(TM, "init_kv_cache", torch_cache)
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
-def test_prefill_decode_f32_match_repro(arch, f32_caches):
-    serve_both(arch, F32_TOL, dtype="float32", param_dtype="float32")
+def test_prefill_decode_f32_match_repro(arch):
+    serve_both(arch, F32_TOL, f32_caches=True, dtype="float32",
+               param_dtype="float32")
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
@@ -278,28 +191,6 @@ def test_param_builder_init_rule():
 # weights across packages
 # ---------------------------------------------------------------------------
 
-def to_flat(model) -> dict:
-    """The inverse of ``params_from_jax``: the model's weights as f32
-    arrays under the JAX package's flat names."""
-    cfg = model.cfg
-    n_pre, n_pat = len(cfg.prefix_layers), len(cfg.pattern)
-    flat, stacked = {}, {}
-    for key, t in model.state_dict().items():
-        v = t.float().numpy()
-        if not key.startswith("blocks."):
-            flat[key] = v
-            continue
-        _, i, rest = key.split(".", 2)
-        if int(i) < n_pre:
-            flat[f"prefix.{i}.{rest}"] = v
-        else:
-            p, slot = divmod(int(i) - n_pre, n_pat)
-            stacked.setdefault(f"pattern.slot{slot}.{rest}", {})[p] = v
-    for name, by_period in stacked.items():
-        flat[name] = np.stack([by_period[p] for p in range(cfg.n_periods)])
-    return flat
-
-
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_params_from_jax_round_trip(arch):
     cj, ct = configs(arch)
@@ -360,19 +251,63 @@ def test_configs_match_repro(arch):
     assert TC.SUBQUADRATIC == RC.SUBQUADRATIC
 
 
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_other_families_name_their_roadmap_item(arch):
-    ct = TC.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        TM.abstract_params(ct)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        TM.init_caches(ct, 1, 8, device="meta")
+@pytest.mark.parametrize("arch", RC.ARCH_IDS)
+def test_every_arch_builds_and_serves(arch):
+    """Every arch's smoke config builds from a generator on the CPU and
+    serves: a prefill and 2 greedy decode steps, finite logits, every
+    block's cache of its mixer's kind (None for none), and for the
+    encoder-decoder the encoding on the caches."""
+    cfg = TC.get_smoke_config(arch)
+    TM.check_served(cfg)
+    tm = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                        max_positions=40, device="cpu")
+    assert len(tm.blocks) == cfg.n_layers
+    nv = cfg.n_patches if cfg.frontend == "vision" else 0
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g)}
+    if nv:
+        batch["patches"] = torch.randn(2, nv, 1024, generator=g).to(
+            torch.bfloat16)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(2, cfg.enc_seq, 128, generator=g).to(
+            torch.bfloat16)
+    caches = TM.init_caches(cfg, 2, 16 + nv, device="cpu")
+    kinds = {"attn": TA.KVCache, "mla": TA.MLACache,
+             "ssm": TM.SSMCache}
+    for (mixer, _), c in zip(cfg.layer_specs, caches):
+        assert isinstance(c, kinds[mixer])
+    logits, caches = TM.forward_prefill(tm, batch, caches)
+    assert (caches.enc_out is not None) == cfg.is_encdec
+    for i in range(2):
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        logits, caches = TM.forward_decode(tm, tok, 12 + nv + i, caches)
+        assert logits.shape == (2, 1, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
+
+
+def test_check_served_refuses_an_unknown_layer():
+    cfg = dataclasses.replace(TC.get_smoke_config("llama3-8b"),
+                              pattern=(("attn_cross", "dense"),))
+    with pytest.raises(ValueError, match="attn_cross"):
+        TM.abstract_params(cfg)
 
 
 def test_training_names_its_roadmap_item():
     tm = TM.abstract_params(TC.get_smoke_config("llama3-8b"))
     with pytest.raises(NotImplementedError, match="A11c"):
         TM.forward_train(tm, {})
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-base"])
+def test_training_still_names_its_roadmap_item(arch):
+    """The families this slice serves still train nowhere: forward_train
+    and the losses (deepseek-v3's MTP loss too) name A11c."""
+    tm = TM.abstract_params(TC.get_smoke_config(arch))
+    for fn, args in ((TM.forward_train, (tm, {})),
+                     (TM._lm_loss, (tm, None, None)),
+                     (TM._mtp_loss, (tm, None, None, None))):
+        with pytest.raises(NotImplementedError, match="A11c"):
+            fn(*args)
 
 
 def test_full_width_llava_on_meta():
