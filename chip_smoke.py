@@ -127,11 +127,36 @@ otherwise. Phases, each of which exits non-zero on failure:
    Prints each run's prefill ms, decode ms a step,
    tokens/s, peak memory, decode idle share, top kernels and bounds, and
    deepseek's dropped_frac at prefill. Phase 13 launches no kernel of
-   the port: no Pallas kernel lies on these paths.
+   the port: no Pallas kernel lies on these paths;
+14. training (``repro_torch.train``, ``repro_torch.launch.train``), after
+   phase 13's models are freed: 14a each of the ten archs' smoke config
+   in f32 (TF32 off), built on the CPU from ``--seed`` and copied to the
+   card, the same ``SyntheticTokens`` batch on both: ``forward_train``'s
+   loss within rtol 1e-5 and every gradient within 1e-3 of its leaf's
+   largest value, the MoE routing equal, card against CPU; then one
+   ``make_train_step`` step on each (lr 1e-3): loss, grad norm (within
+   1e-3) and every parameter (within 2 x lr) after it; 14b the launcher
+   as users run it (``launch.train.main`` with ``--arch llama3-8b
+   --preset 100m --steps 12 --batch 8 --seq 256 --microbatches 2
+   --save-every 6``), then its step-12 checkpoint removed and the same
+   command with ``--resume auto``: the restored parameters and optimizer
+   state equal the saved ones bit for bit, steps 6-11 rerun with losses
+   within rtol 1e-3 of the uninterrupted run's; step times and the
+   straggler count; 14c llava-next-mistral-7b at full width (32 layers,
+   7.26 B bf16 parameters drawn on the card from ``--seed``) trained with
+   AdamW (bf16 moments, lr 1e-4, constant schedule, remat ``full``) on
+   batches of 2 requests, each a 1920x384 q95 frame decoded by
+   ``JpegVisionPipeline`` on the card into 2,880 patch tokens (B1, B2,
+   B4 launched every step) and 64 text tokens: steps 1-3 on fresh
+   frames, step 4 on step 3's batch again, whose loss must fall. Prints
+   the memory reckoned from the shapes before the run, each step's split
+   (decode + patchify + embed, forward + backward, optimizer by events),
+   the warm step's wall and busy ms, idle share, positions/s and label
+   tokens/s, grad norms, peak memory, the top kernels and the bound.
 
 ``launches`` in the kernel record counts phase 4's paths, phase 7's
-stream and phase 12's requests, and for the seeds S1-S3 phase 10's
-self-test. The line before the
+stream, phase 12's requests and phase 14c's steps, and for the seeds
+S1-S3 phase 10's self-test. The line before the
 last is the per-kernel JSON record; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -784,7 +809,7 @@ def lm_smoke_parity(args, gpu, archs=SERVED_ARCHS, phase=12,
               f"steps, card against CPU: " + "; ".join(line), flush=True)
 
 
-def profile_rows(fn, top: int = 8):
+def profile_rows(fn, top: int = 8, tag: str = "serve"):
     """(device busy ms, wall ms) of one call of ``fn`` under the profiler,
     printing its ``top`` kernel rows by device time."""
     with torch.profiler.profile(activities=[
@@ -799,7 +824,7 @@ def profile_rows(fn, top: int = 8):
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     for ms, n, key in rows[:top]:
-        print(f"[serve]   {ms:9.3f} ms {n:6d}x  {key[:100]}")
+        print(f"[{tag}]   {ms:9.3f} ms {n:6d}x  {key[:100]}")
     return sum(r[0] for r in rows), wall
 
 
@@ -1198,6 +1223,420 @@ def serve_families(args, gpu, card) -> None:
                     {"jamba-v0.1-52b": JAMBA_F32_TOL})
     for run in FAMILY_RUNS:
         serve_family(args, gpu, card, *run)
+
+
+# -- phase 14: training ---------------------------------------------------------
+
+# 14a: one train step of each smoke config in f32, card against CPU. The
+# loss and every gradient are held as the CPU tests hold them against
+# the JAX package (tests/test_torch_train.py): each gradient leaf within
+# TRAIN_GRAD_TOL x its largest |value|; after the step, every parameter
+# within TRAIN_STEP_ATOL (AdamW's first step moves a weight by about lr x
+# the sign of its gradient, so a gradient within rounding of zero can
+# move it by up to 2 x lr the other way: the count of weights beyond
+# 1e-6 is printed); the grad norm within TRAIN_GRAD_TOL (jamba's differs
+# by 2.1e-4 on an H100: PERF.md section 6)
+TRAIN_LR = 1e-3
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_STEP_ATOL = 2 * TRAIN_LR
+# 14b: the launcher as users run it, then resumed from its step-6
+# checkpoint; the resumed losses within this of the uninterrupted run's
+TRAIN_ARGV = ["--arch", "llama3-8b", "--preset", "100m", "--steps", "12",
+              "--batch", "8", "--seq", "256", "--microbatches", "2",
+              "--save-every", "6"]
+RESUME_RTOL = 1e-3
+# 14c: llava-next-mistral-7b at full width, each request one 1920x384
+# frame (2,880 patches) and 64 text tokens, 2 requests a step; steps 1-3
+# fresh frames, step 4 repeats step 3's batch
+VLM_TRAIN_BATCH, VLM_TRAIN_TEXT, VLM_TRAIN_STEPS = 2, 64, 4
+VLM_TRAIN_LR = 1e-4
+MEMORY_LIMIT_GB = 76.0
+
+
+def train_smoke_parity(args, gpu) -> None:
+    """Phase 14a: each arch's smoke config in f32, built once on the CPU
+    from ``--seed`` and copied to the card; the same ``SyntheticTokens``
+    batch (and the VLM's patches, the encoder-decoder's frames, drawn
+    from ``--seed``) on both. ``forward_train``'s loss and every gradient
+    (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL), each MoE layer's routing equal;
+    then one ``make_train_step`` step on each (``lr`` TRAIN_LR): the loss,
+    the grad norm and every parameter after it (TRAIN_STEP_ATOL)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models import model as TM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    def grads(model, batch):
+        model.requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        loss, _ = TM.forward_train(model, batch)
+        loss.backward()
+        out = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+               .detach().float().cpu() for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  param_dtype="float32")
+        cpu = TM.init_params(torch.Generator().manual_seed(args.seed), cfg,
+                             device="cpu")
+        card = copy.deepcopy(cpu).to(gpu)
+        rng = np.random.default_rng(args.seed)
+        nv = cfg.n_patches if cfg.frontend == "vision" else 0
+        arrays = SyntheticTokens(cfg.vocab, 24 - nv, 2, args.seed).batch_at(0)
+        batch = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        if nv:
+            batch["patches"] = torch.from_numpy(
+                rng.normal(0, 1, (2, nv, 1024))).to(torch.bfloat16)
+        if cfg.is_encdec:
+            batch["frames"] = torch.from_numpy(
+                rng.normal(0, 1, (2, cfg.enc_seq, 128))).to(torch.bfloat16)
+        on_card = {k: v.to(gpu) for k, v in batch.items()}
+        what = f"phase 14 {arch}"
+        routes, restore = moe_recorder()
+        try:
+            lc, g_cpu = grads(cpu, batch)
+            n_cpu = len(routes)
+            lg, g_card = grads(card, on_card)
+        finally:
+            restore()
+        check(len(routes) == 2 * n_cpu and all(
+            torch.equal(a[0], b[0]) and a[1] == b[1]
+            for a, b in zip(routes[:n_cpu], routes[n_cpu:])),
+            f"{what}: the MoE routing differs between card and CPU")
+        check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc), f"{what}: loss "
+              f"{lg} on the card, {lc} on the CPU")
+        worst = 0.0
+        for k, exp in g_cpu.items():
+            gap = float((g_card[k] - exp).abs().max())
+            scale = float(exp.abs().max())
+            check(gap <= TRAIN_GRAD_TOL * scale, f"{what}: the gradient of "
+                  f"{k} differs by {gap} (largest |value| {scale})")
+            worst = max(worst, gap / scale if scale else 0.0)
+        opt = AdamWConfig(lr=TRAIN_LR)
+        step = make_train_step(cfg, opt)
+        out = {}
+        for side, model, b in (("cpu", cpu, batch), ("card", card, on_card)):
+            params = dict(model.named_parameters())
+            _, st, m = step(model, init_opt_state(params, opt), b)
+            out[side] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: p.detach().float().cpu()
+                          for k, p in model.named_parameters()})
+        (l0, n0, p0), (l1, n1, p1) = out["cpu"], out["card"]
+        gap = max(float((p1[k] - p0[k]).abs().max()) for k in p0)
+        off = sum(int(((p1[k] - p0[k]).abs() > 1e-6).sum()) for k in p0)
+        n = sum(v.numel() for v in p0.values())
+        check(abs(l1 - l0) <= TRAIN_LOSS_RTOL * abs(l0)
+              and abs(n1 - n0) <= TRAIN_GRAD_TOL * abs(n0)
+              and gap <= TRAIN_STEP_ATOL,
+              f"{what}: the train step differs: loss {l1} / {l0}, grad norm "
+              f"{n1} / {n0}, parameters by {gap}")
+        routed = f"; routing of {n_cpu} MoE calls equal" if n_cpu else ""
+        print(f"[train] smoke {arch} (f32, TF32 off), card against CPU: loss "
+              f"{lg:.6f} / {lc:.6f}; every gradient within "
+              f"{worst:.2e} of its leaf's largest |value| (held at "
+              f"{TRAIN_GRAD_TOL}){routed}; one train step: grad norm "
+              f"{n1:.6g} / {n0:.6g}, parameters within {gap:.3g} ({off} of "
+              f"{n} beyond 1e-6; held at {TRAIN_STEP_ATOL})", flush=True)
+        del cpu, card
+
+
+def train_launcher(args, gpu) -> None:
+    """Phase 14b: ``repro_torch.launch.train.main`` with TRAIN_ARGV (on
+    the card: its default ``--device``), checkpoints every 6 steps; then
+    its step-12 checkpoint removed, as if the job had died after the save
+    at step 6, and the same command with ``--resume auto``. The tree
+    restored equals, bit for bit, the tree saved at step 6; the resumed
+    run's steps are 6-11 and its losses finite and within RESUME_RTOL of
+    the uninterrupted run's."""
+    import shutil
+    from repro_torch.launch import train as LT
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return type(tree)(*(host(v) for v in tree)) \
+                if hasattr(tree, "_fields") else tuple(map(host, tree))
+        return None if tree is None else tree.detach().cpu().clone()
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(map(same, a, b))
+        if a is None or b is None:
+            return a is b
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+    saved, restored = {}, {}
+    save, restore = LT.save_checkpoint, LT.restore_checkpoint
+
+    def saving(d, step, tree):
+        saved[step] = host(tree)
+        return save(d, step, tree)
+
+    def restoring(d, step, target):
+        out = restore(d, step, target)
+        restored[step] = host(out)  # the run then updates it in place
+        return out
+
+    LT.save_checkpoint, LT.restore_checkpoint = saving, restoring
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            argv = TRAIN_ARGV + ["--ckpt-dir", tmp]
+            first = LT.main(argv)
+            check(sorted(saved) == [6, 12] and LT.latest_step(tmp) == 12,
+                  f"phase 14b: checkpoints saved at {sorted(saved)}")
+            shutil.rmtree(os.path.join(tmp, "step_00000012"))
+            again = LT.main(argv + ["--resume", "auto"])
+        finally:
+            LT.save_checkpoint, LT.restore_checkpoint = save, restore
+    check(list(restored) == [6] and same(restored[6], saved[6]),
+          "phase 14b: the restored tree differs from the one saved at step 6")
+    check(again.start == 6 and sorted(again.losses) == list(range(6, 12)),
+          f"phase 14b: the resumed run ran steps {sorted(again.losses)}")
+    gaps = [abs(again.losses[i] - first.losses[i]) for i in range(6, 12)]
+    check(all(np.isfinite(list(first.losses.values())))
+          and all(np.isfinite(list(again.losses.values())))
+          and all(g <= RESUME_RTOL * abs(first.losses[i])
+                  for g, i in zip(gaps, range(6, 12))),
+          f"phase 14b: resumed losses {again.losses} against {first.losses}")
+    n = sum(p.numel() for p in first.model.parameters())
+    print(f"[train] launcher: python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_ARGV)} --ckpt-dir <tmp> ({n / 1e6:.1f} M "
+          f"parameters, bf16, f32 moments): losses "
+          f"{[round(first.losses[i], 4) for i in sorted(first.losses)]}, "
+          f"step ms {[round(s * 1e3, 1) for s in first.step_s]}, "
+          f"stragglers {first.stragglers}; resumed from step 6 (--resume "
+          f"auto): the restored parameters and optimizer state equal the "
+          f"saved ones bit for bit, steps 6-11 losses "
+          f"{[round(again.losses[i], 4) for i in sorted(again.losses)]} "
+          f"(largest gap to the uninterrupted run {max(gaps):.3g}), step ms "
+          f"{[round(s * 1e3, 1) for s in again.step_s]}, stragglers "
+          f"{again.stragglers}", flush=True)
+    del first, again, saved, restored
+
+
+def train_memory(model, cfg, batch, seq, moment_bytes):
+    """Bytes a train step holds at its peak, reckoned from the shapes:
+    (parameters, gradients, moments, the block inputs remat keeps, one
+    layer's recompute and backward, the f32 logits with the loss and its
+    gradient). Under remat a layer's attention keeps three f32 score
+    blocks a (query chunk, key chunk) pair: the masked scores (``amax``'s
+    input), their ``exp`` and its masked copy (the value product's
+    input)."""
+    n = sum(p.numel() for p in model.parameters())
+    qc, kc = cfg.attn_chunk // 2, cfg.attn_chunk
+    pairs = -(-seq // qc) * -(-seq // kc)
+    block = batch * qc * cfg.n_heads * kc * 4
+    return {"parameters": 2 * n, "gradients": 2 * n,
+            "moments": 2 * moment_bytes * n,
+            "block inputs": cfg.n_layers * batch * seq * cfg.d_model * 2,
+            "one layer's recompute": 3 * block * pairs,
+            "logits": 3 * batch * seq * cfg.vocab * 4}
+
+
+def train_flops(model, cfg, batch, seq):
+    """(bf16, f32) FLOP of one train step, reckoned as ``family_flops``
+    reckons a prefill: each block's products 2 x parameters a position
+    for the forward, again for the remat forward and 4 x for the
+    backward; the head's and the projector's 6 x (no remat); the
+    attention's f32 scores and values over every (query chunk, key
+    chunk) pair, padded, forward, recompute and backward (2 x)."""
+    blk = sum(p.numel() for p in model.blocks.parameters())
+    vis = model.vis_proj1.numel() + model.vis_proj2.numel()
+    head = model.lm_head.numel()
+    t = batch * seq
+    bf16 = 8 * blk * t + 6 * head * t + 6 * vis * batch * cfg.n_patches
+    qc, kc = cfg.attn_chunk // 2, cfg.attn_chunk
+    sq, sk = -(-seq // qc) * qc, -(-seq // kc) * kc
+    f32 = 4 * (2 * 2 * batch * sq * cfg.n_heads * sk * cfg.head_dim) \
+        * cfg.n_layers
+    return bf16, f32
+
+
+def train_vlm(args, gpu, card, counters, kernels) -> None:
+    """Phase 14c: llava-next-mistral-7b at full width trained on patches
+    from ``JpegVisionPipeline`` on the card (B1, B2, B4);
+    ``make_train_step(schedule="constant")``, AdamW with bf16 moments, lr
+    VLM_TRAIN_LR, remat ``full``."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data.jpeg_pipeline import JpegVisionPipeline
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.jpeg.encoder import DatasetSpec, build_dataset
+    from repro_torch.models import model as TM
+    from repro_torch.train import step as TS
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the peak less this is the phase's own
+    held = torch.cuda.memory_allocated()
+    cfg = get_config("llava-next-mistral-7b")
+    check(cfg.remat == "full", f"phase 14c: remat {cfg.remat}")
+    w, h = LM_FRAME
+    bsz = VLM_TRAIN_BATCH
+    seq = cfg.n_patches + VLM_TRAIN_TEXT
+    model = TM.init_params(torch.Generator(device=gpu).manual_seed(args.seed),
+                           cfg, device=gpu)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(len(model.blocks) == cfg.n_layers == 32 and cfg.d_model == 4096,
+          "phase 14c: the model is not the full-width one")
+    mem = train_memory(model, cfg, bsz, seq, moment_bytes=2)
+    predicted = sum(mem.values()) / 1e9
+    print(f"[train] llava-next-mistral-7b full width, batch {bsz} x {seq} "
+          f"positions: memory reckoned from the shapes " + ", ".join(
+              f"{k} {v / 1e9:.2f} GB" for k, v in mem.items())
+          + f": {predicted:.1f} GB", flush=True)
+    if predicted > MEMORY_LIMIT_GB:
+        bsz = 1
+        print(f"[train] over {MEMORY_LIMIT_GB} GB: batch cut to 1",
+              flush=True)
+
+    spec = DatasetSpec("llava-train", bsz * (VLM_TRAIN_STEPS - 1), w, h,
+                       args.quality)
+    blobs = build_dataset(spec, seed=args.seed).jpeg_bytes
+    pipe = JpegVisionPipeline(patch=16, embed_dim=1024, device=gpu,
+                              chunk_bits=args.chunk_bits)
+    texts = SyntheticTokens(cfg.vocab, VLM_TRAIN_TEXT, bsz, args.seed)
+    opt = AdamWConfig(lr=VLM_TRAIN_LR, moment_dtype="bfloat16")
+    params = dict(model.named_parameters())
+    opt_state = init_opt_state(params, opt)
+    step_fn = TS.make_train_step(cfg, opt, schedule="constant")
+
+    # the optimizer's share of the step: events around adamw_update
+    marks = []
+    adamw = TS.adamw_update
+
+    def timed_adamw(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = adamw(*a, **k)
+        e1.record()
+        marks.append((e0, e1))
+        return out
+
+    TS.adamw_update = timed_adamw
+    rows, launches = [], {}
+    try:
+        for i in range(VLM_TRAIN_STEPS):
+            fresh = i < VLM_TRAIN_STEPS - 1
+            j = i if fresh else VLM_TRAIN_STEPS - 2
+            frames = blobs[j * bsz: (j + 1) * bsz]
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            patches, _ = pipe.patches_for(frames)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            counts = {k: getattr(fn, attr)
+                      for k, (fn, attr) in counters.items()}
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            want = {"huffman_exits", "huffman_streams", "fused_pixels"}
+            got = {k for k, n in counts.items() if n}
+            check(got == want or (not fresh and got <= want),
+                  f"phase 14c step {i + 1}: the decode launched "
+                  f"{sorted(got)}")
+            check(tuple(patches.shape) == (bsz, cfg.n_patches, 1024),
+                  f"phase 14c: patches {tuple(patches.shape)}")
+            batch = {k: torch.from_numpy(v).to(gpu)
+                     for k, v in texts.batch_at(j).items()}
+            batch["patches"] = patches
+            model, opt_state, m = step_fn(model, opt_state, batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            opt_ms = marks[-1][0].elapsed_time(marks[-1][1])
+            check(np.isfinite(loss) and np.isfinite(gnorm),
+                  f"phase 14c step {i + 1}: loss {loss}, grad norm {gnorm}")
+            rows.append(dict(loss=loss, gnorm=gnorm, decode_ms=(t1 - t0) * 1e3,
+                             step_ms=(t2 - t1) * 1e3, opt_ms=opt_ms,
+                             tokens=int(m["tokens"]), counts=counts))
+            kind = "fresh frames" if fresh else f"step {i}'s batch again"
+            print(f"[train] step {i + 1} ({kind}): "
+                  f"loss {loss:.5f}, grad norm {gnorm:.4g}; decode + "
+                  f"patchify + embed {(t1 - t0) * 1e3:.1f} ms (launches "
+                  + ", ".join(f"{k} {n}" for k, n in counts.items() if n)
+                  + f"), train step {(t2 - t1) * 1e3:.1f} ms (optimizer "
+                  f"{opt_ms:.1f} ms by events)", flush=True)
+            del patches, batch, m
+        peak = torch.cuda.max_memory_allocated()
+        check(rows[-1]["loss"] < rows[-2]["loss"], f"phase 14c: the "
+              f"repeated batch's loss {rows[-1]['loss']} is not below "
+              f"{rows[-2]['loss']}")
+        # a profiled step on the same batch: device busy, idle share, the
+        # top kernels
+        patches, _ = pipe.patches_for(blobs[-bsz:])
+        batch = {k: torch.from_numpy(v).to(gpu)
+                 for k, v in texts.batch_at(VLM_TRAIN_STEPS - 2).items()}
+        batch["patches"] = patches
+        print("[train] a profiled train step, device time by kernel:",
+              flush=True)
+        busy, prof_ms = profile_rows(
+            lambda: step_fn(model, opt_state, batch), top=10, tag="train")
+    finally:
+        TS.adamw_update = adamw
+    for rec in kernels:
+        rec["launches"] += launches.get(rec["name"], 0)
+
+    warm = rows[VLM_TRAIN_STEPS - 2]
+    bf16_flop, f32_flop = train_flops(model, cfg, bsz, seq)
+    bound_ms = (bf16_flop / BF16_FLOP_PER_S + f32_flop / F32_FLOP_PER_S) * 1e3
+    # the profiled step's busy time over the warm step's unprofiled wall
+    # (the profiler's own host cost stretches the profiled step's wall)
+    idle = f"{max(0.0, 1 - busy / warm['step_ms']):.3f}" if busy \
+        else "not measured"
+    fb_ms = warm["step_ms"] - warm["opt_ms"]
+    print(f"[train] llava-next-mistral-7b full width ({len(model.blocks)} "
+          f"layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+          f"parameters, bf16; AdamW bf16 moments, lr {VLM_TRAIN_LR}, remat "
+          f"{cfg.remat}), batch {bsz} x {seq} positions ({cfg.n_patches} "
+          f"patches of a {w}x{h} q{args.quality} frame + {VLM_TRAIN_TEXT} "
+          f"text tokens a request): warm step (step "
+          f"{VLM_TRAIN_STEPS - 1}) {warm['decode_ms'] + warm['step_ms']:.1f} "
+          f"ms wall = decode + patchify + embed {warm['decode_ms']:.1f} + "
+          f"forward + backward {fb_ms:.1f} + optimizer {warm['opt_ms']:.1f}; "
+          f"a profiled step busy {busy:.1f} ms ({prof_ms:.1f} ms wall under "
+          f"the profiler): idle share of the warm train step {idle}; "
+          f"{bsz * seq / warm['step_ms'] * 1e3:.0f} positions/s, "
+          f"{warm['tokens'] / warm['step_ms'] * 1e3:.0f} label tokens/s; "
+          f"bound {bound_ms:.1f} ms by operations ({bf16_flop / 1e12:.1f} "
+          f"TFLOP bf16 over 989 TFLOP/s + {f32_flop / 1e12:.1f} TFLOP f32 "
+          f"over 67 TFLOP/s); grad norms "
+          f"{[round(r['gnorm'], 4) for r in rows]}; losses "
+          f"{[round(r['loss'], 5) for r in rows]} (the repeated batch's "
+          f"below its first); peak memory {(peak - held) / 1e9:.2f} GB "
+          f"(reckoned {predicted:.1f}; {peak / 1e9:.2f} GB with the "
+          f"{held / 1e9:.2f} GB earlier phases hold); {card}", flush=True)
+    del model, opt_state, params, pipe, patches, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_families(args, gpu, card, counters, kernels) -> None:
+    """Phase 14: 14a the ten archs' smoke train step, card against CPU;
+    14b the launcher with a checkpoint and a resume; 14c
+    llava-next-mistral-7b trained at full width on decoded frames."""
+    for name, fn, call_args in (
+            ("14a", train_smoke_parity, (args, gpu)),
+            ("14b", train_launcher, (args, gpu)),
+            ("14c", train_vlm, (args, gpu, card, counters, kernels))):
+        t0 = time.perf_counter()
+        fn(*call_args)
+        print(f"[train] phase {name} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
 
 def main() -> None:
@@ -2226,6 +2665,9 @@ def main() -> None:
 
     # -- 13. MoE, MLA, SSD and encoder-decoder serving ----------------------------
     serve_families(args, gpu, card)
+
+    # -- 14. training --------------------------------------------------------------
+    train_families(args, gpu, card, counters, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ write bases, the write pass, DC undiff and the pixel stage.
 decoder runs on the CPU only when the caller passes ``device="cpu"``.
 ``backend`` is ``"cuda"`` (the hand-written kernels) or ``"torch"`` (their
 plain versions); it defaults to ``"cuda"`` on a CUDA device and to
-``"torch"`` on the CPU, and ``"cuda"`` on the CPU raises.
+``"torch"`` on the CPU, and ``"cuda"`` on the CPU raises. The deprecated
+``use_kernels=True`` warns and means ``backend="cuda"``; with another
+backend it raises.
 
 ``sync`` picks the schedule (``core/sync.py``): ``"jacobi"`` (default),
 ``"faithful"`` (the paper's Algorithm 3), ``"specmap"`` (phase-map
@@ -22,7 +24,8 @@ composition) or ``"sequential"`` (one chunk per entropy segment, sized by
 :func:`sequential_chunk_bits`, so the cold decode is exact: the
 per-image baseline). All four give bit-identical coefficients.
 
-``fuse`` (kernels only, default ``"post"``): ``"post"`` runs the write
+``fuse`` (kernels only; the argument, else ``REPRO_PALLAS_FUSE``, else
+``"post"``; the plain backend ignores the variable): ``"post"`` runs the write
 pass as the stream kernel plus a scatter and the pixel stage as the fused
 pixel kernel; ``"full"`` runs the write pass as the store kernel instead;
 ``"none"`` runs the stream write pass and the unfused pixel chain: the
@@ -67,8 +70,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import os
 import threading
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -97,6 +102,7 @@ from ..kernels.autotune import (DEFAULT_LAUNCH, LaunchConfig,
 
 BACKENDS = ("cuda", "torch")
 FUSE_MODES = ("none", "post", "full")
+FUSE_ENV = "REPRO_PALLAS_FUSE"
 SYNCS = ("jacobi", "faithful", "specmap", "sequential")
 EMITS = ("rgb", "coeffs", "planes")
 
@@ -160,9 +166,8 @@ def resolve_options(sync: str, backend: Optional[str], fuse: Optional[str],
     if backend is not None and backend not in BACKENDS:
         raise ValueError(
             f"unknown decode backend {backend!r}; expected one of {BACKENDS}")
-    if fuse is not None and fuse not in FUSE_MODES:
-        raise ValueError(f"unknown fuse mode {fuse!r}; expected one of "
-                         f"{FUSE_MODES}")
+    if fuse is not None:
+        check_fuse(fuse)
     if backend is not None:
         resolve_fuse(fuse, backend)
     dev = resolve_device(device)
@@ -193,13 +198,42 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
     return backend
 
 
+def resolve_use_kernels(backend: Optional[str], use_kernels: bool
+                        ) -> Optional[str]:
+    """The backend the deprecated ``use_kernels=True`` asks for: it warns
+    and means ``"cuda"``, however the other defaults fall; with another
+    backend it raises rather than drop the kernels."""
+    if not use_kernels:
+        return backend
+    warnings.warn("use_kernels= is deprecated; pass backend=\"cuda\" (and "
+                  "optionally fuse=\"none\"|\"post\"|\"full\") instead",
+                  DeprecationWarning, stacklevel=3)
+    if backend not in (None, "cuda"):
+        raise ValueError(f"conflicting backend selection: use_kernels=True "
+                         f"with backend={backend!r} would silently drop the "
+                         f"kernels; pass one or the other")
+    return "cuda"
+
+
+def check_fuse(fuse: str) -> str:
+    if fuse not in FUSE_MODES:
+        raise ValueError(f"unknown fuse mode {fuse!r}; expected one of "
+                         f"{FUSE_MODES}")
+    return fuse
+
+
 def resolve_fuse(fuse: Optional[str], backend: str) -> str:
+    """The fuse mode: the argument, else ``REPRO_PALLAS_FUSE``, else
+    ``"post"`` on the kernels. The plain backend runs the unfused chain
+    and ignores the variable."""
     if backend == "torch":
         if fuse not in (None, "none"):
             raise ValueError(f"fuse={fuse!r} requires backend='cuda'; the "
                              f"plain backend runs the unfused chain")
         return "none"
-    return fuse or "post"
+    if fuse is None:
+        fuse = os.environ.get(FUSE_ENV) or "post"
+    return check_fuse(fuse)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -571,7 +605,8 @@ class ParallelDecoder:
                    fuse: Optional[str] = None, device="cuda",
                    validate: bool = False, balance: str = "none",
                    lanes: Optional[int] = None,
-                   launch: Optional[LaunchConfig] = None
+                   launch: Optional[LaunchConfig] = None,
+                   use_kernels: bool = False
                    ) -> "ParallelDecoder":
         """Parse and plan one batch (``validate``: never raising on a
         damaged blob, see the module docstring).
@@ -585,6 +620,7 @@ class ParallelDecoder:
         a program and CUDA graphs, of its own.
         """
         DP.check_balance(balance)
+        backend = resolve_use_kernels(backend, use_kernels)
         dev, _, _ = resolve_options(sync, backend, fuse, device)
         validation = None
         if validate:
@@ -872,11 +908,13 @@ def decode_batch(blobs: Sequence[bytes], chunk_bits: int = 1024,
                  bucket: bool = True, fuse: Optional[str] = None,
                  device="cuda", validate: bool = False,
                  balance: str = "none",
-                 lanes: Optional[int] = None) -> DecodeOutput:
+                 lanes: Optional[int] = None,
+                 use_kernels: bool = False) -> DecodeOutput:
     """Parse, plan and decode one batch (see the module docstring and
     :meth:`ParallelDecoder.from_bytes` for ``balance`` and ``lanes``)."""
     dec = ParallelDecoder.from_bytes(
         blobs, chunk_bits=chunk_bits, seq_chunks=seq_chunks, sync=sync,
         backend=backend, bucket=bucket, fuse=fuse, device=device,
-        validate=validate, balance=balance, lanes=lanes)
+        validate=validate, balance=balance, lanes=lanes,
+        use_kernels=use_kernels)
     return dec.decode(emit=emit)

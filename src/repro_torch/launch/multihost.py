@@ -51,7 +51,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.api import DecodeOutput, ParallelDecoder, sequential_chunk_bits
+from ..core.api import (DecodeOutput, ParallelDecoder, resolve_use_kernels,
+                        sequential_chunk_bits)
 from ..core.bitstream import (BatchPlan, BatchValidation, ImageGeometry,
                               PlanShape, bucket_capacity, consensus_plan,
                               merge_plan_shapes, plan_shape, validate_batch)
@@ -551,7 +552,8 @@ def decode_multihost(local_blobs: Sequence[bytes],
                      lanes: Optional[int] = None, emit: str = "coeffs",
                      device="cuda", tag: Optional[str] = None,
                      validate: bool = False,
-                     timeout_ms: int = 120_000) -> MultiHostDecodeOutput:
+                     timeout_ms: int = 120_000,
+                     use_kernels: bool = False) -> MultiHostDecodeOutput:
     """Decode one global batch whose bytes are spread across processes.
 
     Every process calls this with its *local* blobs (see
@@ -564,7 +566,8 @@ def decode_multihost(local_blobs: Sequence[bytes],
 
     ``device="cuda"`` decodes on ``cuda:{process_id % device_count}``
     (several processes may share a card); ``"cpu"`` runs the plain
-    versions.
+    versions. The deprecated ``use_kernels=True`` warns and means
+    ``backend="cuda"``.
 
     ``validate=True`` (must agree across processes — it changes the
     exchange schedule) classifies each local blob before planning: a
@@ -574,6 +577,7 @@ def decode_multihost(local_blobs: Sequence[bytes],
     timeout. Per-image statuses ride the result (``status``,
     ``host_statuses``).
     """
+    backend = resolve_use_kernels(backend, use_kernels)
     if ctx is None:
         ctx = process_info()
     if tag is None:

@@ -34,8 +34,11 @@ def _attend_block(q, k, v, mask, softcap):
     """q (B,Sq,H,D) k/v (B,Sk,Hkv,D'); returns (o, m, l) partials in f32.
 
     The f32 score block is the largest tensor of a prefill with a cache
-    ((B, Sq, Hkv, G, Smax) f32), so it is masked, shifted and
-    exponentiated in place: one such block is alive at a time.
+    ((B, Sq, Hkv, G, Smax) f32), so without gradients it is masked,
+    shifted and exponentiated in place: one such block is alive at a
+    time. When autograd records the block (training), the same steps run
+    out of place, as ``exp``'s backward needs its output and the mask's
+    needs nothing overwritten; the values are the same, bit for bit.
     """
     b, sq, h, d = q.shape
     hkv = k.shape[2]
@@ -45,11 +48,16 @@ def _attend_block(q, k, v, mask, softcap):
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
     drop = ~mask[:, :, None, None, :]
-    s.masked_fill_(drop, NEG_INF)
-    m = torch.amax(s, dim=-1)                     # (b,q,hkv,g)
-    p = s.sub_(m[..., None]).exp_()
+    if s.requires_grad:
+        s = s.masked_fill(drop, NEG_INF)
+        m = torch.amax(s, dim=-1)                 # (b,q,hkv,g)
+        p = torch.exp(s - m[..., None]).masked_fill(drop, 0.0)
+    else:
+        s.masked_fill_(drop, NEG_INF)
+        m = torch.amax(s, dim=-1)
+        p = s.sub_(m[..., None]).exp_()
+        p.masked_fill_(drop, 0.0)
     del s
-    p.masked_fill_(drop, 0.0)
     l = torch.sum(p, dim=-1)
     o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
     return o.reshape(b, sq, h, -1), m.reshape(b, sq, h), l.reshape(b, sq, h)

@@ -1,15 +1,19 @@
-"""Model assembly for serving: decoder-only LMs, hybrid SSM/attention
-stacks, MoE, encoder-decoder (whisper) and the VLM (llava).
+"""Model assembly: decoder-only LMs, hybrid SSM/attention stacks, MoE,
+encoder-decoder (whisper) and the VLM (llava), for serving and training.
 
 The port of the JAX package's ``models/model.py``. The layer layout (an
 unrolled prefix, then a periodic pattern) becomes one ``ModuleList`` of
 blocks, the prefix first and then each period's slots in turn, run by a
 Python loop; the encoder is a ``ModuleList`` of its own. The model runs
 on one card: the JAX package's sharding annotations have no counterpart.
-The multi-token prediction head's parameters are built, so weights carry
-across whole; it serves nothing.
+The multi-token prediction head serves nothing; :func:`forward_train`
+adds its loss.
 
-Not yet ported: training (``forward_train``, ROADMAP A11c).
+Remat (``cfg.remat`` other than ``"none"``, which the JAX package runs as
+``jax.checkpoint`` without a policy, so ``"dots"`` is ``"full"``): under
+autograd each prefix layer, and each period of the pattern as one group,
+runs in ``torch.utils.checkpoint`` (non-reentrant), keeping only its
+input; the encoder is not checkpointed.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (GQA, MLA, gqa_forward, init_kv_cache,
                         init_mla_cache, mla_forward)
@@ -26,7 +31,6 @@ from .ffn import DenseFFN, MoEFFN, dense_ffn, moe_ffn
 from .layers import Norm, ParamBuilder, gelu, matmul, resolve_model_device
 from .ssm import SSD, SSMCache, ssd_decode_step, ssd_forward
 
-A11C = "waits for ROADMAP A11c (training)"
 MIXERS = ("attn", "attn_bidir", "mla", "ssm")
 FFNS = ("dense", "moe", "none")
 
@@ -118,7 +122,7 @@ class Block(nn.Module):
 class MTPHead(nn.Module):
     """DeepSeek-V3's multi-token prediction head (``mtp.*``): ``norm_h``,
     ``norm_e``, ``proj`` (2d, d) and one ``("attn", "dense")`` block. Its
-    loss is training's (ROADMAP A11c)."""
+    loss is training's (:func:`_mtp_loss`)."""
 
     def __init__(self, b: ParamBuilder, cfg: ModelConfig):
         super().__init__()
@@ -215,13 +219,40 @@ def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
     return model.enc_norm(x)
 
 
+def _blocks_forward(x: torch.Tensor, positions: torch.Tensor,
+                    enc_out: Optional[torch.Tensor], *blocks: Block
+                    ) -> torch.Tensor:
+    for block in blocks:
+        x, _, _ = block(x, positions, enc_out=enc_out)
+    return x
+
+
+def remat_groups(model: Model) -> List[List[Block]]:
+    """The blocks each checkpoint holds: each prefix layer alone, then
+    each period of the pattern, as the JAX package's ``_run_stack``
+    checkpoints its prefix bodies and its scanned period body."""
+    cfg, blocks = model.cfg, list(model.blocks)
+    n_pre, n_pat = len(cfg.prefix_layers), len(cfg.pattern)
+    return [blocks[i: i + 1] for i in range(n_pre)] + [
+        blocks[i: i + n_pat] for i in range(n_pre, len(blocks), n_pat)]
+
+
 def _run_stack(model: Model, x: torch.Tensor, positions: torch.Tensor, *,
                caches: Optional[List] = None, cache_pos: Optional[int] = None,
                enc_out: Optional[torch.Tensor] = None, decode: bool = False
                ) -> Tuple[torch.Tensor, Optional[List]]:
     """Every block in turn; with ``caches`` (one a block), each block's
     cache is updated at ``cache_pos``. The blocks' aux stats are dropped,
-    as the JAX package's ``_run_stack`` drops them."""
+    as the JAX package's ``_run_stack`` drops them. Without caches and
+    under autograd, ``cfg.remat`` checkpoints the groups of
+    :func:`remat_groups` (the module docstring)."""
+    if caches is None and model.cfg.remat != "none" \
+            and torch.is_grad_enabled():
+        for group in remat_groups(model):
+            # the blocks draw no random numbers: no RNG state to replay
+            x = checkpoint(_blocks_forward, x, positions, enc_out, *group,
+                           use_reentrant=False, preserve_rng_state=False)
+        return x, None
     new_caches = []
     for i, block in enumerate(model.blocks):
         x, nc, _ = block(x, positions,
@@ -236,16 +267,65 @@ def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
     return x @ head
 
 
-def forward_train(model: Model, batch: Dict):
-    raise NotImplementedError(f"forward_train {A11C}")
+def forward_train(model: Model, batch: Dict
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(mean loss, metrics). ``batch``: ``tokens`` (B, S), ``labels``
+    (B, S), and ``patches`` or ``frames`` as :func:`forward_prefill` takes
+    them; labels of -100 are masked, and so are the patch positions. With
+    ``cfg.mtp`` the loss adds 0.3 x the MTP loss and the metrics say
+    ``mtp``; ``metrics["loss"]`` is the LM loss alone, as in the JAX
+    package."""
+    cfg = model.cfg
+    x = _embed_inputs(model, batch)
+    bsz, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
+    enc_out = _encode(model, batch["frames"]) if cfg.is_encdec else None
+    x, _ = _run_stack(model, x, positions, enc_out=enc_out)
+    x = model.final_norm(x)
+
+    labels = batch["labels"]
+    if cfg.frontend == "vision" and "patches" in batch:
+        # patch positions carry no next-token loss
+        pad = labels.new_full((bsz, x.shape[1] - labels.shape[1]), -100)
+        labels = torch.cat([pad, labels], dim=1)
+
+    loss, metrics = _lm_loss(model, x, labels)
+    if cfg.mtp and "tokens" in batch:
+        loss = loss + 0.3 * _mtp_loss(model, x, batch, positions)
+        metrics["mtp"] = True
+    return loss, metrics
 
 
-def _lm_loss(model: Model, x, labels):
-    raise NotImplementedError(f"_lm_loss {A11C}")
+def _lm_loss(model: Model, x: torch.Tensor, labels: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token NLL over the labels >= 0, from f32 logits."""
+    logits = _logits(model, x).float()
+    mask = labels >= 0
+    safe = torch.clamp_min(labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp_min(mask.sum(), 1)
+    loss = nll.sum() / denom
+    return loss, {"loss": loss, "tokens": denom}
 
 
-def _mtp_loss(model: Model, x, batch, positions):
-    raise NotImplementedError(f"_mtp_loss {A11C}")
+def _mtp_loss(model: Model, x: torch.Tensor, batch: Dict,
+              positions: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction (depth 1): predict t+2."""
+    cfg, mtp = model.cfg, model.mtp
+    tokens = batch["tokens"]
+    emb_next = F.embedding(torch.roll(tokens, -1, dims=1), model.embed)
+    if x.shape[1] != tokens.shape[1]:  # VLM: only the text tail
+        x = x[:, -tokens.shape[1]:]
+        positions = positions[:, -tokens.shape[1]:]
+    h = matmul(torch.cat([mtp.norm_h(x), mtp.norm_e(emb_next.to(x.dtype))],
+                         dim=-1), mtp.proj)
+    h, _, _ = mtp.block(h, positions)
+    labels2 = torch.roll(batch["labels"], -2, dims=1)
+    labels2[:, -2:] = -100
+    loss, _ = _lm_loss(model, h, labels2)
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro import configs as RC
@@ -148,13 +149,16 @@ def serve_both(arch, tol, f32_caches=False, eager=False, check=None, **kw):
     return worst
 
 
-def to_flat(model) -> dict:
-    """The inverse of ``params_from_jax``: the model's weights as f32
+def to_flat(model, tensors=None) -> dict:
+    """The inverse of ``params_from_jax``: the model's weights (or
+    ``tensors``, keyed by its parameter names: its gradients) as f32
     arrays under the JAX package's flat names."""
     cfg = model.cfg
     n_pre, n_pat = len(cfg.prefix_layers), len(cfg.pattern)
     flat, stacked = {}, {}
-    for key, t in model.state_dict().items():
+    if tensors is None:
+        tensors = model.state_dict()
+    for key, t in tensors.items():
         v = t.float().numpy()
         if not key.startswith("blocks."):
             flat[key] = v
@@ -168,3 +172,118 @@ def to_flat(model) -> dict:
     for name, by_period in stacked.items():
         flat[name] = np.stack([by_period[p] for p in range(cfg.n_periods)])
     return flat
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def train_batches(cfg, seed=0):
+    """(JAX batch, torch batch) for ``forward_train``: tokens and their
+    next-token labels over S positions (the VLM's patches first, in bf16;
+    the encoder-decoder's frames in bf16), the first 3 labels of row 0
+    masked (-100)."""
+    rng = np.random.default_rng(seed)
+    nv = cfg.n_patches if cfg.frontend == "vision" else 0
+    toks = rng.integers(0, cfg.vocab, (B, S - nv + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, :3] = -100
+    arrays = {"tokens": toks[:, :-1], "labels": labels}
+    if nv:
+        arrays["patches"] = rng.normal(0, 1, (B, nv, 1024)).astype(
+            np.float32)
+    if cfg.is_encdec:
+        arrays["frames"] = rng.normal(0, 1, (B, cfg.enc_seq, 128)).astype(
+            np.float32)
+    bf16 = ("patches", "frames")
+    bj = {k: jnp.asarray(v, jnp.bfloat16 if k in bf16 else None)
+          for k, v in arrays.items()}
+    bt = {k: torch.from_numpy(v).to(torch.bfloat16) if k in bf16
+          else torch.from_numpy(v) for k, v in arrays.items()}
+    return bj, bt
+
+
+def jax_loss_and_grads(cj, params, bj, eager=False):
+    """``jax.value_and_grad`` of the JAX package's ``forward_train``:
+    ((loss, metrics), grads); compiled, or op by op with ``eager``."""
+    fn = jax.value_and_grad(lambda p: RM.forward_train(p, cj, bj),
+                            has_aux=True)
+    if eager:
+        with jax.disable_jit():
+            return fn(params)
+    return jax.jit(fn)(params)
+
+
+def port_loss_and_grads(tm, bt):
+    """(loss, metrics, every gradient as f32 arrays under the JAX
+    package's flat names, zeros where autograd gave none) of the port's
+    ``forward_train``."""
+    tm.requires_grad_(True)
+    tm.zero_grad(set_to_none=True)
+    loss, metrics = TM.forward_train(tm, bt)
+    loss.backward()
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in tm.named_parameters()}
+    return loss.detach(), metrics, to_flat(tm, grads)
+
+
+def normwise(got: dict, exp: dict) -> float:
+    """||got - exp|| / ||exp|| over every leaf of ``exp``."""
+    num = sum(float(np.sum((got[k] - exp[k]) ** 2)) for k in exp)
+    den = sum(float(np.sum(exp[k] ** 2)) for k in exp)
+    return (num / den) ** 0.5
+
+
+F32_TRAIN = dict(dtype="float32", param_dtype="float32")
+GRAD_F32 = 1e-3
+GRAD_F32_LOOSE = {"jamba-v0.1-52b": 4e-3, "whisper-base": 4e-3}
+BF16_LOSS_RTOL = 1e-3
+BF16_GLOBAL = 0.15
+BF16_LEAF = 0.5
+# the routed archs op by op (deepseek-v3, jamba): routing near-ties
+BF16_GLOBAL_ROUTED = 0.3
+
+
+def check_bf16(arch, eager=False, loss_rtol=BF16_LOSS_RTOL,
+               global_tol=BF16_GLOBAL, leaf_tol=BF16_LEAF):
+    """The loss and gradients of ``arch``'s own (bf16) smoke config,
+    port against reference (compiled, or op by op with ``eager``): the
+    loss within ``loss_rtol``, the gradients normwise within
+    ``global_tol`` over all leaves and ``leaf_tol`` over each."""
+    cj, ct, m, tm = both_models(arch)
+    assert cj.dtype == cj.param_dtype == "bfloat16"
+    bj, bt = train_batches(cj)
+    (lj, _), gj = jax_loss_and_grads(cj, m.params, bj, eager=eager)
+    lt, _, gt = port_loss_and_grads(tm, bt)
+    gj = jax_flat(gj)
+    leaf = {k: normwise({k: gt[k]}, {k: v}) for k, v in gj.items()
+            if np.any(v)}
+    total = normwise(gt, gj)
+    worst = max(leaf, key=leaf.get)
+    print(f"{arch} bf16 ({'op by op' if eager else 'compiled'}): loss "
+          f"{float(lt):.6f} / {float(lj):.6f}, gradients {total:.4f} over "
+          f"all leaves, worst leaf {worst} {leaf[worst]:.4f}")
+    np.testing.assert_allclose(float(lt), float(lj), rtol=loss_rtol)
+    assert total <= global_tol, (arch, total)
+    assert leaf[worst] <= leaf_tol, (arch, worst, leaf[worst])
+
+
+def check_f32(arch):
+    """``forward_train``'s loss, metrics and every gradient of ``arch``'s
+    smoke config in f32, port against reference (compiled)."""
+    cj, ct, m, tm = both_models(arch, **F32_TRAIN)
+    bj, bt = train_batches(cj)
+    (lj, mj), gj = jax_loss_and_grads(cj, m.params, bj)
+    lt, mt, gt = port_loss_and_grads(tm, bt)
+    np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5)
+    assert float(mt["loss"].detach()) == pytest.approx(float(mj["loss"]),
+                                                       rel=1e-5)
+    assert int(mt["tokens"]) == int(mj["tokens"])
+    assert ("mtp" in mt) == ("mtp" in mj) == cj.mtp
+    gj = jax_flat(gj)
+    assert set(gt) == set(gj)
+    tol = GRAD_F32_LOOSE.get(arch, GRAD_F32)
+    for k, exp in gj.items():
+        scale = float(np.abs(exp).max())
+        np.testing.assert_allclose(gt[k], exp, rtol=0, atol=tol * scale,
+                                   err_msg=f"{arch} gradient of {k}")

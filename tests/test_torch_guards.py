@@ -123,3 +123,70 @@ def test_no_refusal_of_a_ported_path_is_left():
     for path in PORT_FILES:
         text = path.read_text()
         assert "ROADMAP A4" not in text and "ROADMAP B5" not in text, path
+
+
+# ---------------------------------------------------------------------------
+# REPRO_PALLAS_FUSE and the deprecated use_kernels=, as repro honours them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["none", "post", "full"])
+def test_fuse_env_sets_the_kernels_default(monkeypatch, mode):
+    monkeypatch.setenv("REPRO_PALLAS_FUSE", mode)
+    assert api.resolve_fuse(None, "cuda") == mode
+
+
+def test_fuse_argument_wins_over_the_env(monkeypatch):
+    monkeypatch.setenv("REPRO_PALLAS_FUSE", "full")
+    assert api.resolve_fuse("post", "cuda") == "post"
+    assert api.resolve_fuse("none", "cuda") == "none"
+    monkeypatch.setenv("REPRO_PALLAS_FUSE", "")
+    assert api.resolve_fuse(None, "cuda") == "post"  # empty: the default
+
+
+def test_bad_fuse_env_raises(monkeypatch):
+    monkeypatch.setenv("REPRO_PALLAS_FUSE", "everything")
+    with pytest.raises(ValueError, match="unknown fuse mode 'everything'"):
+        api.resolve_fuse(None, "cuda")
+    # an argument does not read the variable
+    assert api.resolve_fuse("full", "cuda") == "full"
+
+
+@pytest.mark.parametrize("value", ["full", "everything"])
+def test_fuse_env_is_ignored_on_the_plain_backend(monkeypatch, value):
+    monkeypatch.setenv("REPRO_PALLAS_FUSE", value)
+    assert api.resolve_fuse(None, "torch") == "none"
+    assert api.resolve_options("jacobi", None, None, "cpu")[1:] == \
+        ("torch", "none")
+    blobs = corpus("420")
+    out = repro_torch.decode_batch(blobs, device="cpu")
+    np.testing.assert_array_equal(out.coeffs.numpy(), oracle_coeffs(blobs))
+
+
+def test_use_kernels_warns_and_means_the_kernels():
+    with pytest.warns(DeprecationWarning, match="use_kernels"):
+        assert api.resolve_use_kernels(None, True) == "cuda"
+    with pytest.warns(DeprecationWarning):
+        assert api.resolve_use_kernels("cuda", True) == "cuda"
+    assert api.resolve_use_kernels("torch", False) == "torch"
+    assert api.resolve_use_kernels(None, False) is None
+    with pytest.warns(DeprecationWarning), \
+            pytest.raises(ValueError, match="conflicting backend"):
+        api.resolve_use_kernels("torch", True)
+
+
+def test_use_kernels_at_the_entry_points():
+    """Each entry point maps ``use_kernels=True`` to the kernels (which
+    the CPU refuses) and refuses it beside ``backend="torch"``, before
+    any decode."""
+    from repro_torch.launch.multihost import decode_multihost
+    blobs = corpus("420")
+    calls = [lambda **k: repro_torch.decode_batch(blobs, **k),
+             lambda **k: ParallelDecoder.from_bytes(blobs, **k),
+             lambda **k: decode_multihost(blobs, **k)]
+    for call in calls:
+        with pytest.warns(DeprecationWarning), \
+                pytest.raises(ValueError, match="needs a CUDA device"):
+            call(use_kernels=True, device="cpu")
+        with pytest.warns(DeprecationWarning), \
+                pytest.raises(ValueError, match="conflicting backend"):
+            call(use_kernels=True, backend="torch", device="cpu")

@@ -292,24 +292,6 @@ def test_check_served_refuses_an_unknown_layer():
         TM.abstract_params(cfg)
 
 
-def test_training_names_its_roadmap_item():
-    tm = TM.abstract_params(TC.get_smoke_config("llama3-8b"))
-    with pytest.raises(NotImplementedError, match="A11c"):
-        TM.forward_train(tm, {})
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-base"])
-def test_training_still_names_its_roadmap_item(arch):
-    """The families this slice serves still train nowhere: forward_train
-    and the losses (deepseek-v3's MTP loss too) name A11c."""
-    tm = TM.abstract_params(TC.get_smoke_config(arch))
-    for fn, args in ((TM.forward_train, (tm, {})),
-                     (TM._lm_loss, (tm, None, None)),
-                     (TM._mtp_loss, (tm, None, None, None))):
-        with pytest.raises(NotImplementedError, match="A11c"):
-            fn(*args)
-
-
 def test_full_width_llava_on_meta():
     """The full-width model and caches without allocating: 7.24 B
     parameters by param_count, plus the 21 M of the vision projector and
