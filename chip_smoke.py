@@ -85,6 +85,23 @@ otherwise. Phases, each of which exits non-zero on failure:
    grid) and S3 (the pixel kernel on a misaligned tile) on the card and a
    duplicate-index scatter, each caught by its family, and each seed
    against its plain version;
+10b. the traced-program checker (``repro_torch.analysis.trace_check``,
+   ``python -m repro_torch.analysis contracts``) over the card's grid: the
+   JAX checker's tier-0 cells (two small batches times the four syncs,
+   and a ``roundrobin`` flip) on the kernels, the small one on the plain
+   backend on the card, and the 32 frames at full width on the kernels
+   (jacobi with every fuse mode, faithful and specmap ``post``,
+   sequential ``full``, an ``lpt`` flip over 4 lane blocks), each decoded
+   cold, warm (capturing the round graphs) and as a second batch of its
+   bucket: the lane-graph taint of every aten op and kernel launch, no
+   float64 and no host read but the sync loops' own host checks in the
+   entropy stage, every captured graph read node by node (kernels,
+   memsets and device copies only; two exit-kernel nodes, whose pointers
+   are the program's buffers before every replay), no output aliasing a
+   program buffer, the int32 lattice; 0 violations, and every seeded
+   fault caught by its own contract. Prints each cell, the nodes of each
+   graph by kind, each full-width cell's warm decode ms with and without
+   the tracker, and the phase's seconds;
 11. the launch autotuner (``repro_torch.kernels.autotune``): the measured
    search on the ``newyork`` bucket for jacobi ``post`` and ``full``, the
    table in a temporary directory: each candidate's warm decode ms (3 in
@@ -542,6 +559,46 @@ def verify_kernels(args, blobs, layouts, gpu) -> list:
               + ("" if lib_ms is None else f", library {lib_ms:.4f} ms")
               + ")", flush=True)
     return records
+
+
+# -- phase 10b: the traced-program checker -------------------------------------
+
+# the seeds of trace_check.run_self_test on the card
+TRACE_SEEDS = {"gather-creep", "float64 op", ".item() in a sync round",
+               "returned work-buffer view",
+               "buffer reallocated after capture",
+               "device-to-host copy in a graph"}
+
+
+def check_traces(blobs, gpu) -> None:
+    """Phase 10b: ``trace_check`` over the card's grid, the full-width
+    cells on ``blobs``, with its self-test."""
+    from repro_torch.analysis import trace_check as T
+
+    t0 = time.perf_counter()
+    report = T.check(device=gpu, self_test=True, newyork=blobs)
+    for line in report.lines(verbose=True):
+        print(f"[contracts] {line}", flush=True)
+    check(report.ok, f"phase 10b: {len(report.violations)} contract "
+          f"violations; seeds not caught: {report.failures}")
+    caught = {v.cell for v in report.caught}
+    check(caught == TRACE_SEEDS, f"phase 10b: seeds caught {sorted(caught)}")
+    graphs = 0
+    for r in report.cells:
+        if r.cell.full_width and r.cell.sync == "jacobi":
+            check(r.graphs and r.replays, f"phase 10b: {r.label} read no "
+                  f"graph or audited no replay")
+        for g in r.graphs:
+            graphs += 1
+            check(set(g) <= T.GRAPH_NODE_KINDS, f"phase 10b: {r.label}: "
+                  f"graph nodes {g}")
+            if r.cell.backend == "cuda":
+                check(g.get("exit kernel") == T.EXIT_NODES_PER_GRAPH,
+                      f"phase 10b: {r.label}: graph nodes {g}")
+    print(f"[contracts] {len(report.cells)} cells, {graphs} graphs read "
+          f"node by node, {sum(r.replays for r in report.cells)} replays "
+          f"audited, {len(report.caught)} seeded faults caught; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # -- phase 11: the launch autotuner -----------------------------------------
@@ -2653,6 +2710,10 @@ def main() -> None:
 
     # -- 10. the kernel verifier ------------------------------------------------
     kernels += verify_kernels(args, blobs, layouts, gpu)
+    api.clear_decode_programs()
+
+    # -- 10b. the traced-program checker ------------------------------------------
+    check_traces(blobs, gpu)
     api.clear_decode_programs()
 
     # -- 11. the launch autotuner -----------------------------------------------

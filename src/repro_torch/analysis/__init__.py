@@ -16,6 +16,17 @@
     scatter; ``--self-test`` proves it catches the seeded faults. Loaded
     lazily (it imports torch).
 
+``repro_torch.analysis.trace_check``
+    The traced-program checker (``python -m repro_torch.analysis
+    contracts``): the JAX package's jaxpr checker in torch form. Over a
+    grid of decodes it follows the lane-graph taint through every aten op
+    (a ``TorchDispatchMode``) and kernel launch, and finds float64 tensors
+    and host reads in the entropy stage; on the card it reads the CUDA
+    graphs the sync rounds capture and checks, before each replay, the
+    buffers their exit-kernel nodes read; and it holds the int32 index
+    lattice (``contracts.TRACE_CONTRACTS``). ``--self-test`` proves it
+    catches its seeded faults. Loaded lazily (it imports torch).
+
 This package imports nothing of the rest of ``repro_torch`` at module
 scope but the stdlib-only contracts.
 """

@@ -1,9 +1,11 @@
-"""CLI: ``python -m repro_torch.analysis {lint,kernels}``.
+"""CLI: ``python -m repro_torch.analysis {lint,kernels,contracts}``.
 
 ``lint`` is stdlib-only (never imports torch) and runs anywhere.
 ``kernels`` is the kernel verifier (``kernel_check.run``): its host checks
 run anywhere, its checked builds on the card, so it needs one and exits
-non-zero without.
+non-zero without. ``contracts`` is the traced-program checker
+(``trace_check.run``): on the card by default, where it exits non-zero
+without one, and on the CPU only with ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -52,6 +54,18 @@ def _cmd_kernels(args) -> int:
     return kernel_check.run(self_test=args.self_test, verbose=args.verbose)
 
 
+def _cmd_contracts(args) -> int:
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("contracts: no CUDA device. The checker runs on the card; "
+              "pass --device cpu to run it on the CPU", file=sys.stderr)
+        return 2
+    from . import trace_check
+    return trace_check.run(self_test=args.self_test, verbose=args.verbose,
+                           device=args.device)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
@@ -78,6 +92,22 @@ def main(argv=None) -> int:
                          "scatter index)")
     pk.add_argument("--verbose", action="store_true")
     pk.set_defaults(fn=_cmd_kernels)
+
+    pc = sub.add_parser(
+        "contracts",
+        help="traced-program checker: lane-graph taint, float64, host "
+             "reads and the CUDA graphs of the sync rounds over the tier-0 "
+             "grid (and, on the card, the full-width cells)")
+    pc.add_argument("--self-test", action="store_true",
+                    help="also prove the checker catches its seeded faults "
+                         "(a gather-creep read, a float64 op, an .item() in "
+                         "a sync round, a returned program-buffer view, a "
+                         "buffer reallocated after capture, and on the card "
+                         "a graph that copies to the host)")
+    pc.add_argument("--verbose", action="store_true")
+    pc.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the decodes run (default: the card)")
+    pc.set_defaults(fn=_cmd_contracts)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -299,10 +299,11 @@ class DecodeProgram:
     (``allocations``). ``owner`` is the decoder whose plan data ``plan``
     holds; ``hints`` the sync loops' iteration counts of the last decode
     and ``graphs`` the CUDA graphs of their rounds
-    (``core.sync.RoundBlocks``), which read these buffers. ``lock``
-    serializes the decodes of the key: a decode uploads its plan data and
-    reads the buffers under it. ``host_checks`` and ``launches`` are the
-    last decode's.
+    (``core.sync.RoundBlocks``), which read these buffers; ``audit``, None
+    but in the traced-program checker (``analysis/trace_check.py``), is
+    told of their captures and replays. ``lock`` serializes the decodes of
+    the key: a decode uploads its plan data and reads the buffers under
+    it. ``host_checks`` and ``launches`` are the last decode's.
     """
 
     shape: PlanShape
@@ -319,6 +320,7 @@ class DecodeProgram:
     stream: object = None        # the CUDA stream of the last decode
     hints: Dict[str, int] = dataclasses.field(default_factory=dict)
     graphs: Dict[Tuple, object] = dataclasses.field(default_factory=dict)
+    audit: object = None
     allocations: int = 0
     uploads: int = 0
     decodes: int = 0
@@ -745,7 +747,7 @@ class ParallelDecoder:
         graphs = prog.graphs if (self.device.type == "cuda"
                                  and prog.decodes) else None
         blocks = RoundBlocks(size=self.launch.block_rounds, hints=prog.hints,
-                             graphs=graphs)
+                             graphs=graphs, audit=prog.audit)
         coeffs, rounds, converged = decode_coefficients(
             dev, self.shape, backend=self.backend, fuse=self.fuse,
             sync=self.sync, blocks=blocks, work=prog.work,

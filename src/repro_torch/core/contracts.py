@@ -1,13 +1,26 @@
-"""Int32 guards of the host planner.
+"""The decode pipeline's contracts, as data and checks.
 
-A copy of the runtime guards of the JAX package's ``analysis/contracts.py``
-(``ContractViolation``, ``checked_int32``, ``checked_coeff_capacity`` and
-``check_shape_capacities``): the planner in :mod:`repro_torch.core.bitstream`
-calls them so that no plan whose dense coefficient index or bit position
-overflows int32 reaches a kernel. Stdlib only; shape arguments are
-duck-typed on attribute names.
+A copy of what the port needs of the JAX package's ``analysis/contracts.py``:
+
+* the runtime int32 guards (``ContractViolation``, ``checked_int32``,
+  ``checked_coeff_capacity``, ``check_shape_capacities``): the planner in
+  :mod:`repro_torch.core.bitstream` calls them so that no plan whose dense
+  coefficient index or bit position overflows int32 reaches a kernel;
+* the int32 index lattice (:class:`IntRange`, :func:`plan_index_ranges`,
+  :func:`check_index_lattice`, :func:`max_damaged_segment_chunks`), which
+  bounds every index expression of the decode at a shape's capacities;
+* lane-graph liveness (:data:`LANE_GRAPH_ARRAYS`,
+  :data:`IDENTITY_LIVE_OK`): which lane-graph operands an identity plan's
+  program may index through, per sync schedule;
+* the catalogs of the traced-program checker (:data:`TRACE_CONTRACTS`,
+  ``analysis/trace_check.py``) and the kernel verifier
+  (:data:`KERNEL_CHECK_FAMILIES`).
+
+Stdlib only; shape arguments are duck-typed on attribute names.
 """
 from __future__ import annotations
+
+from typing import Dict, Mapping
 
 INT32_MIN = -(2 ** 31)
 INT32_MAX = 2 ** 31 - 1
@@ -102,7 +115,7 @@ class IntRange:
     """A closed integer interval [lo, hi]: the abstract value of an index.
 
     The JAX package's lattice (``analysis/contracts.IntRange``), the part
-    the port's verifier uses: constants, + and *."""
+    the port's checkers use: constants, + and *, and the int32 check."""
 
     __slots__ = ("lo", "hi")
 
@@ -133,6 +146,160 @@ class IntRange:
               self.hi * other.lo, self.hi * other.hi)
         return IntRange(min(ps), max(ps))
 
+    @property
+    def fits_int32(self) -> bool:
+        return INT32_MIN <= self.lo and self.hi <= INT32_MAX
+
+    def check(self, what: str) -> "IntRange":
+        checked_int32(self.lo, f"{what} (lower bound)")
+        checked_int32(self.hi, f"{what} (upper bound)")
+        return self
+
+
+# ---------------------------------------------------------------------------
+# The int32 index lattice (analysis/trace_check.py's int32-lattice)
+# ---------------------------------------------------------------------------
+
+def plan_index_ranges(shape, model: str = "valid") -> Dict[str, IntRange]:
+    """Bound every int32 index expression of the decoder.
+
+    Returns ``{expression name: IntRange}`` as a function of the shape's
+    capacities, under one of two bitstream models:
+
+    ``model="valid"``
+        Well-formed (or validated/masked) bitstreams: every chunk's
+        converged exit count equals the true symbol count, so a write
+        base never exceeds its segment's coefficient range and only the
+        *active* chunk overshoots speculatively (by
+        :func:`write_overshoot`).
+
+    ``model="adversarial"``
+        No convergence assumption: a damaged segment's chunks can each
+        exit with up to ``64 * s_max`` phantom coefficient positions, so
+        the cumulative write base of a segment spanning ``k`` chunks
+        grows as ``k * 64 * s_max``. :func:`max_damaged_segment_chunks`
+        gives the largest ``k`` that stays safe; ``validate_batch``'s
+        segment masking keeps real damaged inputs inside the valid
+        model, so this bound is the residual exposure for *unvalidated*
+        adversarial feeds.
+    """
+    if model not in ("valid", "adversarial"):
+        raise ValueError(f"unknown lattice model {model!r}")
+    units_end = IntRange(0, shape.n_units * 64)
+    over = IntRange(0, write_overshoot(shape.s_max))
+    if model == "valid":
+        write_base = units_end
+    else:
+        phantom = IntRange(0, shape.n_chunks * 64 * shape.s_max)
+        write_base = units_end + phantom
+    return {
+        "units_end": units_end,
+        "seg_coeff_base": units_end,
+        "write_base": write_base,
+        # idx = write_base + st.n (<= 64*s_max) + o.run (<= 63)
+        "write_index": write_base + over,
+        # bit position: within [0, 32*n_words] plus one symbol advance
+        "bit_position": IntRange(0, shape.n_words * 32 + 63),
+        # word fetch: word_base + (p >> 5) + 1
+        "word_fetch": IntRange(0, shape.n_words + (63 >> 5) + 1),
+        "lane_index": IntRange(0, shape.n_chunks - 1),
+        "sentinel": IntRange(0, shape.n_units * 64),
+    }
+
+
+def check_index_lattice(shape, model: str = "valid") -> None:
+    """Raise :class:`ContractViolation` unless every lattice range of
+    ``shape`` fits int32."""
+    for name, rng in plan_index_ranges(shape, model=model).items():
+        rng.check(f"{model}-model {name} at capacities of {_label(shape)}")
+
+
+def max_damaged_segment_chunks(shape) -> int:
+    """Largest chunk count of one unvalidated damaged segment for which
+    the adversarial write base still cannot wrap int32."""
+    per_chunk = 64 * shape.s_max
+    head = INT32_MAX - shape.n_units * 64 - write_overshoot(shape.s_max)
+    return max(0, head // per_chunk)
+
+
+def _label(shape) -> str:
+    lab = getattr(shape, "label", None)
+    return lab() if callable(lab) else repr(shape)
+
+
+# ---------------------------------------------------------------------------
+# Lane-graph liveness (the identity-lane-graph contract)
+# ---------------------------------------------------------------------------
+
+#: The plan operands that encode the lane permutation and chain adjacency.
+#: On identity plans (``permuted=False``) the decode uses the shift and
+#: direct-scan forms instead of indexing through these arrays.
+LANE_GRAPH_ARRAYS = ("chunk_prev", "chunk_next", "lane_perm", "chunk_order")
+
+#: Per sync schedule: the lane-graph operands an *identity* program may
+#: index through. ``faithful`` walks the chain through ``chunk_next`` by
+#: construction (its chain step is the algorithm, not creep); the other
+#: three schedules must not touch the graph at all when ``permuted=False``.
+IDENTITY_LIVE_OK: Mapping[str, frozenset] = {
+    "jacobi": frozenset(),
+    "faithful": frozenset({"chunk_next"}),
+    "sequential": frozenset(),
+    "specmap": frozenset(),
+}
+
+
+def identity_live_ok(sync: str) -> frozenset:
+    try:
+        return IDENTITY_LIVE_OK[sync]
+    except KeyError:
+        raise ContractViolation(
+            f"no lane-graph liveness entry for sync schedule {sync!r}; "
+            f"add it to contracts.IDENTITY_LIVE_OK") from None
+
+
+#: The traced-program checker's contracts (``python -m repro_torch.analysis
+#: contracts``), as data: name -> description. The JAX package's
+#: ``JAXPR_CONTRACTS`` in their torch form; the two that need several
+#: cards are listed and reported as not run.
+TRACE_CONTRACTS: Dict[str, str] = {
+    "identity-lane-graph": (
+        "identity (permuted=False) programs never index through lane-graph "
+        "operands outside IDENTITY_LIVE_OK[sync]: a dispatch mode taints "
+        "the plan buffers of LANE_GRAPH_ARRAYS and follows the taint "
+        "through every aten op and kernel launch of a decode; permuted "
+        "programs must show a tainted index (flip check)"),
+    "no-f64": "no float64 tensor in or out of any op of the entropy stage",
+    "no-host-read": (
+        "between the plan upload and the entropy stage's return the only "
+        "reads to the host are core.sync.host_check's, as many as the "
+        "decode's RoundBlocks.checks (no .item(), nonzero, boolean-mask "
+        "index or copy to the CPU; on the card the syncs that "
+        "torch.cuda.set_sync_debug_mode sees, counted too)"),
+    "graph-buffers": (
+        "every CUDA graph of a program's sync rounds holds only kernel, "
+        "memset and device-to-device copy nodes, two of them the exit "
+        "kernel's; before each replay those exit nodes read and write the "
+        "program's buffers and compact tables at their current addresses "
+        "(or the graph's own temporaries); after it the exits lie in one "
+        "of the program's two exit buffers; and nothing a decode returns "
+        "shares storage with a program buffer"),
+    "int32-lattice": (
+        "plan index arithmetic cannot overflow int32 at the shape's "
+        "(bucketed) capacities under the valid-bitstream model, the "
+        "largest ladder rung the runtime guard admits included, and the "
+        "adversarial headroom bound is reported"),
+    "collective-accounting": (
+        "waits for the lane split across cards (ROADMAP A9b): collective "
+        "counts against the exchange's byte accounting; not run on one "
+        "card"),
+    "words-donated-mesh": (
+        "waits for the lane split across cards (ROADMAP A9b): the mesh "
+        "half of the JAX package's words-donated; not run on one card"),
+}
+
+#: The contracts of TRACE_CONTRACTS that need several cards: reported as
+#: not run, never as passed.
+MULTI_CARD_CONTRACTS = ("collective-accounting", "words-donated-mesh")
 
 
 def check_block_cover(extent: int, tile: int, blocks: int, what: str,

@@ -57,7 +57,8 @@ count.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Protocol,
+                    Tuple)
 
 import torch
 
@@ -103,17 +104,22 @@ class RoundBlocks:
     ``checks`` counts this decode's host checks. ``size=1`` with no hints
     is the per-round form: a check after every iteration. ``graphs``, a
     program's cache of CUDA graphs, lets the Jacobi rounds replay two at
-    a time (:func:`_verify`).
+    a time (:func:`_verify`). ``audit`` (None but in the traced-program
+    checker, ``analysis/trace_check.py``) is told of each graph captured
+    and each replay, and may refuse a replay by raising
+    (:func:`_graph_pairs`).
     """
 
     def __init__(self, size: int = BLOCK_ROUNDS,
                  hints: Optional[Dict[str, int]] = None,
-                 graphs: Optional[Dict[Tuple, object]] = None):
+                 graphs: Optional[Dict[Tuple, object]] = None,
+                 audit: Optional["GraphAudit"] = None):
         if size < 1:
             raise ValueError(f"block size must be at least 1, got {size}")
         self.size = size
         self.hints = {} if hints is None else hints
         self.graphs = graphs
+        self.audit = audit
         self.checks = 0
         self.replays = 0
 
@@ -213,6 +219,21 @@ def _full_decode(decode_exits: DecodeExitsFn, dev: Dev, entry: DecodeState,
     return decode_exits(dev, entry, out=out)
 
 
+class GraphAudit(Protocol):
+    """What :func:`_graph_pairs` tells an audit (``RoundBlocks.audit``)."""
+
+    def captured(self, key: Tuple, graph) -> None:
+        """A graph was captured (with ``keep_graph=True``) and
+        instantiated under ``key``; the program's buffers are those it
+        read."""
+
+    def replaying(self, key: Tuple, graph) -> None:
+        """``graph`` is about to replay; raising stops the replay."""
+
+    def replayed(self, key: Tuple, exits: DecodeState) -> None:
+        """The graph of ``key`` replayed, leaving the exits in ``exits``."""
+
+
 def _graph_pairs(body: Callable[[], None], st: Dict, bufs: ExitBuffers,
                  blocks: "RoundBlocks", key: Tuple) -> Callable[[int], None]:
     """``run(n)`` for :meth:`RoundBlocks.loop`: ``n // 2`` replays of a
@@ -225,19 +246,20 @@ def _graph_pairs(body: Callable[[], None], st: Dict, bufs: ExitBuffers,
     addresses: the program's plan buffers, metadata, ``bufs`` and flags,
     and the compact tables in ``key``. A replay runs the kernels without
     their wrappers, so it adds to ``blocks.replays``, not to the wrappers'
-    launch counts.
+    launch counts. With ``blocks.audit`` the graph is kept after capture
+    (``keep_graph=True``) so that the audit can read it, and the audit
+    sees every capture and replay.
     """
-    graphs = blocks.graphs
+    graphs, audit = blocks.graphs, blocks.audit
 
     def run(n: int) -> None:
         for _ in range(n // 2):
             side = 0 if st["exits"].p is bufs[0].p else 1
             graph = graphs.get(key + (side,))
-            blocks.replays += 1
             if graph is None:
                 for old in [k for k in graphs if k[:-1] != key]:
                     del graphs[old]  # read compact tables of the past
-                graph = torch.cuda.CUDAGraph()
+                graph = torch.cuda.CUDAGraph(keep_graph=audit is not None)
                 # thread_local: the decode service's other threads may pin
                 # and copy memory meanwhile
                 with torch.cuda.graph(graph,
@@ -245,7 +267,15 @@ def _graph_pairs(body: Callable[[], None], st: Dict, bufs: ExitBuffers,
                     body()
                     body()
                 graphs[key + (side,)] = graph
+                if audit is not None:
+                    graph.instantiate()
+                    audit.captured(key + (side,), graph)
+            if audit is not None:
+                audit.replaying(key + (side,), graph)
+            blocks.replays += 1
             graph.replay()
+            if audit is not None:
+                audit.replayed(key + (side,), st["exits"])
         if n % 2:
             body()
     return run

@@ -16,10 +16,19 @@ checked. Only the kernel verifier (``analysis/kernel_check.py``,
 ``kernels/seeds.py``) asks for it, by that argument; the decoder's
 wrappers always load the release build.
 
+Kernel launches through ``ctypes`` do not pass through PyTorch's
+dispatcher, so a dispatch mode does not see them. The traced-program
+checker (``analysis/trace_check.py``) sees them through a launch recorder
+(:func:`recording_launches`): while one is installed in a thread,
+:func:`ptr` hands it each tensor it passes to a kernel and :func:`check`
+closes the launch under the kernel's name. With none installed both do
+nothing more.
+
 Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,7 +37,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -41,6 +50,8 @@ CHECK_FLAGS = ("-DRT_CHECK", "-lineinfo")
 _LIBS: Dict[Tuple[str, bool], ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str, bool], Callable[..., int]] = {}
 _LOCK = threading.Lock()
+# the launch recorder of each thread (recording_launches)
+_RECORDING = threading.local()
 
 
 def nvcc_path() -> str:
@@ -136,13 +147,33 @@ def entry(lib: str, name: str, argtypes,
     return fn
 
 
+@contextlib.contextmanager
+def recording_launches(recorder) -> Iterator[None]:
+    """Hand this thread's kernel launches to ``recorder`` while the block
+    runs: ``recorder.operand(t)`` for each tensor :func:`ptr` passes to a
+    kernel, then ``recorder.launch(what)`` when :func:`check` closes the
+    launch."""
+    before = getattr(_RECORDING, "recorder", None)
+    _RECORDING.recorder = recorder
+    try:
+        yield
+    finally:
+        _RECORDING.recorder = before
+
+
 def check(err: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
+    recorder = getattr(_RECORDING, "recorder", None)
+    if recorder is not None:
+        recorder.launch(what)
     if err != 0:
         raise RuntimeError(f"{what} failed with CUDA error {err}")
 
 
 def ptr(t) -> ctypes.c_void_p:
+    recorder = getattr(_RECORDING, "recorder", None)
+    if recorder is not None:
+        recorder.operand(t)
     return ctypes.c_void_p(t.data_ptr())
 
 

@@ -89,7 +89,7 @@ def run_color_kernel(planes: List[torch.Tensor], comp_h, comp_v,
     out = torch.empty((n, height, width, 3), dtype=torch.uint8, device=dev)
     ints3 = ctypes.c_int * 3
     fn = B.entry("color", "rt_upsample_color", _ARGS, checked)
-    B.check(fn((ctypes.c_void_p * 3)(*(p.data_ptr() for p in planes)),
+    B.check(fn((ctypes.c_void_p * 3)(*(B.ptr(p) for p in planes)),
                ints3(*(p.shape[1] for p in planes)),
                ints3(*(p.shape[2] for p in planes)), ints3(*fv), ints3(*fh),
                B.ptr(out), n, height, width, B.stream_of(out)),

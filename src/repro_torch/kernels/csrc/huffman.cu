@@ -85,10 +85,18 @@
 // The checked build (-DRT_CHECK, check.cuh) guards every lane read and
 // exit store, the staged tables against the block's shared memory, the
 // stream rows, the store target and the warp's slot reads.
+//
+// rt_graph_nodes, host code only, reads a captured CUDA graph for the
+// traced-program checker (analysis/trace_check.py): each node's type, which
+// kernel nodes are exit-kernel launches and the pointers those read and
+// write, and the memory each copy node reads and writes. It lives here
+// because only the runtime that launched the exit kernel can name it in a
+// graph node: each library links its own copy of the runtime.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+#include <vector>
 
 #include "geometry.cuh"
 #include "huffman.cuh"
@@ -408,9 +416,109 @@ static_assert(rt::kStreamThreadChoices[0] == 256 &&
 static_assert(rt::kStoreThreadChoices[0] == 128 &&
               rt::kStoreThreadChoices[1] == 256, "store kernel choices");
 
+// -- The graph reader (rt_graph_nodes) ---------------------------------------
+
+// int64 words per node in rt_graph_nodes' output
+constexpr int kNodeWords = 18;
+// exit-kernel pointer operands reported per node
+constexpr int kExitNodePointers = 14;
+
+bool is_exit_kernel(const void* func) {
+  const void* mine[] = {
+      reinterpret_cast<const void*>(exits_kernel<true, 128>),
+      reinterpret_cast<const void*>(exits_kernel<false, 128>),
+      reinterpret_cast<const void*>(exits_kernel<true, 256>),
+      reinterpret_cast<const void*>(exits_kernel<false, 256>),
+      reinterpret_cast<const void*>(exits_kernel<true, 512>),
+      reinterpret_cast<const void*>(exits_kernel<false, 512>)};
+  for (const void* f : mine) {
+    if (f == func) return true;
+  }
+  return false;
+}
+
+// The memory a copy node reads or writes: a cudaMemoryType (0: host memory
+// the runtime does not know, 1: pinned host, 2: device, 3: managed); an
+// array is device memory.
+long long memory_type(const void* ptr, cudaArray_t array) {
+  if (array != nullptr) return cudaMemoryTypeDevice;
+  cudaPointerAttributes attr;
+  if (cudaPointerGetAttributes(&attr, ptr) != cudaSuccess) {
+    cudaGetLastError();
+    return cudaMemoryTypeUnregistered;
+  }
+  return attr.type;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The nodes of a CUDA graph (a cudaGraph_t, as torch.cuda.CUDAGraph's
+// raw_cuda_graph() gives it), kNodeWords int64 words each in `out`, for
+// the first `cap` nodes; returns the node count (which may exceed `cap`)
+// or minus a CUDA error. Word 0 is the node's cudaGraphNodeType. Kernel
+// nodes: word 1 is 1 for the exit kernel, 0 for another kernel, minus the
+// error where the runtime cannot read the node's parameters (a kernel it
+// did not launch); an exit node has its lane count in word 3 and its
+// pointer operands in words 4-17: words, word_base, ts, limit, upm, in_p,
+// in_u, in_z, the compact tables, their row starts, out_p, out_u, out_z,
+// out_n. Copy nodes: the memory types of the source (word 1) and the
+// destination (word 2), and the cudaMemcpyKind (word 3).
+int rt_graph_nodes(void* graph, long long* out, int cap) {
+  const cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess) return -(int)err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0 && (err = cudaGraphGetNodes(g, nodes.data(), &n)) != cudaSuccess) {
+    return -(int)err;
+  }
+  for (size_t i = 0; i < n && i < (size_t)cap; ++i) {
+    long long* w = out + i * kNodeWords;
+    for (int k = 0; k < kNodeWords; ++k) w[k] = 0;
+    cudaGraphNodeType type;
+    if ((err = cudaGraphNodeGetType(nodes[i], &type)) != cudaSuccess) {
+      return -(int)err;
+    }
+    w[0] = type;
+    if (type == cudaGraphNodeTypeKernel) {
+      cudaKernelNodeParams p;
+      if ((err = cudaGraphKernelNodeGetParams(nodes[i], &p)) != cudaSuccess) {
+        cudaGetLastError();
+        w[1] = -(long long)err;
+        continue;
+      }
+      if (!is_exit_kernel(p.func)) continue;
+      w[1] = 1;
+      if (p.kernelParams == nullptr) return -(int)cudaErrorInvalidValue;
+      const LaneInputs& a = *static_cast<const LaneInputs*>(p.kernelParams[0]);
+      const CompactTables& t =
+          *static_cast<const CompactTables*>(p.kernelParams[1]);
+      const void* ptrs[kExitNodePointers] = {
+          a.words, a.word_base, a.ts, a.limit, a.upm, a.in_p, a.in_u, a.in_z,
+          t.tab, t.offs,
+          *static_cast<void* const*>(p.kernelParams[2]),
+          *static_cast<void* const*>(p.kernelParams[3]),
+          *static_cast<void* const*>(p.kernelParams[4]),
+          *static_cast<void* const*>(p.kernelParams[5])};
+      w[3] = a.n_lanes;
+      for (int k = 0; k < kExitNodePointers; ++k) {
+        w[4 + k] = (long long)reinterpret_cast<uintptr_t>(ptrs[k]);
+      }
+    } else if (type == cudaGraphNodeTypeMemcpy) {
+      cudaMemcpy3DParms p;
+      if ((err = cudaGraphMemcpyNodeGetParams(nodes[i], &p)) != cudaSuccess) {
+        return -(int)err;
+      }
+      w[1] = memory_type(p.srcPtr.ptr, p.srcArray);
+      w[2] = memory_type(p.dstPtr.ptr, p.dstArray);
+      w[3] = p.kind;
+    }
+  }
+  return (int)n;
+}
+
 
 // Each kernel's compact tables go to shared memory when they take at most
 // `smem_budget` bytes, else they are read from global memory. `threads`:

@@ -45,6 +45,7 @@ _SIGNATURES = {
     + [_I] * 5 + [_VP],
     "rt_decode_store": [_VP, _I, _VP, _I, _VP, _I] + [_VP] * 10
     + [_LL] + [_I] * 6 + [_VP],
+    "rt_graph_nodes": [_VP, _VP, _I],
 }
 
 # The shared memory the exit, stream and store kernels may give their
@@ -378,3 +379,36 @@ def decode_coeffs(dev: Dev, meta: Dev, entry: DecodeState,
                               min_code_bits=min_code_bits, out=streams,
                               launch=launch)
     return scatter_streams(pos, val, write_base, write_max, n_coef, out)
+
+
+# ---------------------------------------------------------------------------
+# The graph reader (the traced-program checker's, analysis/trace_check.py)
+# ---------------------------------------------------------------------------
+
+#: int64 words a node takes in :func:`graph_nodes` (csrc/huffman.cu
+#: ``kNodeWords``): type; kernel: 1 for the exit kernel, 0 for another, -err
+#: for one the exit kernel's runtime cannot read; copy: source and
+#: destination memory types and the copy's kind; an exit node's lane
+#: count (word 3) and its pointer operands (words 4-17, ``EXIT_NODE_POINTERS``)
+NODE_WORDS = 18
+EXIT_NODE_POINTERS = ("words", "word_base", "ts", "limit", "upm", "in_p",
+                      "in_u", "in_z", "luts_compact", "unit_lut_off",
+                      "out_p", "out_u", "out_z", "out_n")
+
+
+def graph_nodes(graph) -> torch.Tensor:
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``) as ``rt_graph_nodes`` reads them: an (N,
+    :data:`NODE_WORDS`) int64 CPU tensor, a row a node."""
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    cap = 64
+    while True:
+        out = torch.zeros((cap, NODE_WORDS), dtype=torch.int64)
+        n = kernel_fn("rt_graph_nodes")(raw, ctypes.c_void_p(out.data_ptr()),
+                                        cap)
+        if n < 0:
+            raise RuntimeError(f"rt_graph_nodes failed with CUDA error {-n}")
+        if n <= cap:
+            return out[:n]
+        cap = n
+
