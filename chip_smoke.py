@@ -63,6 +63,19 @@ otherwise. Phases, each of which exits non-zero on failure:
    ``"roundrobin"`` over 4 lane blocks, jacobi ``post`` and ``full``,
    decoded eagerly and then from CUDA graphs: coefficients, RGB and sync
    rounds equal to the identity plan's; the real chunks per block;
+8b. the decode over a mesh (``ParallelDecoder.decode_on``): the 32
+   frames over a mesh of the one card, over ``Mesh([cuda:0] * 4)`` (four
+   lane blocks on one card, exchanging by local copies) and, on a machine
+   with several cards, over all of them: jacobi ``post``, ``full`` and
+   ``none``, faithful and specmap ``post``, and jacobi ``post`` on an
+   ``lpt`` plan over 4 blocks, each decoded eagerly and then from each
+   block's round graphs; coefficients, RGB, ``sync_rounds`` and
+   ``converged`` equal (``torch.equal``) to ``decode()`` of the same
+   plan, every block with lanes launched the exit kernel and every block
+   with images the pixel kernel. Prints each decode's warm ms beside
+   ``decode()``'s, lanes and rows per block, host checks, graph replays,
+   exchange bytes a round and in all, peer access and the launches per
+   block;
 9. two processes: ``decode_multihost`` in two subprocesses over a
    ``TCPStore`` on localhost (this script with ``--mp-rank``; a hard
    timeout kills both), each decoding its half of the frames on
@@ -172,7 +185,7 @@ otherwise. Phases, each of which exits non-zero on failure:
    tokens/s, grad norms, peak memory, the top kernels and the bound.
 
 ``launches`` in the kernel record counts phase 4's paths, phase 7's
-stream, phase 12's requests and phase 14c's steps, and for the seeds
+stream, phase 8b's mesh decodes, phase 12's requests and phase 14c's steps, and for the seeds
 S1-S3 phase 10's self-test. The line before the
 last is the per-kernel JSON record; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -272,6 +285,93 @@ def bound(bytes_moved: int, ops: float, ops_per_s: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- phase 8b: the decode over a mesh ------------------------------------------
+
+# (label, sync, fuse, balance) of phase 8b; lpt balances over 4 blocks
+MESH_PATHS = (("jacobi/post", "jacobi", "post", "none"),
+              ("jacobi/full", "jacobi", "full", "none"),
+              ("jacobi/none", "jacobi", "none", "none"),
+              ("faithful/post", "faithful", "post", "none"),
+              ("specmap/post", "specmap", "post", "none"),
+              ("jacobi/post lpt", "jacobi", "post", "lpt"))
+
+
+def mesh_decodes(args, blobs, gpu, counters, kernels) -> None:
+    """Phase 8b: ``decode_on`` over a mesh of the one card, over four
+    blocks of it and, where the machine has several, over its cards, on
+    every path of ``MESH_PATHS``; each held ``torch.equal`` to
+    ``decode()`` of the same plan with equal rounds."""
+    from repro_torch.core.api import ParallelDecoder
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    import repro_torch.core.api as api
+
+    t_phase = time.perf_counter()
+    meshes = [Mesh([gpu]), Mesh([gpu] * 4)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(make_host_mesh())
+    for label, sync, fuse, balance in MESH_PATHS:
+        dec = ParallelDecoder.from_bytes(
+            blobs, chunk_bits=args.chunk_bits, sync=sync, fuse=fuse,
+            balance=balance, lanes=4 if balance != "none" else None)
+        ref = dec.decode()
+        single = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.decode()
+            torch.cuda.synchronize()
+            single.append((time.perf_counter() - t0) * 1e3)
+        for mesh in meshes:
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            outs = [dec.decode_on(mesh) for _ in range(2)]
+            torch.cuda.synchronize()
+            counts = {k: getattr(fn, attr)
+                      for k, (fn, attr) in counters.items()}
+            for rec in kernels:
+                rec["launches"] += counts[rec["name"]]
+            what = f"phase 8b: {label} on {mesh.size} block(s) of " \
+                f"{len(set(mesh.devices.flat))} card(s)"
+            for out in outs:
+                check(torch.equal(out.coeffs.full(gpu), ref.coeffs)
+                      and torch.equal(out.rgb.full(gpu), ref.rgb)
+                      and out.sync_rounds == ref.sync_rounds
+                      and out.converged == ref.converged,
+                      f"{what}: differs from decode()")
+            m = outs[-1].mesh
+            if mesh.size > 1:
+                for b, (n, launched, rows) in enumerate(zip(
+                        m["lanes"], m["launches"], m["rows"])):
+                    check(not n or launched.get("huffman_exits", 0) > 0,
+                          f"{what}: block {b} launched no exit kernel")
+                    pix = "idct" if fuse == "none" else "fused_pixels"
+                    check(rows[0] == rows[1] or launched.get(pix, 0) > 0,
+                          f"{what}: block {b} launched no {pix}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec.decode_on(mesh)
+            torch.cuda.synchronize()
+            warm = (time.perf_counter() - t0) * 1e3
+            m = out.mesh
+            launches = m.get("launches") or []
+            print(f"[mesh] {label} on {mesh}: equal to decode() "
+                  f"({out.sync_rounds} rounds); warm {warm:.2f} ms "
+                  f"(decode() {statistics.median(single):.2f} ms); lanes "
+                  f"{m.get('lanes')}, rows {m.get('rows')}; host checks "
+                  f"{m['host_checks']}, graph replays {m['graph_replays']}; "
+                  f"exchange {m.get('round_bytes', 0)} B a round, "
+                  f"{m.get('copy_bytes', {})} B in all; peer access "
+                  f"{m.get('peer_access', {})}; launches per block "
+                  + "; ".join(", ".join(f"{k} {v}" for k, v in
+                                        sorted(d.items()) if v)
+                              for d in launches), flush=True)
+            del outs, out
+        del dec, ref
+        api.clear_decode_programs()
+    print(f"[mesh] phase 8b {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # -- phase 9: decode_multihost in two processes on the card -------------------
@@ -567,7 +667,8 @@ def verify_kernels(args, blobs, layouts, gpu) -> list:
 TRACE_SEEDS = {"gather-creep", "float64 op", ".item() in a sync round",
                "returned work-buffer view",
                "buffer reallocated after capture",
-               "device-to-host copy in a graph"}
+               "device-to-host copy in a graph", "skipped halo edge",
+               "output aliasing a block's buffer"}
 
 
 def check_traces(blobs, gpu) -> None:
@@ -583,6 +684,9 @@ def check_traces(blobs, gpu) -> None:
           f"violations; seeds not caught: {report.failures}")
     caught = {v.cell for v in report.caught}
     check(caught == TRACE_SEEDS, f"phase 10b: seeds caught {sorted(caught)}")
+    check(len(report.meshes) == 2 and all(m.graphs for m in report.meshes),
+          f"phase 10b: the mesh contracts ran on {len(report.meshes)} mesh "
+          f"cells and read {[m.graphs for m in report.meshes]} graphs")
     graphs = 0
     for r in report.cells:
         if r.cell.full_width and r.cell.sync == "jacobi":
@@ -2703,6 +2807,9 @@ def main() -> None:
             del dec, outs
         del ident
         api.clear_decode_programs()
+
+    # -- 8b. the decode over a mesh -----------------------------------------
+    mesh_decodes(args, blobs, gpu, counters, kernels)
 
     # -- 9. two processes on the card ----------------------------------------
     run_processes(args, blobs, plain_coeffs, plain_rgb[False])

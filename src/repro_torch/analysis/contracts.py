@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from ..core.contracts import (IDENTITY_LIVE_OK, INT32_MAX, INT32_MIN,
                               KERNEL_CHECK_FAMILIES, LANE_GRAPH_ARRAYS,
-                              MULTI_CARD_CONTRACTS, TRACE_CONTRACTS,
+                              MESH_CONTRACTS, TRACE_CONTRACTS,
                               VERIFIED_SCATTER_MODULES, ContractViolation,
                               IntRange, check_block_cover,
                               check_index_lattice, check_shape_capacities,
@@ -22,7 +22,7 @@ from ..core.contracts import (IDENTITY_LIVE_OK, INT32_MAX, INT32_MIN,
 
 __all__ = ["IDENTITY_LIVE_OK", "INT32_MAX", "INT32_MIN",
            "KERNEL_CHECK_FAMILIES", "LANE_GRAPH_ARRAYS",
-           "MULTI_CARD_CONTRACTS", "TRACE_CONTRACTS",
+           "MESH_CONTRACTS", "TRACE_CONTRACTS",
            "VERIFIED_SCATTER_MODULES", "ContractViolation", "IntRange",
            "check_block_cover", "check_index_lattice",
            "check_shape_capacities", "checked_coeff_capacity",

@@ -56,9 +56,23 @@ The contracts (``core.contracts.TRACE_CONTRACTS``):
 * **int32-lattice**: ``contracts.check_index_lattice`` over every shape
   of the grid and the largest ladder rung the runtime guard admits.
 
-collective-accounting and the mesh half of words-donated need several
-cards (ROADMAP A9b): the catalog lists them and :func:`run` reports them
-as not run.
+Two contracts run on a decode over a mesh of two blocks or more
+(``ParallelDecoder.decode_on``, :func:`check_mesh`), on cards or on CPU
+blocks, and are not applicable to a mesh of one:
+
+* **collective-accounting**: a :class:`MeshTracker` counts the bytes of
+  every copy from one block's buffers into another's (the halo exchange,
+  specmap's phase maps, the sequence sums, the sequences' spans and the
+  rows sent to their owners, by the buffer they land in); they equal the
+  program's own account (``DecodeOutput.mesh["expected_bytes"]``, worked
+  out from the layout and the pieces' sizes the write pass reads), per
+  exchange of the rounds and per write pass; and the taint
+  of each block's lane graph reaches the halo of every block that reads
+  it (the copies between blocks carry taint, across cards too).
+* **words-donated-mesh**, the mesh half of words-donated: nothing a mesh
+  decode returns shares storage with any block's buffers, and on the
+  card each block's round graphs read only that block's buffers and
+  compact tables, or the graph's own temporaries.
 
 The checker runs on the card unless asked for the CPU (``device="cpu"``,
 ``--device cpu``), where the grid has the plain backend only and no graph.
@@ -85,13 +99,16 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from . import contracts
 from ..core import decode as D
 from ..core import sync as SY
+from ..core import mesh_decode as MD
 from ..core.api import (ParallelDecoder, clear_decode_programs,
-                        discard_decode_programs, resolve_device, run_sync)
+                        discard_decode_programs, lut_tables, mesh_program,
+                        resolve_device, run_sync)
 from ..core.bitstream import bucket_capacity
 from ..core.state import DecodeState
 from ..jpeg.encoder import DatasetSpec, build_dataset
 from ..kernels import build as B
 from ..kernels.huffman import ops as HK
+from ..launch.mesh import Mesh, make_host_mesh
 
 SYNCS = ("jacobi", "faithful", "sequential", "specmap")
 
@@ -968,6 +985,191 @@ def check_cell(cell: Cell, device) -> CellResult:
 
 
 # ---------------------------------------------------------------------------
+# The mesh contracts: collective-accounting and words-donated-mesh
+# ---------------------------------------------------------------------------
+
+# the buffer a copy between blocks lands in -> what the program calls it
+_EXCHANGE_BUFFERS = {"ext": "halo", "maps": "maps", "seq_all": "seq_sums",
+                     "spans": "spans", "recv": "rows"}
+
+
+def _exchange_kind(name: str) -> str:
+    return _EXCHANGE_BUFFERS.get(name, f"into {name}")
+
+
+class MeshTracker(TaintTracker):
+    """A :class:`TaintTracker` that also counts the bytes of every copy
+    from one block's buffer into another block's (``owners``: a storage's
+    address -> (block, buffer name)), by the kind of exchange the target
+    buffer says."""
+
+    def __init__(self, seeds, owners: Dict[int, Tuple[int, str]]):
+        super().__init__(seeds)
+        self.owners = owners
+        self.copies: Dict[str, int] = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if func.overloadpacket.__name__ == "copy_":
+            src = self.owners.get(_key(args[1]))
+            dst = self.owners.get(_key(args[0]))
+            if src and dst and src[0] != dst[0]:
+                self.copies[_exchange_kind(dst[1])] += \
+                    args[1].numel() * args[1].element_size()
+        return out
+
+
+@dataclasses.dataclass
+class MeshResult:
+    label: str
+    blocks: int
+    violations: List[Violation]
+    copies: Dict[str, int]
+    expected: Dict[str, int]
+    graphs: int = 0
+
+
+def _spans(tensors) -> List[Tuple[torch.device, int, int]]:
+    out = []
+    for t in tensors:
+        s = t.untyped_storage()
+        out.append((t.device, s.data_ptr(), s.data_ptr() + s.nbytes()))
+    return out
+
+
+def check_mesh_outputs(out, prog, cell: str) -> List[Violation]:
+    """words-donated-mesh, outputs: no piece a mesh decode returns shares
+    storage with any block's buffers."""
+    spans = _spans(t for b in prog.blocks for t in b.tensors())
+    fields = [("coeffs", out.coeffs), ("rgb", out.rgb)] + [
+        (f"planes[{i}]", p) for i, p in enumerate(out.planes or [])]
+    bad = []
+    for field, sh in fields:
+        for i, t in enumerate([] if sh is None else sh.pieces):
+            (dev, lo, hi), = _spans([t])
+            if hi > lo and any(d == dev and lo < b and a < hi
+                               for d, a, b in spans):
+                bad.append(f"{field} piece {i}")
+    if not bad:
+        return []
+    return [Violation("words-donated-mesh", cell,
+                      f"a mesh decode returns block memory: {bad[:4]}")]
+
+
+def check_mesh_graphs(prog, tables: Dict[torch.device, torch.Tensor],
+                      cell: str) -> Tuple[int, List[Violation]]:
+    """words-donated-mesh, graphs: each exit-kernel node of each block's
+    round graphs reads and writes only that block's buffers and its card's
+    compact tables, or the graph's own memory pool."""
+    n, out = 0, []
+    for b, bp in enumerate(prog.blocks):
+        own = _spans(bp.tensors() + [tables[bp.device]])
+        for key, graph in bp.graphs.items():
+            n += 1
+            pool = pool_spans(graph)
+            for row in HK.graph_nodes(graph).tolist():
+                if node_kind(row) != "exit kernel":
+                    continue
+                for name, p in zip(HK.EXIT_NODE_POINTERS, row[4:18]):
+                    if not any(a <= p < e for _, a, e in own) and \
+                            not any(a <= p < e for a, e in pool):
+                        out.append(Violation(
+                            "words-donated-mesh", cell,
+                            f"block {b}'s round graph reads {name} at "
+                            f"{p:#x}, outside its card's buffers"))
+    return n, out
+
+
+def check_mesh(dec: ParallelDecoder, mesh: Mesh, cell: str,
+               emit: str = "rgb") -> MeshResult:
+    """Both mesh contracts on one decoder over ``mesh`` (two blocks or
+    more): a first decode allocates (and on the card loads the kernels),
+    the second, traced, captures the round graphs on the card."""
+    mesh = mesh.flat()
+    dec.decode_on(mesh, emit=emit)
+    prog = mesh_program(dec.shape, dec.sync, dec.backend, dec.fuse, mesh,
+                        dec.launch)
+    cuda = mesh.device_type == "cuda"
+    prog.keep_graphs = cuda
+    owners = {}
+    for b, bp in enumerate(prog.blocks):
+        for name, t in bp.bufs.items():
+            owners[_key(t)] = (b, name)
+        for name, t in (bp.plan or {}).items():
+            owners[_key(t)] = (b, "plan:" + name)
+    seeds = {f"lane@{b}": bp.bufs["lay_prev"]
+             for b, bp in enumerate(prog.blocks)}
+    tracker = MeshTracker(seeds, owners)
+    try:
+        with tracing(tracker):
+            out = dec.decode_on(mesh, emit=emit)
+        vs: List[Violation] = []
+        got = {k: v for k, v in tracker.copies.items() if v}
+        exp = out.mesh["expected_bytes"]
+        if got != exp:
+            vs.append(Violation(
+                "collective-accounting", cell,
+                f"copies between blocks {got} != the program's account "
+                f"{exp}"))
+        ex = out.mesh["exchanges"]
+        if ex and got.get("halo", 0) != ex * out.mesh["round_bytes"]:
+            vs.append(Violation(
+                "collective-accounting", cell,
+                f"halo copies {got.get('halo', 0)} over {ex} exchanges, "
+                f"not {out.mesh['round_bytes']} bytes each"))
+        lay, _ = dec.mesh_layout(mesh.size)
+        for b, blk in enumerate(lay.blocks):
+            reads = {f"lane@{a}" for a, _, _ in blk.recv}
+            have = tracker.taint_of(prog.blocks[b].bufs["ext"])
+            if not reads <= have:
+                vs.append(Violation(
+                    "collective-accounting", cell,
+                    f"block {b}'s halo lacks the taint of "
+                    f"{sorted(reads - have)}: a copy between blocks "
+                    f"dropped it"))
+        vs += check_mesh_outputs(out, prog, cell)
+        graphs = 0
+        if cuda:
+            tables = {d: lut_tables(dec._arrays["luts"], d)[0]
+                      for d in {bp.device for bp in prog.blocks}}
+            graphs, more = check_mesh_graphs(prog, tables, cell)
+            vs += more
+            if not graphs:
+                vs.append(Violation("words-donated-mesh", cell,
+                                    "the warm mesh decode captured no "
+                                    "round graph"))
+        return MeshResult(cell, mesh.size, vs, got, exp, graphs)
+    finally:
+        prog.keep_graphs = False
+        discard_decode_programs(lambda p: p is prog)
+
+
+def mesh_cells(device: torch.device) -> List[Tuple[str, ParallelDecoder,
+                                                    Mesh]]:
+    """The mesh cells, each over two blocks (two cards where the machine
+    has them, else two blocks of one card or of the CPU), at 128-bit
+    chunks in sequences of 4: a single-segment 32x16 frame on the
+    identity plan with jacobi (blocks cut inside its segment: halos), and
+    the tier-0 restart batch balanced round-robin over the blocks with
+    specmap (phase maps gathered to every block)."""
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        mesh = make_host_mesh(2)
+    else:
+        mesh = Mesh([device] * 2)
+    backend = "cuda" if device.type == "cuda" else "torch"
+    segment = build_dataset(DatasetSpec("mesh-segment", n_images=1,
+                                        width=32, height=16, quality=90))
+    kw = dict(chunk_bits=128, seq_chunks=4, backend=backend, device=device)
+    plain = ParallelDecoder.from_bytes(list(segment.jpeg_bytes),
+                                       sync="jacobi", **kw)
+    rr = ParallelDecoder.from_bytes(tier0_blobs()["t0-restart"],
+                                    sync="specmap", balance="roundrobin",
+                                    lanes=2, **kw)
+    return [(f"mesh2/segment/jacobi/{backend}", plain, mesh),
+            (f"mesh2/t0-restart/specmap/roundrobin/{backend}", rr, mesh)]
+
+
+# ---------------------------------------------------------------------------
 # The whole checker
 # ---------------------------------------------------------------------------
 
@@ -979,9 +1181,14 @@ class Report:
     shapes: List[object]
     caught: List[Violation] = dataclasses.field(default_factory=list)
     failures: List[str] = dataclasses.field(default_factory=list)
+    meshes: List[MeshResult] = dataclasses.field(default_factory=list)
 
     def lines(self, verbose: bool = False) -> List[str]:
         out = []
+        for m in self.meshes:
+            out.append(f"checked {m.label} over {m.blocks} blocks: copies "
+                       f"between blocks {m.copies} (the program's account "
+                       f"{m.expected}), {m.graphs} round graphs read")
         for r in self.cells:
             if verbose or r.ms is not None:
                 graphs = "; ".join(
@@ -1011,13 +1218,15 @@ class Report:
             out.append(v.format())
         n = len(self.violations) + len(self.failures)
         ran = [c for c in contracts.TRACE_CONTRACTS
-               if c not in contracts.MULTI_CARD_CONTRACTS]
+               if c not in contracts.MESH_CONTRACTS]
+        mesh = ", ".join(contracts.MESH_CONTRACTS)
+        on_mesh = (f"on {len(self.meshes)} mesh cells: {mesh}" if
+                   self.meshes else f"not run, no mesh of two blocks or "
+                   f"more was checked: {mesh}")
         out.append(
             f"{n} contract violation{'s' if n != 1 else ''} across "
             f"{len(self.cells)} cells ({len(self.shapes)} shapes, "
-            f"{self.device}; contracts: {', '.join(ran)}; not run, they "
-            f"need several cards (ROADMAP A9b): "
-            f"{', '.join(contracts.MULTI_CARD_CONTRACTS)})")
+            f"{self.device}; contracts: {', '.join(ran)}; {on_mesh})")
         return out
 
     @property
@@ -1027,11 +1236,16 @@ class Report:
 
 def check(device="cuda", self_test: bool = False,
           cells: Optional[List[Cell]] = None,
-          newyork: Optional[List[bytes]] = None) -> Report:
+          newyork: Optional[List[bytes]] = None,
+          meshes: Optional[bool] = None) -> Report:
     """Run the checker over ``cells`` (the grid of :func:`tier0_decoders`
     without them; on the card with the full-width cells of ``newyork``,
-    the batch :func:`newyork_blobs` makes when it is None) and, with
-    ``self_test``, the seeded faults. ``device="cuda"`` needs a card."""
+    the batch :func:`newyork_blobs` makes when it is None), the mesh
+    contracts over :func:`mesh_cells` (``meshes``; by default with the
+    grid) and, with ``self_test``, the seeded faults.
+    ``device="cuda"`` needs a card."""
+    if meshes is None:
+        meshes = cells is None
     dev = resolve_device(device)
     if cells is None:
         if dev.type == "cuda" and newyork is None:
@@ -1046,8 +1260,13 @@ def check(device="cuda", self_test: bool = False,
         if r.shape not in shapes:
             shapes.append(r.shape)
     violations = [v for r in results for v in r.violations]
-    violations += check_lattice(shapes)
-    report = Report(str(dev), results, violations, shapes)
+    if shapes:
+        violations += check_lattice(shapes)
+    mesh_results = [check_mesh(dec, mesh, label) for label, dec, mesh in
+                    (mesh_cells(dev) if meshes else [])]
+    violations += [v for m in mesh_results for v in m.violations]
+    report = Report(str(dev), results, violations, shapes,
+                    meshes=mesh_results)
     if self_test:
         report.failures, report.caught = run_self_test(device=dev.type)
     clear_decode_programs()
@@ -1159,6 +1378,47 @@ def _seed_pinned_copy(dec) -> List[Violation]:
     return classify_nodes(rows, EXIT_NODES_PER_GRAPH, "seeded-pinned-copy")[1]
 
 
+def _seed_skipped_edge(device: str) -> List[Violation]:
+    """A halo exchange that skips one block's first send (the program
+    still counts it) on the identity mesh cell."""
+    label, dec, mesh = mesh_cells(resolve_device(device))[0]
+    deliver = MD.MeshRun.deliver
+
+    def skipping(run, states):
+        blk = next(b for b in run.blocks if b.sends)
+        sends, blk.sends = blk.sends, blk.sends[1:]
+        try:
+            deliver(run, states)
+        finally:
+            blk.sends = sends
+        run.copy_bytes["halo"] += 16 * sends[0][1].numel()
+
+    MD.MeshRun.deliver = skipping
+    try:
+        return check_mesh(dec, mesh, "seeded-skipped-edge").violations
+    finally:
+        MD.MeshRun.deliver = deliver
+
+
+def _seed_mesh_alias(device: str) -> List[Violation]:
+    """A mesh decode whose first coefficient piece is a view of its
+    block's buffer."""
+    import dataclasses as dc
+    label, dec, mesh = mesh_cells(resolve_device(device))[0]
+    out = dec.decode_on(mesh, emit="coeffs")
+    prog = mesh_program(dec.shape, dec.sync, dec.backend, dec.fuse,
+                        mesh.flat(), dec.launch)
+    rows = prog.blocks[0].bufs["rows"]
+    n = out.coeffs.pieces[0].numel()
+    alias = MD.Sharded([rows[:n].view(-1, 64)] + out.coeffs.pieces[1:],
+                       out.coeffs.offsets)
+    try:
+        return check_mesh_outputs(dc.replace(out, coeffs=alias), prog,
+                                  "seeded-alias")
+    finally:
+        discard_decode_programs(lambda p: p is prog)
+
+
 def run_self_test(verbose: bool = False, device: str = "cuda"
                   ) -> Tuple[List[str], List[Violation]]:
     """Prove the checker catches its seeded faults, each by its own
@@ -1166,8 +1426,10 @@ def run_self_test(verbose: bool = False, device: str = "cuda"
     ``chunk_order``), a float64 op in the entropy stage (no-f64), an
     ``.item()`` in a sync-loop body (no-host-read), a returned view of a
     program buffer and a program buffer reallocated after capture
-    (graph-buffers), and on the card a graph that copies to pinned host
-    memory (graph-buffers (a)). Returns ``(failures, caught)``: what was
+    (graph-buffers), on the card a graph that copies to pinned host memory
+    (graph-buffers (a)), and on a mesh of two blocks a halo exchange that
+    skips an edge (collective-accounting) and a returned view of a
+    block's buffer (words-donated-mesh). Returns ``(failures, caught)``: what was
     not caught, and the violations that caught the rest."""
     import dataclasses as dc
 
@@ -1202,4 +1464,8 @@ def run_self_test(verbose: bool = False, device: str = "cuda"
     if cuda:
         expect("device-to-host copy in a graph", _seed_pinned_copy(
             _seed_decoder(device)), "graph-buffers", "pinned host")
+    expect("skipped halo edge", _seed_skipped_edge(device),
+           "collective-accounting", "halo")
+    expect("output aliasing a block's buffer", _seed_mesh_alias(device),
+           "words-donated-mesh", "block memory")
     return failures, caught

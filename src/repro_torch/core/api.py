@@ -57,6 +57,12 @@ store target). A stream of batches that land in one bucket allocates once
 (:func:`decode_program_stats`); :func:`clear_decode_programs` frees the
 memory. What a decode returns never aliases these buffers.
 
+Across the cards of one process: :meth:`ParallelDecoder.decode_on` (and
+``decode_batch(mesh=)``) splits the batch's lanes over a
+``launch.mesh.Mesh`` (``core/mesh_decode.py``), bit-identical to
+``decode()``, in a :class:`MeshProgram` of the same cache keyed by the
+mesh as well.
+
 Resilient decode (``validate=True``): damaged blobs never raise. Each
 blob is classified (:func:`~repro_torch.core.bitstream.validate_batch`);
 rejected images become inert quarantine lanes and recovered ones decode
@@ -84,17 +90,21 @@ from .bitstream import (MAX_UPM, STATUS_OK, BatchPlan, BatchValidation,
                         PlanShape, bucket_capacity, build_batch_plan,
                         build_plan_data, consensus_plan, derived_arrays,
                         plan_shape, validate_batch)
+from . import mesh_decode as MD
+from .mesh_decode import BlockProgram, Sharded
 from .state import DecodeState
 from .sync import (RoundBlocks, SyncResult, chain_entries, faithful_sync,
-                   jacobi_sync, specmap_sync)
+                   jacobi_sync, specmap_sync, sync_limits)
 from ..dist import plan as DP
+from ..dist import sharding as SH
+from ..launch.mesh import Mesh
 from ..jpeg.format import parse_jpeg, segment_byte_bounds, unstuff_scan
 from ..kernels.color.ops import upsample_color, upsample_color_plain
 from ..kernels.fused.ops import (decode_pixels_fused, fuse_traffic,
                                  pixels_fusible)
 from ..kernels.fused.pixels import fused_pixels
-from ..kernels.fused.store import (decode_coeffs_store,
-                                  decode_coeffs_store_plain)
+from ..kernels.fused.store import (decode_coeffs_store, write_coefficients,
+                                  writes_streams)
 from ..kernels.huffman import ops as HK
 from ..kernels.idct.ops import idct_units, idct_units_plain
 from ..kernels.autotune import (DEFAULT_LAUNCH, LaunchConfig,
@@ -127,6 +137,12 @@ class DecodeOutput:
     # plan.unit_valid)
     status: Optional[np.ndarray] = None   # (B,) int32
     validation: Optional[BatchValidation] = None
+    # decode_on: coeffs, rgb and each plane are core.mesh_decode.Sharded
+    # pieces on the mesh's cards; ``mesh`` has the blocks' lanes, rows,
+    # launches by kernel, graph replays, host checks, exchange bytes, the
+    # host's ms by phase ("host_ms") and the sync's exit states ("exits":
+    # Sharded (lanes, 4) p, u, z, n)
+    mesh: Optional[Dict] = None
 
 
 def check_sync(sync: str) -> str:
@@ -359,7 +375,7 @@ class DecodeProgram:
                                torch.zeros((), dtype=torch.int32,
                                            device=dev)),
                      "bases": ints(c)}
-        if self.backend == "cuda" and self.fuse != "full":
+        if writes_streams(self.backend == "cuda", self.fuse):
             self.work["streams"] = (ints(sh.s_max, c), ints(sh.s_max, c))
             self.work["scatter"] = ints(n_coef + c)
         else:
@@ -399,6 +415,44 @@ def decode_program(shape: PlanShape, sync: str = "jacobi",
         if prog is None:
             prog = _PROGRAMS[key] = DecodeProgram(shape, sync, backend, fuse,
                                                   dev, launch)
+    return prog
+
+
+@dataclasses.dataclass(eq=False)
+class MeshProgram(DecodeProgram):
+    """The device side of one bucket decoded over a mesh
+    (:meth:`ParallelDecoder.decode_on`): a
+    :class:`~repro_torch.core.mesh_decode.BlockProgram` a mesh entry, each
+    holding the plan's arrays (words and compact tables included) on its
+    card, its block's buffers and the CUDA graphs of its rounds. ``device``
+    is the mesh; ``hints`` are shared by the blocks; ``peer_access``
+    says which ordered pairs of its cards have peer access; ``keep_graphs``
+    (the traced-program checker's) keeps the graphs readable; ``last`` is
+    the last decode's per-block account (``DecodeOutput.mesh``)."""
+
+    blocks: List[BlockProgram] = dataclasses.field(default_factory=list)
+    grown: int = 0               # decodes that allocated a buffer
+    peer_access: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    keep_graphs: bool = False
+    last: Dict = dataclasses.field(default_factory=dict)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [t for b in self.blocks for t in b.tensors()]
+
+
+def mesh_program(shape: PlanShape, sync: str, backend: str, fuse: str,
+                 mesh: Mesh, launch: LaunchConfig = DEFAULT_LAUNCH
+                 ) -> MeshProgram:
+    """The shared program of a (shape, sync, backend, fuse, mesh, launch)
+    key; ``mesh`` is 1-D."""
+    key = (shape, sync, backend, fuse, ("mesh",) + mesh.key(), launch)
+    with _PROGRAMS_LOCK:
+        prog = _PROGRAMS.get(key)
+        if prog is None:
+            prog = _PROGRAMS[key] = MeshProgram(
+                shape, sync, backend, fuse, mesh, launch,
+                blocks=[BlockProgram(d) for d in mesh.devices.flat],
+                peer_access=MD.peer_access(mesh))
     return prog
 
 
@@ -555,6 +609,9 @@ class ParallelDecoder:
                     and p.launch != launch)
         self.launch = launch
         self.data = build_plan_data(plan, shape)
+        self._layouts: Dict[int, Tuple] = {}    # mesh size -> layout
+        self._on_device: Dict[torch.device, "ParallelDecoder"] = {}
+        self._card_tables: Dict[torch.device, torch.Tensor] = {}
         self.program = decode_program(shape, sync, self.backend, self.fuse,
                                       self.device, launch)
         arrays = dict(self.data.arrays, words=self.data.words)
@@ -570,6 +627,7 @@ class ParallelDecoder:
                     plan.comp_unit_idx[ci].astype(np.int64)
                 arrays[f"comp_block_idx{ci}"] = \
                     plan.comp_block_idx[ci].astype(np.int64)
+        self._arrays = arrays
         pin = self.device.type == "cuda"
         self._host = {k: _host_tensor(a, pin) for k, a in arrays.items()}
         self._staged = None     # (device copies, event) from prefetch()
@@ -772,55 +830,311 @@ class ParallelDecoder:
                 "pixel stage requires a geometry-uniform batch; decode "
                 "images with mixed geometry with emit='coeffs'")
         prog = self.program
-        with prog.lock:
+        # the kernels run on the current device: make it the decoder's
+        with prog.lock, MD.device_ctx(self.device):
             before = launch_counts()
             dev = self._bind()
             out = self._coefficients(dev)
             # a validated batch can lose uniformity to quarantine (every
             # image rejected): its coefficients, and the status says why
             if emit != "coeffs" and plan.uniform:
-                out = self._pixels(dev, out, emit)
+                rgb, planes = self._pixels(
+                    out.coeffs, dev, dev["unit_mrow"][:plan.total_units],
+                    plan.n_images)
+                out = self._with_pixels(out, rgb, planes, emit)
             after = launch_counts()
             self._launches = prog.launches = {
                 k: after[k] - before[k] for k in after}
         return out
 
-    def _pixels(self, dev: Dict[str, torch.Tensor], out: DecodeOutput,
-                emit: str) -> DecodeOutput:
+    def _pixels(self, coeffs: torch.Tensor, dev: Dict[str, torch.Tensor],
+                mrow: torch.Tensor, n_images: int
+                ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
+        """The pixel stage of ``n_images`` images' coefficient rows
+        (``mrow`` their rows of ``unit_mrow``) on their device: ``(rgb,
+        planes)``, ``planes`` None where the fused pixel kernel ran."""
         plan, g = self.plan, self.plan.geometry
-        mrow = dev["unit_mrow"][:plan.total_units]
         kernels = self.backend == "cuda"
-        if kernels and self.fuse != "none" and pixels_fusible(g):
-            rgb = decode_pixels_fused(out.coeffs, dev["m_matrices_t"], mrow,
-                                      geometry=g, n_images=plan.n_images,
-                                      launch=self.launch)
-            return dataclasses.replace(out, rgb=rgb if emit == "rgb"
-                                       else None, pixels_fused=True)
-        # the unfused chain: IDCT, plane assembly, then color or, for one
-        # plane, a crop and cast
-        if kernels:
-            pixels = idct_units(out.coeffs, dev["m_matrices_t"], mrow,
-                                units_per_mcu=g.units_per_mcu,
-                                launch=self.launch)
-        else:
-            pixels = idct_units_plain(out.coeffs, dev["m_matrices_t"], mrow)
+        fused = kernels and self.fuse != "none" and pixels_fusible(g)
         n_comp = len(plan.comp_unit_idx)
         comp_grid = [(g.mcus_y * v, g.mcus_x * h)
                      for h, v in zip(g.comp_h, g.comp_v)]
+        if n_images == 0:   # a mesh block that owns no image
+            rgb = torch.empty((0, g.height, g.width)
+                              + ((3,) if n_comp > 1 else ()),
+                              dtype=torch.uint8, device=coeffs.device)
+            return rgb, None if fused else [
+                torch.empty((0, 8 * by, 8 * bx), device=coeffs.device)
+                for by, bx in comp_grid]
+        if fused:
+            return decode_pixels_fused(coeffs, dev["m_matrices_t"], mrow,
+                                       geometry=g, n_images=n_images,
+                                       launch=self.launch), None
+        # the unfused chain: IDCT, plane assembly, then color or, for one
+        # plane, a crop and cast
+        if kernels:
+            pixels = idct_units(coeffs, dev["m_matrices_t"], mrow,
+                                units_per_mcu=g.units_per_mcu,
+                                launch=self.launch)
+        else:
+            pixels = idct_units_plain(coeffs, dev["m_matrices_t"], mrow)
         planes = D.assemble_planes(
-            pixels, plan.n_images,
+            pixels, n_images,
             [dev[f"comp_unit_idx{ci}"] for ci in range(n_comp)],
             [dev[f"comp_block_idx{ci}"] for ci in range(n_comp)], comp_grid)
         geo = (g.comp_h, g.comp_v, g.h_max, g.v_max, g.height, g.width)
         if len(planes) == 1:
-            rgb = D.upsample_color(planes, *geo)
-        else:
-            color = upsample_color if kernels else upsample_color_plain
-            rgb = color(planes, *geo)
-        return dataclasses.replace(out, planes=planes,
-                                   rgb=rgb if emit == "rgb" else None,
+            return D.upsample_color(planes, *geo), planes
+        color = upsample_color if kernels else upsample_color_plain
+        return color(planes, *geo), planes
+
+    def _with_pixels(self, out: DecodeOutput, rgb, planes,
+                     emit: str) -> DecodeOutput:
+        """``out`` with the pixel stage's ``rgb`` and ``planes`` (tensors,
+        or a mesh decode's :class:`Sharded` pieces) and the kernels that
+        made them."""
+        rgb = rgb if emit == "rgb" else None
+        if planes is None:
+            return dataclasses.replace(out, rgb=rgb, pixels_fused=True)
+        kernels = self.backend == "cuda"
+        return dataclasses.replace(out, planes=planes, rgb=rgb,
                                    idct_kernel=kernels,
                                    color_kernel=kernels and len(planes) > 1)
+
+    # -- the decode over a mesh (core/mesh_decode.py) -----------------------------
+    def decode_on(self, mesh: Mesh, emit: str = "rgb",
+                  rules: Optional[Dict] = None) -> DecodeOutput:
+        """Decode with the chunk lanes split over the mesh's cards, each
+        card owning a contiguous range of images of the output; the
+        result is bit-identical to :meth:`decode` and stays on the cards
+        (``coeffs``, ``rgb`` and each plane are
+        :class:`~repro_torch.core.mesh_decode.Sharded`).
+
+        The decoder is purely data-parallel, so a multi-axis mesh is
+        flattened to a 1-D lane mesh over the same devices when ``rules``
+        is None. Caller-supplied ``rules`` name the axes of ``mesh``
+        itself and require a 1-D mesh: a multi-axis mesh with ``rules``
+        raises ``ValueError``, as in the JAX package. Lanes split over the
+        mesh axis ``rules`` give ``"chunks"``; without one (of size above
+        1) the decode runs on the mesh's first device. A mesh of one
+        device runs :meth:`decode` there.
+        """
+        if emit not in EMITS:
+            raise ValueError(f"emit must be one of {EMITS}, got {emit!r}")
+        if rules is None:
+            if len(mesh.axis_names) > 1:
+                mesh = mesh.flat()
+            rules = SH.decode_rules(mesh.axis_names)
+        elif len(mesh.axis_names) > 1:
+            raise ValueError(
+                "decode_on(rules=...) requires a 1-D mesh; flatten the mesh "
+                "(e.g. Mesh(mesh.devices.reshape(-1), ('data',))) or omit "
+                "rules to let the decoder flatten it")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"the decoder was made for {self.device}; the "
+                             f"mesh holds {mesh.device_type} devices")
+        with SH.logical_rules(rules):
+            if SH.lane_axis(mesh) is None:
+                return self._decode_one(mesh.devices.flat[0], emit)
+            return self._decode_mesh(mesh, emit)
+
+    def _decode_one(self, device: torch.device, emit: str) -> DecodeOutput:
+        """:meth:`decode` on ``device`` (a decoder of this plan made there
+        once), its outputs as one-piece shards."""
+        dec = self
+        if device != self.device:
+            dec = self._on_device.get(device)
+            if dec is None:
+                dec = self._on_device[device] = ParallelDecoder(
+                    self.plan, sync=self.sync, backend=self.backend,
+                    fuse=self.fuse, device=device, shape=self.shape,
+                    validation=self.validation, launch=self.launch)
+        out = dec.decode(emit=emit)
+        self._launches, self._host_checks = dec._launches, dec._host_checks
+        self._replays = dec._replays
+
+        def one(t):
+            return None if t is None else Sharded([t], [0, t.shape[0]])
+
+        return dataclasses.replace(
+            out, coeffs=one(out.coeffs), rgb=one(out.rgb),
+            planes=None if out.planes is None else [one(p) for p in
+                                                    out.planes],
+            mesh={"blocks": 1, "devices": [str(device)],
+                  "lanes": [dec.shape.n_chunks], "halo": [0],
+                  "rows": [(0, dec.plan.total_units)],
+                  "images": [(0, dec.plan.n_images)],
+                  "launches": [dict(dec._launches)],
+                  "graph_replays": [dec._replays],
+                  "host_checks": dec._host_checks, "exchanges": 0,
+                  "round_bytes": 0, "copy_bytes": {}, "expected_bytes": {},
+                  "peer_access": {}})
+
+    def mesh_layout(self, n_blocks: int):
+        """The plan's lane blocks over ``n_blocks`` mesh entries
+        (``dist.plan.mesh_layout``) and each block's arrays as host
+        tensors, made once per size."""
+        hit = self._layouts.get(n_blocks)
+        if hit is None:
+            layout = DP.mesh_layout(self.plan, self._arrays, n_blocks)
+            pin = self.device.type == "cuda"
+            host = [{k: _host_tensor(a, pin) for k, a in arrs.items()}
+                    for arrs in MD.host_arrays(layout)]
+            hit = self._layouts[n_blocks] = (layout, host)
+        return hit
+
+    def _bind_block(self, prog: MeshProgram, b: int, lay: DP.BlockLayout,
+                    host: Dict[str, torch.Tensor], sends) -> "MD._Block":
+        """Block ``b``'s buffers holding this decoder's data (uploaded
+        unless they hold it) and its views of them."""
+        bp = prog.blocks[b]
+        dev = bp.device
+        bp.follow()
+        views = {k: bp.buf("lay_" + k, t.numel(), t.dtype)
+                 for k, t in host.items()}
+        if bp.plan is None:
+            bp.plan = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                       for k, v in self._host.items()}
+            bp.allocations += 1
+        if bp.owner is not self._token:
+            for k, t in bp.plan.items():
+                t.copy_(self._host[k], non_blocking=True)
+            for k, t in views.items():
+                t.copy_(host[k], non_blocking=True)
+            bp.owner = self._token
+            bp.uploads += 1
+        d = dict(bp.plan)
+        if self.backend == "cuda":
+            tab = self._card_tables.get(dev)
+            if tab is None:   # hashing the LUTs takes milliseconds
+                tab = self._card_tables[dev] = lut_tables(
+                    self._arrays["luts"], dev)[0]
+            d["luts_compact"] = tab
+        lo, hi, n = lay.lo, lay.hi, lay.n
+        v = dict(views, start=d["chunk_start"][lo:hi],
+                 first=d["chunk_first"][lo:hi],
+                 seg=d["chunk_seg"][lo:hi].to(torch.int64),
+                 last_neq=bp.buf("last_neq", 1).view(()),
+                 ridx=bp.buf("ridx", 1).view(()))
+        meta = D.chunk_meta(
+            {"chunk_seg": d["chunk_seg"][lo:hi],
+             "chunk_limit": d["chunk_limit"][lo:hi],
+             **{k: d[k] for k in ("seg_tableset", "seg_word_base",
+                                  "ts_upm")}},
+            out={k: bp.buf("meta_" + k, n) for k in ("word_base", "ts",
+                                                     "upm")})
+        width = n + len(lay.halo)
+        ext = bp.buf("ext", 8 * width).view(2, 4, width)
+        sbufs = [(dst, views[f"send{dst}"],
+                  bp.buf(f"sendbuf{dst}", 4 * len(lanes)).view(4, len(lanes)))
+                 for dst, lanes in sends]
+        return MD._Block(b, lay, bp, d, v, meta, ext, sbufs,
+                         collections.Counter())
+
+    def _decode_mesh(self, mesh: Mesh, emit: str) -> DecodeOutput:
+        plan = self.plan
+        if emit != "coeffs" and not plan.uniform \
+                and plan.image_status is None:
+            raise NotImplementedError(
+                "pixel stage requires a geometry-uniform batch; decode "
+                "images with mixed geometry with emit='coeffs'")
+        mesh = mesh.flat()
+        prog = mesh_program(self.shape, self.sync, self.backend, self.fuse,
+                            mesh, self.launch)
+        layout, host = self.mesh_layout(mesh.size)
+        kernels = self.backend == "cuda"
+        cuda = self.device.type == "cuda"
+        with prog.lock:
+            before, allocations = launch_counts(), prog.allocations
+            clock = [("start", time.perf_counter())]
+
+            def lap(name):
+                clock.append((name, time.perf_counter()))
+
+            blocks = []
+            for b, lay in enumerate(layout.blocks):
+                with MD.device_ctx(prog.blocks[b].device):
+                    blocks.append(self._bind_block(prog, b, lay, host[b],
+                                                   layout.sends[b]))
+            rb = RoundBlocks(size=self.launch.block_rounds, hints=prog.hints)
+            run = MD.MeshRun(blocks, layout, self.shape, self.sync,
+                             self.fuse, kernels, self.launch, launch_counts,
+                             rb, graphs=cuda and prog.decodes > 0,
+                             keep_graphs=prog.keep_graphs)
+            lap("bind")
+            rounds, converged = run.run_sync()
+            exits = Sharded([b.ext[run.side][:, :b.n].t().clone()
+                             for b in blocks], layout.bounds)
+            lap("sync")
+            written = run.write_pass()
+            lap("write")
+            rows = run.place(written)
+            coeffs = []
+            for blk, acc in zip(blocks, rows):
+                r0, r1 = blk.lay.rows
+                with run.on(blk):
+                    coeffs.append(D.undiff_dc(
+                        {"unit_comp": blk.d["unit_comp"][r0:r1],
+                         "unit_seg_start":
+                             blk.d["unit_seg_start"][r0:r1] - r0}, acc))
+            out = DecodeOutput(
+                Sharded(coeffs, [b.lay.rows[0] for b in blocks]
+                        + [blocks[-1].lay.rows[1]]),
+                None, None, rounds, converged, plan,
+                store_fused=kernels and self.fuse == "full",
+                status=plan.image_status, validation=self.validation)
+            lap("place")
+            if emit != "coeffs" and plan.uniform:
+                # each block's images on its card
+                rgbs, planes = [], []
+                for blk, co in zip(blocks, coeffs):
+                    r0, r1 = blk.lay.rows
+                    with run.on(blk):
+                        rgb, pl = self._pixels(co, blk.d,
+                                               blk.d["unit_mrow"][r0:r1],
+                                               blk.lay.images[1]
+                                               - blk.lay.images[0])
+                    rgbs.append(rgb)
+                    planes.append(pl)
+                offs = [b.lay.images[0] for b in blocks] + \
+                    [blocks[-1].lay.images[1]]
+                out = self._with_pixels(
+                    out, Sharded(rgbs, offs),
+                    None if planes[0] is None else
+                    [Sharded([p[ci] for p in planes], offs)
+                     for ci in range(len(planes[0]))], emit)
+                lap("pixels")
+            prog.decodes += 1
+            prog.host_checks = self._host_checks = rb.checks
+            self._replays = sum(b.replays for b in blocks)
+            after = launch_counts()
+            self._launches = prog.launches = {
+                k: after[k] - before[k] for k in after}
+            prog.allocations = sum(b.allocations for b in prog.blocks)
+            prog.grown += prog.allocations > allocations
+            prog.uploads = sum(b.uploads for b in prog.blocks)
+            prog.last = {
+                "blocks": mesh.size,
+                "devices": [str(b.prog.device) for b in blocks],
+                "lanes": [b.n for b in blocks],
+                "halo": [len(b.lay.halo) for b in blocks],
+                "rows": [b.lay.rows for b in blocks],
+                "images": [b.lay.images for b in blocks],
+                "launches": [dict(b.launches) for b in blocks],
+                "graph_replays": [b.replays for b in blocks],
+                "host_checks": rb.checks,
+                "allocations": prog.allocations - allocations,
+                "allocating_decodes": prog.grown,
+                "exchanges": run.exchanges,
+                "round_bytes": 16 * sum(len(b.lay.halo) for b in blocks),
+                "copy_bytes": dict(run.copy_bytes),
+                "expected_bytes": MD.expected_bytes(
+                    layout, self.sync, run.exchanges, run.sized,
+                    run.pieces),
+                "peer_access": prog.peer_access,
+                "host_ms": {b[0]: 1e3 * (b[1] - a[1])
+                            for a, b in zip(clock, clock[1:])}}
+        return dataclasses.replace(out, mesh=dict(prog.last, exits=exits))
 
 
 def run_sync(dev: Dict[str, torch.Tensor], shape: PlanShape, sync: str,
@@ -832,19 +1146,17 @@ def run_sync(dev: Dict[str, torch.Tensor], shape: PlanShape, sync: str,
     ``blocks``, ``bufs`` and ``flags`` go to the schedule
     (``core/sync.py``).
     """
-    sh = shape
-    kw = dict(decode_exits=decode_exits, permuted=sh.permuted,
+    lim = sync_limits(shape)
+    kw = dict(decode_exits=decode_exits, permuted=shape.permuted,
               blocks=blocks, bufs=bufs, flags=flags)
     if sync == "jacobi":
-        return jacobi_sync(dev, max_rounds=sh.n_chunks + 2, **kw)
+        return jacobi_sync(dev, max_rounds=lim.jacobi, **kw)
     if sync == "specmap":
-        # the hypothesis decodes count as rounds, so the verify budget adds
-        # them to the longest truth-propagation chain
-        return specmap_sync(dev, max_upm=MAX_UPM,
-                            max_verify=sh.n_chunks + MAX_UPM + 2, **kw)
+        return specmap_sync(dev, max_upm=MAX_UPM, max_verify=lim.specmap,
+                            **kw)
     if sync == "faithful":
-        return faithful_sync(dev, seq_chunks=sh.seq_chunks,
-                             max_outer=sh.n_sequences + 2, **kw)
+        return faithful_sync(dev, seq_chunks=shape.seq_chunks,
+                             max_outer=lim.outer, **kw)
     # sequential: one chunk per segment, so the cold decode is exact
     cold = DecodeState.cold(dev["chunk_start"])
     exits = decode_exits(dev, cold, **({"out": bufs[0]} if bufs else {}))
@@ -888,17 +1200,9 @@ def decode_coefficients(dev: Dict[str, torch.Tensor], shape: PlanShape, *,
     seg_end = torch.cat([dev["seg_coeff_base"][1:], dev["units_end"][None]])
     write_max = seg_end[dev["chunk_seg"].to(torch.int64)] - 1
     entries = chain_entries(dev, res.exits, sh.permuted)
-    n_coef = sh.n_units * 64
-    if not kernels:  # decode_span(write=True)
-        out = decode_coeffs_store_plain(dev, meta, entries, bases, write_max,
-                                        n_coef, out=work.get("store"), **kw)
-    elif fuse == "full":
-        out = decode_coeffs_store(dev, meta, entries, bases, write_max,
-                                  n_coef, out=work.get("store"), **kernel_kw)
-    else:
-        out = HK.decode_coeffs(dev, meta, entries, bases, write_max, n_coef,
-                               streams=work.get("streams"),
-                               out=work.get("scatter"), **kernel_kw)
+    out = write_coefficients(dev, meta, entries, bases, write_max,
+                             sh.n_units * 64, kernels=kernels, fuse=fuse,
+                             launch=launch, buf=work.get, **kw)
     # undiff_dc writes a new tensor: nothing returned aliases ``work``
     coeffs = D.undiff_dc(dev, out.reshape(sh.n_units, 64))
     return coeffs, res.rounds, res.converged
@@ -908,15 +1212,27 @@ def decode_batch(blobs: Sequence[bytes], chunk_bits: int = 1024,
                  seq_chunks: int = 32, sync: str = "jacobi",
                  emit: str = "rgb", backend: Optional[str] = None,
                  bucket: bool = True, fuse: Optional[str] = None,
-                 device="cuda", validate: bool = False,
+                 device=None, validate: bool = False,
                  balance: str = "none",
                  lanes: Optional[int] = None,
-                 use_kernels: bool = False) -> DecodeOutput:
+                 use_kernels: bool = False,
+                 mesh: Optional[Mesh] = None) -> DecodeOutput:
     """Parse, plan and decode one batch (see the module docstring and
-    :meth:`ParallelDecoder.from_bytes` for ``balance`` and ``lanes``)."""
+    :meth:`ParallelDecoder.from_bytes` for ``balance`` and ``lanes``).
+
+    With ``mesh`` the batch decodes over the mesh's devices
+    (:meth:`ParallelDecoder.decode_on`), ``balance`` over ``mesh.size``
+    lane blocks; ``device`` defaults to the mesh's first device, else to
+    ``"cuda"``."""
+    if device is None:
+        device = mesh.devices.flat[0] if mesh is not None else "cuda"
+    if mesh is not None and lanes is None:
+        lanes = mesh.size
     dec = ParallelDecoder.from_bytes(
         blobs, chunk_bits=chunk_bits, seq_chunks=seq_chunks, sync=sync,
         backend=backend, bucket=bucket, fuse=fuse, device=device,
         validate=validate, balance=balance, lanes=lanes,
         use_kernels=use_kernels)
-    return dec.decode(emit=emit)
+    if mesh is None:
+        return dec.decode(emit=emit)
+    return dec.decode_on(mesh, emit=emit)

@@ -259,8 +259,8 @@ def identity_live_ok(sync: str) -> frozenset:
 
 #: The traced-program checker's contracts (``python -m repro_torch.analysis
 #: contracts``), as data: name -> description. The JAX package's
-#: ``JAXPR_CONTRACTS`` in their torch form; the two that need several
-#: cards are listed and reported as not run.
+#: ``JAXPR_CONTRACTS`` in their torch form; the two of ``MESH_CONTRACTS``
+#: run on a decode over a mesh.
 TRACE_CONTRACTS: Dict[str, str] = {
     "identity-lane-graph": (
         "identity (permuted=False) programs never index through lane-graph "
@@ -289,17 +289,25 @@ TRACE_CONTRACTS: Dict[str, str] = {
         "largest ladder rung the runtime guard admits included, and the "
         "adversarial headroom bound is reported"),
     "collective-accounting": (
-        "waits for the lane split across cards (ROADMAP A9b): collective "
-        "counts against the exchange's byte accounting; not run on one "
-        "card"),
+        "on a decode over a mesh of two blocks or more: the bytes of the "
+        "copies from one block's buffers into another's, counted by the "
+        "taint tracker by the buffer they land in, equal the mesh "
+        "program's own account from its layout (per exchange of the "
+        "rounds and per write pass), and each block's lane-graph taint "
+        "reaches the halo of every block that reads it"),
     "words-donated-mesh": (
-        "waits for the lane split across cards (ROADMAP A9b): the mesh "
-        "half of the JAX package's words-donated; not run on one card"),
+        "on a decode over a mesh of two blocks or more, the mesh half of "
+        "the JAX package's words-donated: nothing returned shares storage "
+        "with any block's buffers, and on the card each block's round "
+        "graphs read only that block's buffers and compact tables (or "
+        "the graph's own memory)"),
 }
 
-#: The contracts of TRACE_CONTRACTS that need several cards: reported as
-#: not run, never as passed.
-MULTI_CARD_CONTRACTS = ("collective-accounting", "words-donated-mesh")
+#: The contracts of TRACE_CONTRACTS that run on a decode over a mesh of
+#: two blocks or more (``analysis.trace_check.check_mesh``): not
+#: applicable on one block, and reported as not run, never as passed,
+#: where no mesh was checked.
+MESH_CONTRACTS = ("collective-accounting", "words-donated-mesh")
 
 
 def check_block_cover(extent: int, tile: int, blocks: int, what: str,

@@ -62,6 +62,7 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Protocol,
 
 import torch
 
+from .bitstream import MAX_UPM
 from .decode import chunk_meta
 from .state import DecodeState
 
@@ -85,10 +86,19 @@ class SyncResult(NamedTuple):
 
 def host_check(*values: torch.Tensor) -> List[int]:
     """The values of one-element tensors on the host, as ints: one device
-    sync, counted in ``host_check.count``."""
+    sync (one per device the values lie on, for a mesh decode's blocks),
+    counted once in ``host_check.count``."""
     host_check.count += 1
-    return torch.stack([v.reshape(()).to(torch.int64)
-                        for v in values]).tolist()
+    out: List[int] = [0] * len(values)
+    by_device: Dict[torch.device, List[int]] = {}
+    for i, v in enumerate(values):
+        by_device.setdefault(v.device, []).append(i)
+    for idx in by_device.values():
+        got = torch.stack([values[i].reshape(()).to(torch.int64)
+                           for i in idx]).tolist()
+        for i, x in zip(idx, got):
+            out[i] = x
+    return out
 
 
 host_check.count = 0
@@ -129,7 +139,9 @@ class RoundBlocks:
 
     def loop(self, name: str, body: Callable[[], None],
              read: Callable[[], Tuple[torch.Tensor, ...]], limit: int,
-             run: Optional[Callable[[int], None]] = None) -> List[int]:
+             run: Optional[Callable[[int], None]] = None,
+             combine: Optional[Callable[[List[int], int], Tuple]] = None
+             ) -> List[int]:
         """Launch ``body()`` at most ``limit`` times, in blocks.
 
         ``body`` is one iteration, written so that an iteration launched
@@ -140,7 +152,9 @@ class RoundBlocks:
         condition failed or ``limit`` iterations were launched. Returns
         the last values read (one read and no iteration when ``limit`` is
         0). ``run(n)``, where given, launches ``n`` iterations in place of
-        ``n`` calls of ``body``.
+        ``n`` calls of ``body``. ``combine(values, launched)``, where
+        given, turns the values read into those (a mesh decode reads each
+        block's scalars at one check and combines them on the host).
         """
         launched, n = 0, self.hints.get(name, self.size)
         while True:
@@ -152,11 +166,34 @@ class RoundBlocks:
                     body()
             launched += n
             vals = self.read(*read())
+            if combine is not None:
+                vals = combine(vals, launched)
             if not vals[1] or launched >= limit:
                 break
             n = self.size
         self.hints[name] = vals[0]
         return vals
+
+
+class SyncLimits(NamedTuple):
+    """The bounds the JAX package gives the schedules' loops. Every bound
+    is a capacity: inert lanes are stable from round 0."""
+    jacobi: int      # rounds, the cold pass counted as round 1
+    specmap: int     # rounds, the hypothesis decodes counted as rounds
+    verify: int      # faithful's verification rounds past its chains
+    outer: int       # faithful's outer rounds
+    intra: int       # faithful's intra-sequence chain rounds
+    inter: int       # the inter-sequence chain rounds of an outer round
+
+
+def sync_limits(shape) -> SyncLimits:
+    """The loop bounds of a padded plan's ``PlanShape``: specmap's verify
+    budget adds its hypothesis decodes to the longest truth-propagation
+    chain."""
+    c = shape.n_chunks
+    return SyncLimits(jacobi=c + 2, specmap=c + MAX_UPM + 2, verify=c + 2,
+                      outer=shape.n_sequences + 2,
+                      intra=shape.seq_chunks - 1, inter=shape.seq_chunks)
 
 
 def _shift_one(a: torch.Tensor) -> torch.Tensor:
@@ -234,6 +271,20 @@ class GraphAudit(Protocol):
         """The graph of ``key`` replayed, leaving the exits in ``exits``."""
 
 
+_CAPTURE_STREAMS: Dict[torch.device, object] = {}
+
+
+def capture_stream(device: torch.device):
+    """The stream graphs of ``device`` are captured on. Capture runs on a
+    side stream, which sets the current device to its own: the one
+    ``torch.cuda.graph`` keeps for all captures lies on the first device
+    that captured, so each card gets its own."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 def _graph_pairs(body: Callable[[], None], st: Dict, bufs: ExitBuffers,
                  blocks: "RoundBlocks", key: Tuple) -> Callable[[int], None]:
     """``run(n)`` for :meth:`RoundBlocks.loop`: ``n // 2`` replays of a
@@ -263,6 +314,7 @@ def _graph_pairs(body: Callable[[], None], st: Dict, bufs: ExitBuffers,
                 # thread_local: the decode service's other threads may pin
                 # and copy memory meanwhile
                 with torch.cuda.graph(graph,
+                                      stream=capture_stream(bufs[0].p.device),
                                       capture_error_mode="thread_local"):
                     body()
                     body()
@@ -369,6 +421,30 @@ def compose_prefix(maps: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def phase_maps(eu: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """The (H, C) phase maps of lanes from their exit phases under each
+    hypothesis: segment-first chunks re-anchor (their entry phase is 0
+    whatever the prefix), so their map is the constant exit-u of
+    hypothesis 0."""
+    return torch.where(first[None, :], eu[:1].expand_as(eu), eu)
+
+
+def entry_phases(maps: torch.Tensor, first: torch.Tensor,
+                 order: Optional[torch.Tensor]) -> torch.Tensor:
+    """Each chunk's entry phase in bitstream order, from every lane's
+    phase map (``maps``, (H, C) in lane order) and ``chunk_first``: the
+    composed map of the chunks before it, at 0. The scan runs in
+    bitstream chunk order (``order``, ``chunk_order``; None for an
+    identity plan); inert padding chunks order after every real chunk and
+    are segment-firsts (constant maps)."""
+    if order is not None:
+        order = order.to(torch.int64)
+        first, maps = first[order], maps[:, order]
+    prefix = compose_prefix(maps.to(torch.int64))
+    entry = torch.cat([prefix.new_zeros(1), prefix[0, :-1]])
+    return torch.where(first, 0, entry)
+
+
 def specmap_sync(dev: Dev, *, max_upm: int, max_verify: int,
                  decode_exits: DecodeExitsFn, permuted: bool = True,
                  blocks: Optional[RoundBlocks] = None,
@@ -386,21 +462,9 @@ def specmap_sync(dev: Dev, *, max_upm: int, max_verify: int,
            for u0 in range(max_upm)]
     ep, eu, ez, en = (torch.stack(f) for f in zip(*hyp))  # (H, C) each
 
-    # segment-first chunks re-anchor: their entry phase is 0 whatever the
-    # prefix, so their map is the constant exit-u of hypothesis 0
     first = dev["chunk_first"]
-    maps = torch.where(first[None, :], eu[:1].expand_as(eu), eu)
-    # the scan runs in bitstream chunk order; inert padding chunks order
-    # after every real chunk and are segment-firsts (constant maps)
-    if permuted:
-        order = dev["chunk_order"].to(torch.int64)
-        first_o, maps_o = first[order], maps[:, order]
-    else:
-        first_o, maps_o = first, maps
-    prefix = compose_prefix(maps_o.to(torch.int64))
-    # entry phase of chunk i: the composed map of chunks before it, at 0
-    entry_o = torch.cat([prefix.new_zeros(1), prefix[0, :-1]])
-    entry_o = torch.where(first_o, 0, entry_o)
+    entry_o = entry_phases(phase_maps(eu, first), first,
+                           dev["chunk_order"] if permuted else None)
     entry_u = entry_o[dev["lane_perm"].to(torch.int64)] if permuted \
         else entry_o
 

@@ -23,9 +23,11 @@ byte-identical batch repeats; ``decoder_cache_size=0`` disables that
 handle cache entirely without losing the shared programs.
 :meth:`JpegVisionPipeline.decode_stats` surfaces the streaming counters.
 
-Against the JAX package: ``device=`` replaces ``mesh=`` (a process decodes
-on one card; :mod:`repro_torch.launch.multihost` spreads a corpus over
-processes), and ``decode_stats()`` has no ``jaxpr_eqns``.
+``mesh=`` (a ``launch.mesh.Mesh``) splits each batch's decode over the
+mesh's cards (``ParallelDecoder.decode_on``), balanced over as many lane
+blocks with ``balance``; the RGB is gathered to the mesh's first card,
+which embeds it as without a mesh, so the tokens are the same bits.
+Against the JAX package, ``decode_stats()`` has no ``jaxpr_eqns``.
 """
 from __future__ import annotations
 
@@ -81,11 +83,13 @@ class JpegPipelineStats:
 class JpegVisionPipeline:
     """Decode a batch of JPEGs on the card and emit ViT-style patch tokens.
 
-    ``device`` (default ``"cuda"``: raises without a card; ``"cpu"`` runs
-    the plain versions), ``sync``, ``backend`` and ``fuse`` go to the
-    decoder and resolve as :func:`repro_torch.core.api.resolve_options`
-    does. ``balance`` ("roundrobin"/"lpt") lays a batch's chunk lanes out
-    in balanced blocks, one a card (bit-identical). ``bucket=False`` pins
+    ``device`` (default ``"cuda"``, or the first device of ``mesh``:
+    raises without a card; ``"cpu"`` runs the plain versions), ``sync``,
+    ``backend`` and ``fuse`` go to the decoder and resolve as
+    :func:`repro_torch.core.api.resolve_options` does. ``mesh`` decodes
+    over the mesh's cards (module docstring). ``balance``
+    ("roundrobin"/"lpt") lays a batch's chunk lanes out in balanced
+    blocks, one a card (bit-identical). ``bucket=False`` pins
     exact-fit plan shapes (one program per distinct batch geometry).
     ``sync_stats=True`` waits for each batch's tokens so ``decode_ms`` is
     the true device wall time; by default it measures only the host's
@@ -97,11 +101,14 @@ class JpegVisionPipeline:
     def __init__(self, patch: int = 16, embed_dim: int = 1024,
                  chunk_bits: int = 1024, sync: str = "jacobi",
                  backend: Optional[str] = None, seed: int = 0,
-                 device="cuda", balance: str = "none",
+                 device=None, balance: str = "none",
                  decoder_cache_size: int = 16, bucket: bool = True,
                  sync_stats: bool = False, validate: bool = False,
-                 fuse: Optional[str] = None):
+                 fuse: Optional[str] = None, mesh=None):
+        if device is None:
+            device = mesh.devices.flat[0] if mesh is not None else "cuda"
         self.device, _, _ = resolve_options(sync, backend, fuse, device)
+        self.mesh = mesh
         self.patch = patch
         self.embed_dim = embed_dim
         self.chunk_bits = chunk_bits
@@ -181,7 +188,8 @@ class JpegVisionPipeline:
             list(blobs), chunk_bits=self.chunk_bits, sync=self.sync,
             backend=self.backend, bucket=self.bucket, fuse=self.fuse,
             device=self.device, validate=self.validate,
-            balance=self.balance)
+            balance=self.balance,
+            lanes=self.mesh.size if self.mesh is not None else None)
         if self._decoder_cache_size > 0:
             with self._lock:
                 self._decoders[key] = dec
@@ -208,8 +216,14 @@ class JpegVisionPipeline:
         with self._lock:
             self._last_dec = dec
         allocations = dec.program.allocations
-        out = dec.decode(emit="rgb")
-        rgb = out.rgb  # (B, H, W, 3) uint8 on the device
+        if self.mesh is not None:
+            out = dec.decode_on(self.mesh, emit="rgb")
+            compiled = out.mesh.get("allocations", 0) > 0
+            rgb = None if out.rgb is None else out.rgb.full(self.device)
+        else:
+            out = dec.decode(emit="rgb")
+            compiled = dec.program.allocations > allocations
+            rgb = out.rgb  # (B, H, W, 3) uint8 on the device
         if rgb is None:
             # validated decode with no pixel stage (every image quarantined,
             # or mixed-geometry survivors): emit zero patch tokens per image
@@ -230,7 +244,7 @@ class JpegVisionPipeline:
             n_images=b,
             sync_rounds=out.sync_rounds,
             decode_ms=dt_ms,
-            compiled=dec.program.allocations > allocations,
+            compiled=compiled,
             bucket=dec.shape.label(),
             status=status,
             images_recovered=(int((status == STATUS_RECOVERED).sum())

@@ -1,7 +1,8 @@
 """Lane-permutation plans: balance skewed chunk lanes across lane blocks.
 
-The lane-balance half of the JAX package's ``dist/plan.py`` (numpy; its
-logical sharding rules are JAX-only and not ported).
+The lane-balance half of the JAX package's ``dist/plan.py`` (numpy), and
+the lane blocks of a decode over a mesh (:func:`mesh_layout`); the
+decoder's logical-axis rules are in ``dist/sharding.py``.
 
 The decoder can split its chunk-lane axis into contiguous blocks, one a
 device. Lanes default to bitstream order, so a skewed batch (one big JPEG
@@ -18,7 +19,7 @@ bit-identical to the unpermuted plan's on every schedule and backend.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -200,3 +201,223 @@ def balance_lanes(plan, n_lanes: int, policy: str):
         # so a bucketed plan keeps its per-block sequence assignment
         n_lanes=n_lanes,
     )
+
+
+# ---------------------------------------------------------------------------
+# Lane blocks of a mesh decode (core.mesh_decode)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BlockLayout:
+    """One block of a mesh decode: lanes ``[lo, hi)`` of the padded plan.
+
+    A block's states are laid out as its ``n = hi - lo`` lanes, then its
+    *halo*: the lanes of other blocks that its lanes chain from
+    (``halo``, global lanes, grouped by source block as ``recv`` gives
+    them: ``(source block, start, stop)`` in the halo). Indices into that
+    layout: ``prev`` (each lane's entry source), ``next`` (each lane's
+    and each halo entry's successor in this block; a lane whose successor
+    lies in another block is its own), ``seq`` (``chunk_seq`` of both),
+    and ``roots``, the sequence boundaries faithful sync chains across
+    whose next sequence lies here. ``seqs`` are the global ids of its
+    sequences in bitstream order (so in the order of the blocks that own
+    their rows), ``seq_slot`` each lane's index in it (``len(seqs)`` for
+    an inert lane) and ``seq_start`` the position of the first lane of
+    its sequence. It owns the coefficient rows ``rows`` (the units of
+    images ``images``); ``owned`` lists the sequences whose rows it owns,
+    those of block 0 first, each block's in bitstream order.
+    """
+    lo: int
+    hi: int
+    halo: np.ndarray
+    recv: Tuple[Tuple[int, int, int], ...]
+    prev: np.ndarray
+    next: np.ndarray
+    seq: np.ndarray
+    roots: np.ndarray
+    seqs: np.ndarray
+    seq_slot: np.ndarray
+    seq_start: np.ndarray
+    rows: Tuple[int, int]
+    images: Tuple[int, int]
+    owned: np.ndarray
+
+    @property
+    def n(self) -> int:
+        return self.hi - self.lo
+
+    def sizes(self) -> Tuple:
+        """What a block's buffers and graphs are shaped by."""
+        return (self.n, len(self.halo), self.recv, len(self.roots),
+                len(self.seqs), self.rows)
+
+
+@dataclasses.dataclass
+class MeshLayout:
+    """The lane blocks of a padded plan over a mesh of ``len(blocks)``.
+
+    ``sends[a]`` lists, for each block ``b`` that reads block ``a``'s
+    states, ``(b, lanes)``: ``a``'s local lanes, in the order of ``b``'s
+    halo. ``seq_pos[q]`` is sequence ``q``'s position in the blocks'
+    ``seqs`` laid end to end, ``seq_seg_start[q]`` the first sequence of
+    its segment, ``seq_seg[q]`` its segment and ``seq_piece[q]`` the
+    block pair that decodes it and owns its rows (``a * blocks + b``).
+    A sequence writes one contiguous range of coefficients, inside its
+    segment and so inside its image's rows.
+    """
+    bounds: np.ndarray
+    blocks: List[BlockLayout]
+    sends: List[List[Tuple[int, np.ndarray]]]
+    seq_pos: np.ndarray
+    seq_seg_start: np.ndarray
+    seq_seg: np.ndarray
+    seq_piece: np.ndarray
+
+    def key(self) -> Tuple:
+        return tuple(b.sizes() for b in self.blocks)
+
+
+def _block_bounds(arrays, n_blocks: int, n_real: int,
+                  even: bool) -> np.ndarray:
+    """Lane bounds of ``n_blocks`` blocks, each cut at a sequence start (an
+    inert lane starts one too), so no sequence spans two blocks. ``even``
+    (a plan balanced into as many lane blocks) cuts at its own blocks;
+    else each cut is the sequence start nearest to an equal share of the
+    real lanes."""
+    c = len(arrays["chunk_seq"])
+    if even:
+        return np.arange(n_blocks + 1, dtype=np.int64) * (c // n_blocks)
+    real = np.asarray(arrays["lane_perm"]) < n_real
+    before = np.concatenate([[0], np.cumsum(real)])   # real lanes before i
+    cuts = np.append(np.flatnonzero(arrays["chunk_seq_first"]), c)
+    bounds = [0]
+    for b in range(1, n_blocks):
+        t = b * n_real / n_blocks
+        bounds.append(int(cuts[np.argmin(np.abs(before[cuts] - t))]))
+    bounds.append(c)
+    return np.maximum.accumulate(np.asarray(bounds, dtype=np.int64))
+
+
+def _owners(plan, bounds: np.ndarray, arrays, permuted: bool) -> np.ndarray:
+    """The owning block of each image: the block whose share of the
+    bitstream holds the middle of the image's chunks (contiguous ranges
+    of images, in order)."""
+    n = len(bounds) - 1
+    r = plan.n_real_chunks
+    if permuted:
+        cb = np.asarray([b * r // n for b in range(n + 1)])
+    else:
+        cb = np.minimum(bounds, r)
+    order = np.asarray(arrays["chunk_order"], np.int64)[:r]
+    seg = np.asarray(arrays["chunk_seg"], np.int64)[order]
+    img = np.asarray(plan.seg_image, np.int64)[seg]     # by chunk id
+    k = np.arange(plan.n_images)
+    first = np.searchsorted(img, k, "left")
+    end = np.searchsorted(img, k, "right")
+    mid = np.where(end > first, (first + end - 1) // 2, first)
+    return np.clip(np.searchsorted(cb, mid, "right") - 1, 0, n - 1)
+
+
+def mesh_layout(plan, arrays, n_blocks: int) -> MeshLayout:
+    """The lane blocks of ``arrays`` (a plan's padded arrays,
+    ``PlanData.arrays``) over ``n_blocks`` mesh entries, made in numpy at
+    plan time: bounds, halos and the edge lists of the exchange,
+    sequences, the row ranges each block owns and the owner of each
+    sequence's rows."""
+    permuted = plan.balance != "none"
+    c = len(arrays["chunk_seq"])
+    bounds = _block_bounds(arrays, n_blocks, plan.n_real_chunks,
+                           permuted and plan.n_lanes == n_blocks
+                           and c % n_blocks == 0)
+    prev = np.asarray(arrays["chunk_prev"], np.int64)
+    nxt = np.asarray(arrays["chunk_next"], np.int64)
+    first = np.asarray(arrays["chunk_first"], bool)
+    seq = np.asarray(arrays["chunk_seq"], np.int32)
+    seq_first = np.asarray(arrays["chunk_seq_first"], bool)
+    chunk_seg = np.asarray(arrays["chunk_seg"], np.int64)
+
+    owner = _owners(plan, bounds, arrays, permuted)
+    images = np.searchsorted(owner, np.arange(n_blocks + 1), "left")
+    unit_image = np.asarray(plan.unit_image)[:plan.total_units]
+    ustart = np.searchsorted(unit_image, np.arange(plan.n_images + 1),
+                             "left")
+    ustart[-1] = plan.total_units
+    rows = ustart[images]
+
+    # a sequence writes one contiguous range of coefficients, inside its
+    # segment and so inside the rows of its segment's image's owner
+    n_seq = plan.n_sequences
+    lanes = np.flatnonzero(seq >= 0)
+    seq_seg = np.zeros(n_seq, np.int64)
+    seq_seg[seq[lanes]] = chunk_seg[lanes]
+    seq_owner = owner[np.asarray(plan.seg_image, np.int64)[seq_seg]]
+    seq_block = np.zeros(n_seq, np.int64)
+    seq_block[seq[lanes]] = np.searchsorted(bounds, lanes, "right") - 1
+    if np.any(np.diff(seq_owner) < 0):
+        raise ValueError("sequence ids out of image order")
+    ids = np.arange(n_seq)
+
+    blocks = []
+    for b in range(n_blocks):
+        lo, hi = int(bounds[b]), int(bounds[b + 1])
+        n = hi - lo
+        p = prev[lo:hi]
+        away = ~first[lo:hi] & ((p < lo) | (p >= hi))
+        src = np.unique(p[away])   # chunk_prev is injective off the firsts
+        src_block = np.searchsorted(bounds, src, "right") - 1
+        order = np.lexsort((src, src_block))
+        halo, src_block = src[order], src_block[order]
+        recv = tuple((int(a), int(np.searchsorted(src_block, a, "left")),
+                      int(np.searchsorted(src_block, a, "right")))
+                     for a in np.unique(src_block))
+        slot = {int(s): n + j for j, s in enumerate(halo)}
+        loc_prev = np.where(away, 0, p - lo)
+        for i in np.flatnonzero(away):
+            loc_prev[i] = slot[int(p[i])]
+        nx = nxt[lo:hi]
+        loc_next = np.where((nx >= lo) & (nx < hi), nx - lo, np.arange(n))
+        halo_next = np.zeros(len(halo), np.int64)
+        for i in np.flatnonzero(away):
+            halo_next[slot[int(p[i])] - n] = i
+        lanes_seq = seq[lo:hi]
+        bound = seq_first[lo:hi] & ~first[lo:hi] & (lanes_seq >= 0)
+        seqs = np.sort(lanes_seq[seq_first[lo:hi] & (lanes_seq >= 0)]
+                       ).astype(np.int64)
+        starts = np.flatnonzero(seq_first[lo:hi] | (lanes_seq < 0))
+        seq_start = starts[np.searchsorted(starts, np.arange(n), "right") - 1] \
+            if n else np.zeros(0, np.int64)
+        slot_of = {int(q): j for j, q in enumerate(seqs)}
+        seq_slot = np.asarray([slot_of.get(int(q), len(seqs))
+                               for q in lanes_seq], np.int64)
+        mine = ids[seq_owner == b]
+        owned = mine[np.argsort(seq_block[mine], kind="stable")]
+        blocks.append(BlockLayout(
+            lo=lo, hi=hi, halo=halo, recv=recv, prev=loc_prev.astype(np.int64),
+            next=np.concatenate([loc_next, halo_next]).astype(np.int64),
+            seq=np.concatenate([lanes_seq, seq[halo]]).astype(np.int32),
+            roots=loc_prev[bound].astype(np.int64), seqs=seqs,
+            seq_slot=seq_slot, seq_start=seq_start.astype(np.int64),
+            rows=(int(rows[b]), int(rows[b + 1])),
+            images=(int(images[b]), int(images[b + 1])), owned=owned))
+
+    sends: List[List[Tuple[int, np.ndarray]]] = [[] for _ in blocks]
+    for b, blk in enumerate(blocks):
+        for a, s0, s1 in blk.recv:
+            sends[a].append((b, blk.halo[s0:s1] - blocks[a].lo))
+
+    # sequence-level carry of the write bases: each sequence's position in
+    # the blocks' seqs end to end, and its segment's first sequence
+    all_seqs = np.concatenate([blk.seqs for blk in blocks])
+    seq_pos = np.empty(n_seq, np.int64)
+    seq_pos[all_seqs] = np.arange(len(all_seqs))
+    lead = seq_first & (seq >= 0)
+    seg_first_seq = np.zeros(n_seq, bool)
+    seg_first_seq[seq[lead]] = first[lead]
+    seg_first_seq[:1] = True
+    pos = np.arange(n_seq, dtype=np.int64)
+    seq_seg_start = np.maximum.accumulate(np.where(seg_first_seq, pos, 0))
+
+    return MeshLayout(bounds=bounds, blocks=blocks, sends=sends,
+                      seq_pos=seq_pos, seq_seg_start=seq_seg_start,
+                      seq_seg=seq_seg, seq_piece=seq_block * n_blocks
+                      + seq_owner)

@@ -178,6 +178,12 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(t) -> ctypes.c_void_p:
+    """The current stream of ``t``'s card. A kernel runs on the current
+    device, so a launch whose operands lie on another card raises (a mesh
+    decode launches each block's kernels under ``torch.cuda.device``)."""
     import torch
 
+    if t.device.index != torch.cuda.current_device():
+        raise RuntimeError(f"kernel operands on {t.device}, but the current "
+                           f"device is cuda:{torch.cuda.current_device()}")
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

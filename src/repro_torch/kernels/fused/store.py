@@ -15,7 +15,7 @@ any size.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -24,7 +24,7 @@ from ...core.state import DecodeState
 from .. import build as B
 from ..autotune import DEFAULT_LAUNCH, WRITER_CODES, LaunchConfig
 from ..huffman.ops import (EXIT_SMEM_BUDGET, check_out, copy_into,
-                           exit_args, kernel_fn)
+                           decode_coeffs, exit_args, kernel_fn)
 
 Dev = Dict[str, torch.Tensor]
 
@@ -104,3 +104,36 @@ def decode_coeffs_store(dev: Dev, meta: Dev, entry: DecodeState,
 
 
 decode_coeffs_store.launches = 0
+
+
+def writes_streams(kernels: bool, fuse: str) -> bool:
+    """Whether the write pass runs the stream kernel and the scatter; else
+    the store kernel (``fuse="full"``) or the plain version writes one
+    (n_coef,) target."""
+    return kernels and fuse != "full"
+
+
+def write_coefficients(dev: Dev, meta: Dev, entry: DecodeState,
+                       write_base: torch.Tensor, write_max: torch.Tensor,
+                       n_coef: int, *, kernels: bool, fuse: str, s_max: int,
+                       min_code_bits: int,
+                       launch: LaunchConfig = DEFAULT_LAUNCH,
+                       buf: Optional[Callable] = None) -> torch.Tensor:
+    """The write pass as ``kernels`` and ``fuse`` choose it: the plain
+    version (``decode_span(write=True)``), the store kernel, or the stream
+    kernel and the scatter (:func:`writes_streams`). ``buf(name)`` gives
+    its buffers: ``"store"``, or ``"streams"`` (a pair) and ``"scatter"``;
+    None (or no ``buf``) for fresh ones."""
+    buf = buf or (lambda name: None)
+    kw = dict(s_max=s_max, min_code_bits=min_code_bits)
+    if not kernels:
+        return decode_coeffs_store_plain(dev, meta, entry, write_base,
+                                         write_max, n_coef,
+                                         out=buf("store"), **kw)
+    if not writes_streams(kernels, fuse):
+        return decode_coeffs_store(dev, meta, entry, write_base, write_max,
+                                   n_coef, out=buf("store"), launch=launch,
+                                   **kw)
+    return decode_coeffs(dev, meta, entry, write_base, write_max, n_coef,
+                         streams=buf("streams"), out=buf("scatter"),
+                         launch=launch, **kw)

@@ -29,10 +29,14 @@ Protocol:
    (:func:`~repro_torch.core.bitstream.merge_plan_shapes`). Every process
    then pads its local plan data to the merged shape, so all decode in one
    program key: one program allocation per bucket per process.
-4. Each process decodes on its own card, ``cuda:{rank % device_count}``.
-   PyTorch has no host-sharded global array: the result is this process's
-   coefficients and, from the exchanged unit counts, the global index of
-   its first unit (:func:`assemble_global_coeffs`).
+4. Each process decodes on its own cards (:func:`process_cards`: with at
+   least as many cards as processes, cards ``rank, rank + P, ...``, else
+   ``cuda:{rank % device_count}``); with ``mesh="local"`` and more than
+   one card, over a mesh of them (``ParallelDecoder.decode_on``: the
+   process's lanes split over its cards). PyTorch has no host-sharded
+   global array: the result is this process's coefficients and, from the
+   exchanged unit counts, the global index of its first unit
+   (:func:`assemble_global_coeffs`).
 
 Process 0 hosts the store, so it must outlive every other process's last
 read: every process calls :func:`shutdown_distributed` before it exits.
@@ -46,7 +50,7 @@ import os
 import socket
 import time
 from datetime import timedelta
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -57,6 +61,7 @@ from ..core.bitstream import (BatchPlan, BatchValidation, ImageGeometry,
                               PlanShape, bucket_capacity, consensus_plan,
                               merge_plan_shapes, plan_shape, validate_batch)
 from ..jpeg.format import parse_jpeg, unstuff_scan
+from .mesh import Mesh, make_local_data_mesh
 
 _WIRE_VERSION = 1
 
@@ -512,7 +517,8 @@ class MultiHostDecodeOutput:
     count (exchanged as tiny ints) and ``global_coeffs`` this process's
     block of the global batch. ``compiles`` counts this process's
     allocations of the decode's bucket program (the counterpart of the JAX
-    package's traces: one per bucket per process, however many decodes).
+    package's traces: one per bucket per process, however many decodes;
+    over a local mesh, the decodes that allocated its blocks' buffers).
     ``exchange_ms`` is the wall time this process spent in the exchanges
     (waiting for the slowest peer included).
     """
@@ -533,15 +539,33 @@ class MultiHostDecodeOutput:
     host_statuses: Optional[List[List[int]]] = None
 
 
+def process_cards(ctx: DistContext) -> List[torch.device]:
+    """The cards this process owns: with at least as many cards as
+    processes, every ``num_processes``-th card from its own id; else the
+    one it shares, ``cuda:{process_id % device_count}``."""
+    n = torch.cuda.device_count()
+    if n >= ctx.num_processes:
+        return [torch.device("cuda", c)
+                for c in range(ctx.process_id, n, ctx.num_processes)]
+    return [torch.device("cuda", ctx.process_id % n)]
+
+
 def _process_device(device, ctx: DistContext) -> torch.device:
-    """``cuda`` without an index becomes this process's card,
-    ``cuda:{process_id % device_count}``."""
+    """``cuda`` without an index becomes this process's first card."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None \
             and torch.cuda.is_available():
-        dev = torch.device("cuda",
-                           ctx.process_id % torch.cuda.device_count())
+        dev = process_cards(ctx)[0]
     return dev
+
+
+def local_mesh(ctx: DistContext, device: torch.device) -> Optional[Mesh]:
+    """The mesh a process decodes over with ``mesh="local"``: its cards
+    (:func:`process_cards`); None for a mesh of one or on the CPU."""
+    if device.type == "cpu":
+        return None
+    devs = process_cards(ctx)
+    return make_local_data_mesh(devs) if len(devs) > 1 else None
 
 
 def decode_multihost(local_blobs: Sequence[bytes],
@@ -553,7 +577,9 @@ def decode_multihost(local_blobs: Sequence[bytes],
                      device="cuda", tag: Optional[str] = None,
                      validate: bool = False,
                      timeout_ms: int = 120_000,
-                     use_kernels: bool = False) -> MultiHostDecodeOutput:
+                     use_kernels: bool = False,
+                     mesh: Union[str, Mesh] = "local"
+                     ) -> MultiHostDecodeOutput:
     """Decode one global batch whose bytes are spread across processes.
 
     Every process calls this with its *local* blobs (see
@@ -564,10 +590,15 @@ def decode_multihost(local_blobs: Sequence[bytes],
     ladder-rounded candidates) so the framing constant agrees before
     shapes are exchanged.
 
-    ``device="cuda"`` decodes on ``cuda:{process_id % device_count}``
-    (several processes may share a card); ``"cpu"`` runs the plain
-    versions. The deprecated ``use_kernels=True`` warns and means
-    ``backend="cuda"``.
+    ``device="cuda"`` decodes on this process's cards
+    (:func:`process_cards`; several processes may share a card);
+    ``"cpu"`` runs the plain versions. ``mesh="local"`` splits the
+    process's lanes over its cards when it has more than one (``balance``
+    then balances over as many lane blocks), ``mesh="none"`` decodes on
+    its first card, and a :class:`~repro_torch.launch.mesh.Mesh` over
+    that mesh's devices (``Mesh([torch.device("cpu")] * 2)`` runs two
+    blocks on the CPU); the local result is gathered to the first. The
+    deprecated ``use_kernels=True`` warns and means ``backend="cuda"``.
 
     ``validate=True`` (must agree across processes — it changes the
     exchange schedule) classifies each local blob before planning: a
@@ -578,11 +609,19 @@ def decode_multihost(local_blobs: Sequence[bytes],
     ``host_statuses``).
     """
     backend = resolve_use_kernels(backend, use_kernels)
+    if not isinstance(mesh, Mesh) and mesh not in ("local", "none"):
+        raise ValueError(f"mesh must be 'local', 'none' or a Mesh, got "
+                         f"{mesh!r}")
     if ctx is None:
         ctx = process_info()
     if tag is None:
         tag = f"decode{next(_exchange_counter)}"
     dev = _process_device(device, ctx)
+    on = mesh if isinstance(mesh, Mesh) else None
+    if mesh == "local" and torch.device(device).index is None:
+        on = local_mesh(ctx, dev)
+    if on is not None and lanes is None:
+        lanes = on.size
     exchange_s = 0.0
 
     def timed_exchange(payload: str, name: str) -> List[str]:
@@ -627,7 +666,15 @@ def decode_multihost(local_blobs: Sequence[bytes],
 
     dec = ParallelDecoder(plan, sync=sync, backend=backend, fuse=fuse,
                           device=dev, shape=merged, validation=validation)
-    out = dec.decode(emit=emit)
+    if on is not None:
+        out = dec.decode_on(on, emit=emit)
+        out = dataclasses.replace(
+            out, coeffs=out.coeffs.full(dev),
+            rgb=None if out.rgb is None else out.rgb.full(dev),
+            planes=None if out.planes is None else
+            [p.full(dev) for p in out.planes])
+    else:
+        out = dec.decode(emit=emit)
 
     unit_counts = [int(c) for c in timed_exchange(str(plan.total_units),
                                                   "units")]
@@ -643,7 +690,8 @@ def decode_multihost(local_blobs: Sequence[bytes],
         local=out, shape=merged, process_id=ctx.process_id,
         num_processes=ctx.num_processes, unit_counts=unit_counts,
         global_coeffs=assemble_global_coeffs(out.coeffs, unit_counts, ctx),
-        compiles=dec.program.allocations,
+        compiles=(dec.program.allocations if on is None else
+                  out.mesh["allocating_decodes"]),
         exchange_ms=exchange_s * 1e3, status=status,
         host_statuses=host_statuses)
 

@@ -95,8 +95,8 @@ def render_decode_stats(stats: dict) -> str:
 def jpeg_stream_dryrun(n_batches: int, batch_size: int = 4,
                        backend=None, sync: str = "jacobi",
                        width: int = 32, height: int = 32,
-                       chunk_bits: int = 256, device="cuda",
-                       ctx=None) -> dict:
+                       chunk_bits: int = 256, device=None,
+                       ctx=None, mesh=None) -> dict:
     """Stream ``n_batches`` distinct synthetic JPEG batches through a
     ``JpegVisionPipeline`` and return its ``decode_stats()``.
 
@@ -105,8 +105,10 @@ def jpeg_stream_dryrun(n_batches: int, batch_size: int = 4,
     counters (compile count vs batches, warm-step ms, active bucket) next
     to the model numbers — pass the result to :func:`render_decode_stats`.
 
-    ``device`` is where the pipeline decodes (``"cuda"`` raises without a
-    card; ``"cpu"`` runs the plain versions). With a multi-process ``ctx``
+    ``device`` is where the pipeline decodes (``"cuda"``, the default
+    without a mesh, raises without a card; ``"cpu"`` runs the plain
+    versions); ``mesh`` splits each batch's decode over the mesh's
+    devices (``JpegVisionPipeline(mesh=)``). With a multi-process ``ctx``
     (:func:`repro_torch.launch.multihost.init_distributed`), the corpus is
     sharded per host (:class:`~repro_torch.launch.multihost.HostFeed`):
     every process streams only its own slice, and the returned dict
@@ -123,7 +125,8 @@ def jpeg_stream_dryrun(n_batches: int, batch_size: int = 4,
                                    width=width, height=height, quality=80))
     pipe = JpegVisionPipeline(patch=8, embed_dim=64, chunk_bits=chunk_bits,
                               backend=backend, sync=sync, device=device,
-                              decoder_cache_size=0, sync_stats=True)
+                              mesh=mesh, decoder_cache_size=0,
+                              sync_stats=True)
     if ctx is not None and ctx.num_processes > 1:
         feed = HostFeed.from_corpus(ds.jpeg_bytes, ctx)
         for batch in feed.batches(batch_size):

@@ -155,6 +155,9 @@ class ServiceConfig:
     admission bound that keeps one oversized blob from minting an
     unbounded bucket. ``device`` is where the decode runs: ``"cuda"``
     (default; the service refuses to start without a card) or ``"cpu"``.
+    ``mesh`` (a ``launch.mesh.Mesh`` of that device type) splits each
+    batch's decode over the mesh's cards (``ParallelDecoder.decode_on``);
+    the results are gathered to the host as without it.
     """
 
     batch_size: int = 8
@@ -177,6 +180,7 @@ class ServiceConfig:
     validate: bool = False           # quarantine damage instead of rejecting
     emit: str = "rgb"                # "rgb" | "coeffs"
     device: str = "cuda"
+    mesh: object = None              # decode_on(mesh) when set
 
     def __post_init__(self):
         if self.admission not in ("reject", "wait"):
@@ -672,7 +676,7 @@ class DecodeService:
         dec = ParallelDecoder(plan, sync=cfg.sync, backend=self._backend,
                               fuse=self._fuse, device=self._device,
                               shape=pin, validation=validation)
-        if self._streams is not None:
+        if self._streams is not None and cfg.mesh is None:
             dec.prefetch(self._streams[0])
         return _PreparedBatch(dec=dec, requests=reqs, minted=minted,
                               bucket=pin.label())
@@ -731,6 +735,13 @@ class DecodeService:
         stream = (torch.cuda.stream(self._streams[1])
                   if self._streams is not None else contextlib.nullcontext())
         with stream:
+            if cfg.mesh is not None:
+                out = dec.decode_on(cfg.mesh, emit=cfg.emit)
+                rgb = (out.rgb.full("cpu") if out.rgb is not None
+                       else None)
+                coeffs = (out.coeffs.full("cpu") if cfg.emit == "coeffs"
+                          else None)
+                return out, rgb, coeffs
             out = dec.decode(emit=cfg.emit)
             rgb = out.rgb.cpu() if out.rgb is not None else None
             coeffs = (out.coeffs.cpu() if cfg.emit == "coeffs"

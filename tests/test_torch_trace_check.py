@@ -151,13 +151,18 @@ def test_liveness_tables_equal_reference():
 
 
 def test_catalog_names_every_contract():
-    ran = set(C.TRACE_CONTRACTS) - set(C.MULTI_CARD_CONTRACTS)
+    ran = set(C.TRACE_CONTRACTS) - set(C.MESH_CONTRACTS)
     assert ran == {"identity-lane-graph", "no-f64", "no-host-read",
                    "graph-buffers", "int32-lattice"}
-    assert set(C.MULTI_CARD_CONTRACTS) <= set(C.TRACE_CONTRACTS)
+    assert set(C.MESH_CONTRACTS) == {"collective-accounting",
+                                     "words-donated-mesh"}
+    assert set(C.MESH_CONTRACTS) <= set(C.TRACE_CONTRACTS)
     line = T.Report("cpu", [], [], []).lines()[-1]
     assert line.startswith("0 contract violations")
     assert "not run" in line and "collective-accounting" in line
+    mesh = T.MeshResult("mesh2", 2, [], {}, {})
+    line = T.Report("cpu", [], [], [], meshes=[mesh]).lines()[-1]
+    assert "not run" not in line and "on 1 mesh cells" in line
 
 
 # -- the taint tracker -----------------------------------------------------------

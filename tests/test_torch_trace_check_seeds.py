@@ -1,7 +1,7 @@
 """The traced-program checker's self-test on the CPU: every seeded fault
-is caught by its own contract (``trace_check.run_self_test``). The card
-adds a graph that copies to pinned host memory (``chip_smoke.py`` phase
-10b)."""
+is caught by its own contract (``trace_check.run_self_test``), the mesh
+contracts' seeds on two CPU blocks. The card adds a graph that copies to
+pinned host memory (``chip_smoke.py`` phase 10b)."""
 import pytest
 
 from repro_torch.analysis import trace_check as T
@@ -11,7 +11,10 @@ SEEDS = {"gather-creep": ("identity-lane-graph", "chunk_order"),
          ".item() in a sync round": ("no-host-read", "_local_scalar_dense"),
          "returned work-buffer view": ("graph-buffers", "work.bases"),
          "buffer reallocated after capture": ("graph-buffers",
-                                              "work.meta.ts")}
+                                              "work.meta.ts"),
+         "skipped halo edge": ("collective-accounting", "halo"),
+         "output aliasing a block's buffer": ("words-donated-mesh",
+                                              "block memory")}
 _RUN = []
 
 
