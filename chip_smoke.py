@@ -182,7 +182,22 @@ otherwise. Phases, each of which exits non-zero on failure:
    the memory reckoned from the shapes before the run, each step's split
    (decode + patchify + embed, forward + backward, optimizer by events),
    the warm step's wall and busy ms, idle share, positions/s and label
-   tokens/s, grad norms, peak memory, the top kernels and the bound.
+   tokens/s, grad norms, peak memory, the top kernels and the bound;
+15. serving across ranks (``launch.mesh``, ``dist.plan.ShardLayout``,
+   ``dist.tensor_parallel``), after phase 14's models are freed: each
+   case served unsharded on the card (its logits kept on the host, its
+   model freed), then by two processes over ``model=2``
+   (``launch.mesh.run_ranks``; gloo on ``cuda:0`` on a machine of one
+   card, NCCL on two cards where it has them), each rank drawing its
+   slice of the same weights (``init_sharded``) and fed the unsharded
+   run's tokens: 15a the five dense GQA archs' smoke configs in f32,
+   logits within rtol 1e-4, atol 5e-4 of the unsharded run's; 15b
+   command-r-plus-104b at its published widths with 2 of its 64 layers
+   (9.45 B parameters), 2 requests of 128 tokens and 4 steps, logits
+   normwise within ``TP_NORM_TOL``. Both ranks' logits equal, greedy
+   tokens equal where the unsharded run's margin is clear. Prints the
+   backend, the cards, each rank's draw and serve times and peak memory,
+   and the differences in bf16 ulps.
 
 ``launches`` in the kernel record counts phase 4's paths, phase 7's
 stream, phase 8b's mesh decodes, phase 12's requests and phase 14c's steps, and for the seeds
@@ -1800,6 +1815,258 @@ def train_families(args, gpu, card, counters, kernels) -> None:
               flush=True)
 
 
+# -- phase 15: serving across ranks ------------------------------------------
+
+# 15a: the dense GQA archs' smoke configs in f32 (TF32 off, every cache
+# tensor in f32), held as phase 12 holds the card against the CPU. 15b:
+# command-r-plus-104b at its published widths with 2 of its 64 layers
+# (9.45 B parameters, 18.9 GB in bf16). Each: 2 requests, the prefill and
+# 4 decode steps, unsharded on the card, then over model=2
+TP_ARCH, TP_PERIODS = "command-r-plus-104b", 2
+TP_BATCH, TP_PROMPT, TP_SMOKE_PROMPT, TP_STEPS = 2, 128, 24, 4
+TP_RANKS = 2
+TP_TIMEOUT_S = 300
+# 15b's logits against the unsharded run's, by step: the norm of the
+# difference over the norm of the logits. Element by element the two
+# differ by more than bf16 rounding: the random weights make attention
+# near one-hot at full width (ParamBuilder scales wq by its head count and
+# wk by its kv heads, so scores have a std near 440), and a last-bit
+# change of a key moves which position a head reads. Measured 0.016-0.077
+# on an H100 (PERF.md section 6); a split that drops or repeats a
+# term differs by the whole norm. 15a holds the split math tightly
+TP_NORM_TOL = 0.25
+
+
+def tp_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TP_ARCH), n_periods=TP_PERIODS)
+
+
+def tp_cases(seed):
+    """(name, config, inputs) of phase 15: each dense arch's smoke config
+    in f32, then command-r-plus-104b at published widths."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    rng = np.random.default_rng(seed)
+    cases = []
+    for arch in SERVED_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  param_dtype="float32")
+        nv = cfg.n_patches if cfg.frontend == "vision" else 0
+        inputs = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (TP_BATCH, TP_SMOKE_PROMPT - nv))).to(torch.int32)}
+        if nv:
+            inputs["patches"] = torch.from_numpy(rng.normal(
+                0, 1, (TP_BATCH, nv, 1024))).to(torch.bfloat16)
+        cases.append((arch, cfg, inputs))
+    cfg = tp_config()
+    cases.append((TP_ARCH, cfg, {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TP_BATCH, TP_PROMPT))).to(torch.int32)}))
+    return cases
+
+
+def tp_serve(model, cfg, inputs, feed, device, layout=None):
+    """The prefill and ``TP_STEPS`` decode steps of ``inputs`` through the
+    serving steps (``serve.step``), each step fed ``feed[:, i]`` (this
+    rank's rows) or, without ``feed``, its own greedy token; an f32
+    config's caches in f32. Returns the logits of every position (steps
+    + 1, rows, vocab) and the greedy tokens (rows, steps + 1) on the
+    host, and the seconds."""
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    n_pos = sum(v.shape[1] for k, v in inputs.items()
+                if k in ("tokens", "patches"))
+    caches = init_caches(cfg, TP_BATCH, n_pos + TP_STEPS + 8, device, layout)
+    if cfg.param_dtype == "float32":
+        caches = f32_caches(caches)
+    batch = {k: v.to(device) for k, v in inputs.items()}
+    if layout is not None:
+        batch = layout.batch(batch)
+        feed = None if feed is None else feed[layout.rows(TP_BATCH)]
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, caches = make_prefill_step(cfg)(model, batch, caches)
+    out = [logits[:, -1].float()]
+    tok = torch.argmax(out[0], -1)[:, None].to(torch.int32)
+    toks = [tok]
+    for i in range(TP_STEPS):
+        if feed is not None:
+            tok = feed[:, i:i + 1].to(device)
+        tok, logits, caches = decode(model, tok, n_pos + i, caches)
+        out.append(logits[:, -1].float())
+        toks.append(tok)
+    torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    return torch.stack(out).cpu(), torch.cat(toks, 1).cpu(), secs
+
+
+def tp_worker(args) -> None:
+    """One rank of phase 15 (``--tp-dir``, started by
+    ``launch.mesh.run_ranks``): joins the process mesh, then for each
+    case draws its slice of the weights, serves the parent's requests fed
+    the parent's tokens (the full-width case twice: cold, warm) and saves
+    its logits."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import (init_process_mesh,
+                                         shutdown_process_mesh)
+    from repro_torch.models.model import init_sharded
+    work = Path(args.tp_dir)
+    job = torch.load(work / "job.pt")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pm = init_process_mesh(1, TP_RANKS, job["backend"], "cuda",
+                           timeout_s=TP_TIMEOUT_S)
+    try:
+        stats, logits = {}, {}
+        for (name, cfg, inputs), feed in zip(tp_cases(args.seed),
+                                             job["feeds"]):
+            layout = pm.layout(cfg, TP_BATCH)
+            t0 = time.perf_counter()
+            model = init_sharded(torch.Generator(device=pm.device)
+                                 .manual_seed(args.seed), cfg, layout,
+                                 pm.device)
+            torch.cuda.synchronize(pm.device)
+            init_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(pm.device)
+            got, _, cold = tp_serve(model, cfg, inputs, feed, pm.device,
+                                    layout)
+            logits[name, cfg.param_dtype] = got
+            if cfg.param_dtype != "float32":
+                _, _, warm = tp_serve(model, cfg, inputs, feed, pm.device,
+                                      layout)
+                stats = {"split": sorted(layout.split), "init_s": init_s,
+                         "cold_s": cold, "warm_s": warm,
+                         "params": sum(p.numel()
+                                       for p in model.parameters()),
+                         "peak_gb": torch.cuda.max_memory_allocated(
+                             pm.device) / 1e9}
+            del model
+        torch.save(logits, work / f"rank{pm.rank}.pt")
+        print("RESULT " + json.dumps(dict(stats, rank=pm.rank,
+                                          device=str(pm.device),
+                                          backend=pm.backend)), flush=True)
+    finally:
+        shutdown_process_mesh(pm)
+
+
+def serve_across_ranks(args, gpu) -> None:
+    """Phase 15: each case of ``tp_cases`` unsharded on the card (its
+    logits kept on the host, its model freed), then over ``model=2`` in
+    two processes (``launch.mesh.run_ranks``): over gloo on ``cuda:0`` on
+    a machine of one card, over NCCL on two cards where it has them. Each
+    rank draws its slice of the same weights (``init_sharded``) and
+    serves the same 2 requests fed the unsharded run's tokens. Both
+    ranks' logits must be equal; the smoke configs' (f32) within
+    ``LM_F32_TOL`` of the unsharded run's; the full-width run's within
+    ``TP_NORM_TOL`` normwise; greedy tokens equal wherever the unsharded
+    run's top-2 margin exceeds the limit (for the full-width run, the
+    largest difference measured)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.model import init_params
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    exp, feeds, whole = {}, [], {}
+    for name, cfg, inputs in tp_cases(args.seed):
+        model = init_params(torch.Generator(device=gpu).manual_seed(
+            args.seed), cfg, device=gpu)
+        logits, toks, secs = tp_serve(model, cfg, inputs, None, gpu)
+        exp[name, cfg.param_dtype] = logits
+        feeds.append(toks[:, :TP_STEPS])
+        if cfg.param_dtype != "float32":
+            _, _, warm = tp_serve(model, cfg, inputs, None, gpu)
+            whole = {"params": sum(p.numel() for p in model.parameters()),
+                     "cold_s": secs, "warm_s": warm,
+                     "layers": cfg.n_layers}
+        del model
+        torch.cuda.empty_cache()
+    backend = "nccl" if torch.cuda.device_count() >= TP_RANKS else "gloo"
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"feeds": feeds, "backend": backend},
+                   Path(work) / "job.pt")
+        ranks = run_ranks([str(Path(__file__).resolve()), "--tp-dir", work,
+                           "--seed", str(args.seed)], TP_RANKS,
+                          TP_TIMEOUT_S)
+        results, got = [], []
+        for r, (rc, log) in enumerate(ranks):
+            lines = [ln for ln in log.splitlines() if ln.startswith("RESULT ")]
+            if rc != 0 or not lines:
+                print(log[-4000:])
+                fail(f"phase 15: rank {r} exited {rc}")
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+            got.append(torch.load(Path(work) / f"rank{r}.pt"))
+    devices = [res["device"] for res in results]
+    check(len(set(devices)) == (TP_RANKS if backend == "nccl" else 1),
+          f"phase 15: ranks on {devices}")
+    smoke = []
+    for key, want in exp.items():
+        name, dtype = key
+        logits = got[0][key]
+        check(all(torch.equal(g[key], logits) for g in got),
+              f"phase 15 {name}: the ranks hold different logits")
+        check(bool(torch.isfinite(logits).all()), f"phase 15 {name}: a "
+              f"logit is not finite")
+        diff = (logits - want).abs()
+        top2 = torch.topk(want, 2).values
+        margin = top2[..., 0] - top2[..., 1]
+        if dtype == "float32":
+            check(bool(lm_close(logits, want, LM_F32_TOL).all()),
+                  f"phase 15 {name}: logits differ from the unsharded "
+                  f"run's by {float(diff.max()):.3g}")
+            clear = margin > LM_F32_TOL["atol"] \
+                + LM_F32_TOL["rtol"] * top2[..., 0].abs()
+            smoke.append(f"{name} {float(diff.max()):.2g}")
+        else:
+            norm = (torch.linalg.vector_norm(logits - want, dim=-1)
+                    / torch.linalg.vector_norm(want, dim=-1)).amax(-1)
+            check(float(norm.max()) <= TP_NORM_TOL, f"phase 15 {name}: "
+                  f"logits differ from the unsharded run's by "
+                  f"{[round(float(v), 4) for v in norm]} normwise")
+            worst = float(diff.max())
+            clear = margin > worst
+            ulps = (diff / bf16_ulp(want.abs().amax(-1, keepdim=True))
+                    ).amax(dim=(1, 2))
+            off = int((~lm_close(logits, want)).sum())
+            full = (f"normwise difference by position "
+                    f"{[round(float(v), 4) for v in norm]} (limit "
+                    f"{TP_NORM_TOL}), largest {worst:.3g} "
+                    f"({[round(float(u), 1) for u in ulps]} bf16 ulps of "
+                    f"the row's largest logit), {off} of {want.numel()} "
+                    f"outside rtol 0.08, atol 0.15")
+        check(torch.equal(torch.argmax(logits, -1)[clear],
+                          torch.argmax(want, -1)[clear]),
+              f"phase 15 {name}: a greedy token differs where the "
+              f"unsharded run's margin is clear")
+        if dtype != "float32":
+            same = torch.argmax(logits, -1) == torch.argmax(want, -1)
+            full += (f"; greedy tokens equal at the {int(clear.sum())} of "
+                     f"{clear.numel()} positions whose margin exceeds it "
+                     f"({int(same.sum())} equal in all)")
+    print(f"[tp] phase 15a: the dense archs' smoke configs in f32 over "
+          f"model={TP_RANKS}, largest |logit difference| from the unsharded "
+          f"run: {', '.join(smoke)} (limit rtol {LM_F32_TOL['rtol']} atol "
+          f"{LM_F32_TOL['atol']})", flush=True)
+    res = results[0]
+    print(f"[tp] phase 15b: {TP_ARCH} at published widths, "
+          f"{whole['layers']} of 64 layers ({whole['params'] / 1e9:.2f} B "
+          f"parameters), {TP_BATCH} x {TP_PROMPT} tokens and {TP_STEPS} "
+          f"steps: unsharded on {gpu} {whole['cold_s']:.2f} s cold, "
+          f"{whole['warm_s']:.2f} s warm; over model={TP_RANKS} on "
+          f"{devices} by {backend}, split {res['split']}, "
+          + "; ".join(f"rank {r['rank']} {r['params'] / 1e9:.2f} B "
+                      f"parameters drawn in {r['init_s']:.1f} s, served "
+                      f"{r['cold_s']:.2f} s cold, {r['warm_s']:.2f} s warm, "
+                      f"peak {r['peak_gb']:.1f} GB" for r in results)
+          + f"; logits equal on both ranks; {full}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
+                      - 7)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1813,6 +2080,7 @@ def main() -> None:
     ap.add_argument("--mp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mp-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1821,6 +2089,9 @@ def main() -> None:
         fail(f"the repro_torch package is missing under {SRC}")
     if args.mp_rank is not None:
         process_worker(args)
+        return
+    if args.tp_dir is not None:
+        tp_worker(args)
         return
     sys.path.insert(0, str(SRC))
 
@@ -2836,6 +3107,9 @@ def main() -> None:
 
     # -- 14. training --------------------------------------------------------------
     train_families(args, gpu, card, counters, kernels)
+
+    # -- 15. serving across ranks ---------------------------------------------
+    serve_across_ranks(args, gpu)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-"""Lane-permutation plans: balance skewed chunk lanes across lane blocks.
+"""Sharding plans: lane balance, lane blocks and the model's layout.
 
-The lane-balance half of the JAX package's ``dist/plan.py`` (numpy), and
-the lane blocks of a decode over a mesh (:func:`mesh_layout`); the
-decoder's logical-axis rules are in ``dist/sharding.py``.
+The port of the JAX package's ``dist/plan.py``: the lane balance of the
+decoder (numpy), the lane blocks of a decode over a mesh
+(:func:`mesh_layout`), and the model's sharding plan (:func:`rules_for`,
+:func:`param_rules`, :class:`ShardLayout`, at the end of this module);
+the logical-axis rules are in ``dist/sharding.py``.
 
 The decoder can split its chunk-lane axis into contiguous blocks, one a
 device. Lanes default to bitstream order, so a skewed batch (one big JPEG
@@ -19,10 +21,12 @@ bit-identical to the unpermuted plan's on every schedule and backend.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .sharding import Rules, normalize
 
 BALANCE_POLICIES = ("none", "roundrobin", "lpt")
 
@@ -421,3 +425,190 @@ def mesh_layout(plan, arrays, n_blocks: int) -> MeshLayout:
                       seq_pos=seq_pos, seq_seg_start=seq_seg_start,
                       seq_seg=seq_seg, seq_piece=seq_block * n_blocks
                       + seq_owner)
+
+
+# ---------------------------------------------------------------------------
+# The model's sharding plan: rules, the parameter audit, one rank's layout
+# ---------------------------------------------------------------------------
+#
+# ``mesh`` below is anything with ``axis_names`` and ``shape`` (axis ->
+# size), as the JAX package's functions read a ``jax.sharding.Mesh``: a
+# ``launch.mesh.ProcessMesh`` of ranks, a ``launch.mesh.Mesh`` of devices.
+
+# logical axes that only ever label activations and data, never parameters
+ACTIVATION_ONLY = ("batch", "seq", "kv_seq", "chunks", "units")
+
+# the logical axes a layout can split over the "model" axis
+MODEL_AXES = ("heads", "kv_heads", "mlp", "experts", "vocab")
+
+
+def _axes_size(mesh, axes: Tuple[str, ...]) -> int:
+    return int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+
+
+def rules_for(cfg, mesh, kind: str, batch: int) -> Rules:
+    """Logical rules for one workload cell, as the JAX package's.
+
+    ``kind``: ``"train"``, ``"prefill"`` or ``"decode"``; ``batch`` the
+    global batch, whose split over the data axes is dropped when it does
+    not divide them. The width axes ride ``"model"``; a decode of a
+    config with ``decode_kv_shard == "seq"`` spreads the cache length
+    (``"kv_seq"``) over it.
+    """
+    names = set(mesh.axis_names)
+    data = tuple(a for a in ("pod", "data") if a in names)
+    model = ("model",) if "model" in names else ()
+    if data and batch % _axes_size(mesh, data) != 0:
+        data = ()
+    rules: Rules = {
+        "batch": data, "seq": (), "kv_seq": (), "embed": (),
+        "heads": model, "kv_heads": model, "mlp": model, "experts": model,
+        "vocab": model, "chunks": data, "units": data,
+    }
+    if kind == "decode" and getattr(cfg, "decode_kv_shard", "none") == "seq":
+        rules["kv_seq"] = model
+    return rules
+
+
+def param_rules(rules: Rules, cfg, mesh) -> Rules:
+    """The parameter side of ``rules``: the activation-only axes dropped,
+    and every axis demoted to replicated whose labelled dimensions do not
+    all divide its mesh extent, audited over the parameters of
+    ``abstract_params(cfg)`` (on the ``meta`` device) as the JAX package
+    audits its abstract tree."""
+    from ..models.model import abstract_params  # lazy: models import us
+
+    prules: Rules = {k: normalize(v) for k, v in rules.items()
+                     if k not in ACTIVATION_ONLY}
+    model = abstract_params(cfg)
+    bad = set()
+    for name, axes in model.specs().items():
+        shape = model.get_parameter(name).shape
+        for dim, logical in zip(shape, axes):
+            if logical is None or logical not in prules:
+                continue
+            on = tuple(a for a in prules[logical] if a in mesh.shape)
+            if on and dim % _axes_size(mesh, on) != 0:
+                bad.add(logical)
+    for logical in bad:
+        prules[logical] = ()
+    return prules
+
+
+# what a model split over "model" cannot run yet, by the config's fields
+_NOT_SPLIT = (("mla", "MLA"), ("ssm", "SSD"), ("moe", "MoE"),
+              ("n_enc_layers", "an encoder"))
+
+
+def check_model_split(cfg, rules: Rules) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP A15b) for a config whose
+    layers the port cannot yet split over ``"model"``: MLA, SSD, MoE, an
+    encoder, or a ``kv_seq`` rule. Called where the model axis has more
+    than one rank; such a model is never quietly replicated."""
+    what = [label for field, label in _NOT_SPLIT if getattr(cfg, field)]
+    if "model" in normalize(rules.get("kv_seq")):
+        what.append("the kv_seq rule (decode_kv_shard='seq')")
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(what)} across the model axis is not "
+            f"ported yet (ROADMAP A15b); only dense GQA layers split")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """What one rank of a ``(data, model)`` mesh holds of a model, its
+    batch and its caches: the port's counterpart of the JAX package's
+    ``param_shardings``, ``batch_shardings`` and ``cache_shardings``.
+
+    ``split`` are the logical axes cut over the model axis (after the
+    audit of :func:`param_rules`); a parameter is cut on its first such
+    dimension into ``model`` equal slices, of which this rank holds slice
+    ``model_rank`` (:meth:`param_cut`). With ``batch_split``, batch inputs
+    and caches hold the ``data_rank``-th of ``data`` equal runs of rows
+    (:meth:`rows`). ``group`` is the process group of this rank's model
+    axis, over which the layers reduce (None where no process group runs:
+    in one process, or to slice weights alone).
+
+    Caches differ in layout from the JAX package's, with the same values:
+    there they stay batch-sharded only and XLA's partitioner reshards
+    them for the attention; here each rank's caches hold the kv heads of
+    its own slice (:meth:`local` of ``"kv_heads"``; all of them when the
+    audit kept ``kv_heads`` whole) and its data rank's rows.
+    """
+    data: int = 1
+    model: int = 1
+    data_rank: int = 0
+    model_rank: int = 0
+    batch_split: bool = False
+    split: FrozenSet[str] = frozenset()
+    group: object = dataclasses.field(default=None, compare=False,
+                                      repr=False)
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the layers run over a model group of several ranks."""
+        return self.model > 1
+
+    def splits(self, logical: str) -> bool:
+        return logical in self.split
+
+    def param_cut(self, shape: Sequence[int],
+                  axes: Sequence[Optional[str]]
+                  ) -> Optional[Tuple[int, int, int]]:
+        """``(dim, start, length)`` of this rank's slice of a parameter of
+        ``shape`` with logical ``axes``, or None when it is held whole."""
+        for dim, logical in enumerate(axes):
+            if logical in self.split:
+                n = shape[dim] // self.model
+                if n * self.model != shape[dim]:
+                    raise ValueError(f"dimension {dim} of {tuple(shape)} "
+                                     f"({logical}) does not split into "
+                                     f"{self.model}")
+                return dim, self.model_rank * n, n
+        return None
+
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a global batch of ``batch``."""
+        if not self.batch_split:
+            return slice(0, batch)
+        n = batch // self.data
+        return slice(self.data_rank * n, (self.data_rank + 1) * n)
+
+    def batch(self, inputs: Dict[str, torch.Tensor]) -> Dict:
+        """Every batch input's rows of this rank (dimension 0)."""
+        return {k: v[self.rows(v.shape[0])] for k, v in inputs.items()}
+
+    def local(self, logical: str, n: int) -> slice:
+        """This rank's part of a dimension of ``n`` labelled ``logical``
+        (the query ``"heads"`` its attention computes, the ``"kv_heads"``
+        its caches hold, its ``"vocab"`` rows): all of it unless the
+        layout splits ``logical``."""
+        if logical not in self.split:
+            return slice(0, n)
+        k = n // self.model
+        return slice(self.model_rank * k, (self.model_rank + 1) * k)
+
+
+def shard_layout(cfg, mesh, rank: int, batch: int, kind: str = "decode",
+                 group=None) -> ShardLayout:
+    """Rank ``rank``'s :class:`ShardLayout` of ``cfg`` on a ``("data",
+    "model")`` ``mesh`` (rank ``data_rank * model + model_rank``) for a
+    global batch of ``batch``: :func:`rules_for`, then :func:`param_rules`.
+    With more than one model rank, a config the port cannot split raises
+    (:func:`check_model_split`)."""
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError(f"a ShardLayout needs a ('data', 'model') mesh, "
+                         f"got axes {tuple(mesh.axis_names)}")
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    if not 0 <= rank < data * model:
+        raise ValueError(f"rank {rank} outside a mesh of {data * model}")
+    rules = rules_for(cfg, mesh, kind, batch)
+    if model > 1:
+        check_model_split(cfg, rules)
+    prules = param_rules(rules, cfg, mesh)
+    split = frozenset(k for k in MODEL_AXES if model > 1
+                      and "model" in prules.get(k, ()))
+    d, m = divmod(rank, model)
+    return ShardLayout(data=data, model=model, data_rank=d, model_rank=m,
+                       batch_split="data" in normalize(rules["batch"]),
+                       split=split, group=group)

@@ -1,16 +1,22 @@
-"""Logical-axis rules: which mesh axis a logical axis of the decoder rides.
+"""Logical-axis rules: which mesh axis a logical axis rides.
 
-The decoder's half of the JAX package's ``dist/sharding.py``. Code names
-its axes logically (``"chunks"``, ``"units"``, ``"batch"``); a rule set
-maps each logical name to mesh axis names. :func:`resolve` gives the
-mesh axes of a tuple of logical axes, one entry a dimension (``None``
-for replicated), as the JAX package's ``PartitionSpec``.
+The port of the JAX package's ``dist/sharding.py``. Code names its axes
+logically (the decoder's ``"chunks"``, ``"units"``, ``"batch"``; the
+model's ``"heads"``, ``"mlp"``, ``"vocab"`` ...); a rule set maps each
+logical name to mesh axis names. :func:`resolve` gives the mesh axes of
+a tuple of logical axes, one entry a dimension (``None`` for
+replicated), as the JAX package's ``PartitionSpec``.
 ``core.api.ParallelDecoder.decode_on(rules=)`` reads the axis of
-``"chunks"``; the decode splits its lanes over it.
+``"chunks"``; the decode splits its lanes over it. The model's rules
+(:data:`DEFAULT_RULES`, ``dist.plan.rules_for``) become a
+``dist.plan.ShardLayout``: the slice of each parameter, batch input and
+cache that one rank holds.
 
-Rules are replaced, not merged, by :func:`logical_rules`. ``shard`` on
-model activations, and the model axes' default rules, wait for the
-sharding plan (ROADMAP A15).
+Rules are replaced, not merged, by :func:`logical_rules`. The JAX
+package's ``shard()`` and ``trace_token()`` have no counterpart: they are
+constraints for XLA's partitioner, which inserts the collectives, where
+the port's layers split themselves over the model group and call them
+(``dist.tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -19,6 +25,25 @@ import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 Rules = Dict[str, Union[None, str, Tuple[str, ...]]]
+
+# Baseline rules for a ("data", "model") mesh: activation and batch axes
+# ride the data axis, the tensor-parallel width axes the model axis, and
+# everything else is replicated.
+DEFAULT_RULES: Rules = {
+    # model activations and parameters
+    "batch": ("data",),
+    "seq": (),
+    "kv_seq": (),
+    "embed": (),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "mlp": ("model",),
+    "experts": ("model",),
+    "vocab": ("model",),
+    # the decoder's lanes: subsequence chunks and output units
+    "chunks": ("data",),
+    "units": ("data",),
+}
 
 _STATE = threading.local()
 

@@ -1,9 +1,13 @@
-"""Device meshes of one process: the cards a decode splits its lanes over.
+"""Meshes: the cards of one process, and a mesh of processes.
 
 The port's counterpart of the JAX package's ``launch/mesh.py``. A
 :class:`Mesh` is an array of ``torch.device``s with axis names, the shape
-of a ``jax.sharding.Mesh``. Nothing here touches the card when the module
-is imported.
+of a ``jax.sharding.Mesh``: the cards a decode splits its lanes over. A
+:class:`ProcessMesh` is a ``("data", "model")`` mesh of processes, one a
+rank and a card, joined by ``torch.distributed``: what a model split
+across cards runs over (:func:`init_process_mesh`, started once a process
+by torchrun or :func:`run_ranks`). Nothing here touches the card when the
+module is imported.
 
 A mesh may name one device more than once: each entry is a *block* of
 the decode's lanes (``core.mesh_decode``), and blocks on one device run
@@ -13,14 +17,25 @@ JAX package forces four host devices. A device index the machine does not
 have raises.
 
 The JAX package's TPU pod mesh (``make_production_mesh``) and its TPU
-roofline constants are not ported (ROADMAP: no port, on purpose).
+roofline constants are not ported (ROADMAP: no port, on purpose): the
+largest mesh here is the cards of one host, four H100s joined by NVLink,
+as a :class:`ProcessMesh`.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from datetime import timedelta
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def check_device(device) -> torch.device:
@@ -141,3 +156,187 @@ def make_local_data_mesh(devices: Optional[Sequence] = None) -> Mesh:
     process sees."""
     devs = list(devices) if devices is not None else _cards(None)
     return make_mesh((len(devs),), ("data",), devs)
+
+
+# ---------------------------------------------------------------------------
+# A mesh of processes over torch.distributed
+# ---------------------------------------------------------------------------
+
+BACKENDS = ("nccl", "gloo")
+
+
+def rank_coords(rank: int, model: int) -> Tuple[int, int]:
+    """``(data, model)`` coordinates of ``rank``: the ranks of one model
+    group are consecutive."""
+    return divmod(rank, model)
+
+
+@dataclasses.dataclass
+class ProcessMesh:
+    """This process's place in a ``("data", "model")`` mesh of processes.
+
+    ``device`` is the rank's card (or the CPU), ``backend`` the process
+    group's (None for a mesh of one), ``model_group`` the ranks that share
+    this one's data rank and split the model between them, ``data_group``
+    those that share its model rank. ``axis_names`` and ``shape`` are a
+    ``jax.sharding.Mesh``'s, so ``dist.plan`` reads it as one.
+    """
+    data: int
+    model: int
+    rank: int
+    device: torch.device
+    backend: Optional[str] = None
+    model_group: object = None
+    data_group: object = None
+
+    axis_names = ("data", "model")
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        return rank_coords(self.rank, self.model)
+
+    def layout(self, cfg, batch: int, kind: str = "decode"):
+        """This rank's ``dist.plan.ShardLayout`` of ``cfg`` for a global
+        batch of ``batch``, reducing over the model group."""
+        from ..dist.plan import shard_layout
+        return shard_layout(cfg, self, self.rank, batch, kind,
+                            group=self.model_group)
+
+
+def init_process_mesh(data: int, model: int, backend: Optional[str],
+                      device="cuda", *, coordinator: Optional[str] = None,
+                      rank: Optional[int] = None,
+                      timeout_s: int = 120) -> ProcessMesh:
+    """Join a ``(data, model)`` mesh of ``data * model`` processes.
+
+    The topology comes from ``launch.multihost.init_distributed`` (the
+    arguments, then ``REPRO_*``, then torchrun's ``MASTER_ADDR``,
+    ``WORLD_SIZE`` and ``RANK``; or the launch this process already
+    joined), whose store the process group is built on; every collective
+    then fails after ``timeout_s`` rather than hang.
+    ``backend`` is the caller's: ``"nccl"`` needs a card a rank (NCCL
+    refuses two ranks on one card), ``"gloo"`` runs on the CPU and on
+    shared cards. Each rank takes one card, as
+    ``launch.multihost.process_cards`` gives them. A mesh of one process
+    starts nothing. End with :func:`shutdown_process_mesh`.
+    """
+    from ..core.api import resolve_device
+    from .multihost import (_store, init_distributed, process_cards,
+                            process_info)
+
+    world = data * model
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh data={data}, model={model}")
+    dev = resolve_device(device)
+    if world == 1:
+        return ProcessMesh(1, 1, 0, dev)
+    if backend not in BACKENDS:
+        raise ValueError(f"a mesh of {world} processes needs its backend "
+                         f"named: one of {BACKENDS}, got {backend!r}")
+    if backend == "nccl" and (dev.type != "cuda"
+                              or torch.cuda.device_count() < world):
+        raise ValueError(f"nccl needs a card for each of the {world} ranks "
+                         f"(device {dev}, "
+                         f"{torch.cuda.device_count()} cards); use gloo")
+    ctx = process_info()
+    if not ctx.initialized:
+        ctx = init_distributed(coordinator, world, rank,
+                               timeout_s=timeout_s)
+    if ctx.num_processes != world:
+        raise ValueError(f"a mesh of {data} x {model} ranks in a launch of "
+                         f"{ctx.num_processes} processes")
+    if dev.type == "cuda":
+        dev = process_cards(ctx)[0]
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, store=dist.PrefixStore("repro/pg", _store("a mesh")),
+        rank=ctx.process_id, world_size=world,
+        timeout=timedelta(seconds=timeout_s))
+    d_me, m_me = rank_coords(ctx.process_id, model)
+    groups = {}
+    # every rank makes every group, in one order
+    for d in range(data):
+        groups[("model", d)] = dist.new_group(
+            [d * model + m for m in range(model)])
+    for m in range(model):
+        groups[("data", m)] = dist.new_group(
+            [d * model + m for d in range(data)])
+    return ProcessMesh(data, model, ctx.process_id, dev, backend,
+                       groups[("model", d_me)], groups[("data", m_me)])
+
+
+def shutdown_process_mesh(mesh: ProcessMesh) -> None:
+    """Leave the mesh: the process group, then the launch's store
+    (``launch.multihost.shutdown_distributed``)."""
+    if mesh.size == 1:
+        return
+    from .multihost import shutdown_distributed
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    shutdown_distributed()
+
+
+def parse_mesh(text: str) -> Tuple[int, int]:
+    """``"data=D,model=M"`` (either may be left out: 1) -> ``(D, M)``."""
+    sizes = {"data": 1, "model": 1}
+    for part in filter(None, text.split(",")):
+        name, _, value = part.partition("=")
+        if name.strip() not in sizes or not value.strip().isdigit():
+            raise ValueError(f"mesh {text!r}: expected data=D,model=M")
+        sizes[name.strip()] = int(value)
+    return sizes["data"], sizes["model"]
+
+
+def run_ranks(argv: Sequence[str], world: int, timeout_s: float,
+              env: Optional[dict] = None,
+              log_dir: Optional[str] = None) -> List[Tuple[int, str]]:
+    """Run ``python argv...`` as ``world`` ranks on this host, as torchrun
+    would: each with ``MASTER_ADDR``/``MASTER_PORT`` (a free port of
+    localhost), ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``, its output in
+    a file of ``log_dir`` (a temporary directory by default). Returns
+    ``(returncode, output)`` a rank; past ``timeout_s`` every rank still
+    running is killed (returncode -9)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = None if log_dir else tempfile.TemporaryDirectory()
+    logs = Path(log_dir or tmp.name)
+    logs.mkdir(parents=True, exist_ok=True)
+    base = dict(os.environ if env is None else env,
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                WORLD_SIZE=str(world))
+    procs, files = [], []
+    try:
+        for r in range(world):
+            f = open(logs / f"rank{r}.log", "w")
+            files.append(f)
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], stdout=f, stderr=subprocess.STDOUT,
+                env=dict(base, RANK=str(r), LOCAL_RANK=str(r))))
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    out = [(p.returncode, (logs / f"rank{r}.log").read_text())
+           for r, p in enumerate(procs)]
+    if tmp is not None:
+        tmp.cleanup()
+    return out

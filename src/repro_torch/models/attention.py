@@ -10,6 +10,12 @@ A cache here is updated in place: :func:`cache_update` and
 :func:`mla_forward` write the new positions into the preallocated tensors
 and return a cache that shares them, where the JAX functions return new
 arrays.
+
+Across a model group (``layout``, a ``dist.plan.ShardLayout``), GQA runs
+this rank's query heads against its kv heads (or, where the audit kept
+``kv_heads`` whole, the kv heads its query heads read) and sums ``wo``'s
+partial products over the group (``dist.tensor_parallel.row_parallel``).
+MLA is not split (ROADMAP A15b).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist import tensor_parallel as TP
 from .config import ModelConfig
 from .layers import (ParamBuilder, apply_rope, resolve_model_device,
                      rmsnorm, weak_scalar)
@@ -210,22 +217,25 @@ class GQA(nn.Module):
     def __init__(self, b: ParamBuilder, cfg: ModelConfig):
         super().__init__()
         d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = b.add((d, h, dh))
-        self.wk = b.add((d, hkv, dh))
-        self.wv = b.add((d, hkv, dh))
-        self.wo = b.add((h, dh, d))
+        self.wq = b.add((d, h, dh), ("embed", "heads", None))
+        self.wk = b.add((d, hkv, dh), ("embed", "kv_heads", None))
+        self.wv = b.add((d, hkv, dh), ("embed", "kv_heads", None))
+        self.wo = b.add((h, dh, d), ("heads", None, "embed"))
 
 
 def gqa_forward(
     p: GQA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
     causal: bool = True, cache: Optional[KVCache] = None,
     cache_pos: Optional[int] = None, kv_x: Optional[torch.Tensor] = None,
-    use_rope: bool = True,
+    use_rope: bool = True, layout=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x (B,S,d). With a cache: writes k/v at ``cache_pos`` and attends
     over the whole cache under the causal (and window) mask. ``kv_x``
     (encoder states) switches to cross-attention (no cache, no causal
-    mask); without ``use_rope`` no position is rotated."""
+    mask); without ``use_rope`` no position is rotated. With a
+    ``layout`` that splits the heads, ``p`` holds this rank's heads and
+    the output is summed over its model group."""
+    split = TP.splits(layout, "heads")
     kv_src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
     k = torch.einsum("bsd,dhk->bshk", kv_src, p.wk)
@@ -247,16 +257,48 @@ def gqa_forward(
         if cfg.sliding_window > 0:
             mask &= (qpos[:, :, None] - kpos[None, None, :]) \
                 < cfg.sliding_window
+        if split:
+            k, v = _kv_of_heads(k, v, cfg, layout)
         o = _cached_attention(q, k, v, mask, cfg.attn_logit_softcap)
     else:
+        if split:
+            k, v = _kv_of_heads(k, v, cfg, layout)
         o = chunked_attention(
             q, k, v, causal=causal and kv_x is None,
             sliding_window=cfg.sliding_window,
             softcap=cfg.attn_logit_softcap, q_chunk=cfg.attn_chunk // 2,
             kv_chunk=cfg.attn_chunk,
         )
-    out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
+    if split:
+        o = o.to(x.dtype)
+        out = TP.row_parallel(o.reshape(*o.shape[:2], -1),
+                              p.wo.reshape(-1, p.wo.shape[-1]), layout,
+                              x.dtype)
+    else:
+        out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
     return out, new_cache
+
+
+def _kv_of_heads(k, v, cfg: ModelConfig, layout):
+    """k/v (B, S, Hkv_local, D) laid out for this rank's query heads.
+
+    With ``kv_heads`` split as the heads are, the rank's kv heads serve
+    its query heads in the same groups: unchanged. Where the audit kept
+    them whole, the kv heads its query heads read: a run of whole groups,
+    one kv head shared by all of them, or (the groups straddling the
+    rank's heads) one kv head per query head."""
+    if layout.splits("kv_heads"):
+        return k, v
+    heads = layout.local("heads", cfg.n_heads)
+    n, g = heads.stop - heads.start, cfg.n_heads // cfg.n_kv_heads
+    first = heads.start // g
+    if n % g == 0:
+        at = slice(first, first + n // g)
+        return k[:, :, at], v[:, :, at]
+    if g % n == 0:
+        return k[:, :, first:first + 1], v[:, :, first:first + 1]
+    idx = torch.arange(heads.start, heads.stop, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _cached_attention(q, k, v, mask, softcap):
@@ -301,15 +343,16 @@ class MLA(nn.Module):
     def __init__(self, b: ParamBuilder, cfg: ModelConfig):
         super().__init__()
         d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
-        self.w_dq = b.add((d, m.q_lora))
-        self.q_norm = b.add((m.q_lora,), init="zeros")
-        self.w_uq = b.add((m.q_lora, h, m.nope_dim + m.rope_dim))
-        self.w_dkv = b.add((d, m.kv_lora))
-        self.kv_norm = b.add((m.kv_lora,), init="zeros")
-        self.w_kr = b.add((d, m.rope_dim))
-        self.w_uk = b.add((m.kv_lora, h, m.nope_dim))
-        self.w_uv = b.add((m.kv_lora, h, m.v_dim))
-        self.wo = b.add((h, m.v_dim, d))
+        self.w_dq = b.add((d, m.q_lora), ("embed", None))
+        self.q_norm = b.add((m.q_lora,), (None,), init="zeros")
+        self.w_uq = b.add((m.q_lora, h, m.nope_dim + m.rope_dim),
+                          (None, "heads", None))
+        self.w_dkv = b.add((d, m.kv_lora), ("embed", None))
+        self.kv_norm = b.add((m.kv_lora,), (None,), init="zeros")
+        self.w_kr = b.add((d, m.rope_dim), ("embed", None))
+        self.w_uk = b.add((m.kv_lora, h, m.nope_dim), (None, "heads", None))
+        self.w_uv = b.add((m.kv_lora, h, m.v_dim), (None, "heads", None))
+        self.wo = b.add((h, m.v_dim, d), ("heads", None, "embed"))
 
 
 def mla_forward(

@@ -8,7 +8,8 @@ travels flat, as ``dict[str, np.ndarray]``: each top-level name as it is
 port's model has the same names), ``prefix.{i}.*`` as ``blocks.{i}.*``,
 and each pattern leaf as ``pattern.<name>`` with its leading period axis,
 every value an f32 array (``np.asarray(x.astype(jnp.float32))``: bf16 ->
-f32 -> bf16 is lossless).
+f32 -> bf16 is lossless). With a ``layout`` each value is cut to one
+rank's slice on the host, before it reaches the device.
 """
 from __future__ import annotations
 
@@ -27,16 +28,21 @@ _PATTERN = re.compile(r"pattern\.slot(\d+)\.(.+)")
 
 
 def params_from_jax(flat: Dict[str, np.ndarray], cfg: ModelConfig,
-                    max_positions: int = 0, device="cuda") -> Model:
+                    max_positions: int = 0, device="cuda",
+                    layout=None) -> Model:
     """A model holding the JAX package's weights, in ``cfg.param_dtype``,
-    on ``device`` (the card unless the caller passes ``device="cpu"``).
+    on ``device`` (the card unless the caller passes ``device="cpu"``);
+    with a ``layout`` (a ``dist.plan.ShardLayout``), one rank's slice of
+    them.
 
     Refuses a name the port's model does not have, a shape other than
     its own, and a model parameter the dict leaves out.
     """
     device = resolve_device(device)
-    model = abstract_params(cfg, max_positions)
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    model = abstract_params(cfg, max_positions, layout)
+    whole = abstract_params(cfg, max_positions)
+    want = {k: tuple(v.shape) for k, v in whole.state_dict().items()}
+    specs = model.specs()
     n_pre, n_pat = len(cfg.prefix_layers), len(cfg.pattern)
     dt = torch_dtype(cfg.param_dtype)
     state = {}
@@ -63,6 +69,10 @@ def params_from_jax(flat: Dict[str, np.ndarray], cfg: ModelConfig,
             if v.shape != want[key]:
                 raise ValueError(f"{name}: shape {v.shape}, the port's "
                                  f"{key!r} is {want[key]}")
+            cut = layout.param_cut(v.shape, specs[key]) if layout else None
+            if cut is not None:
+                dim, start, n = cut
+                v = np.take(v, np.arange(start, start + n), axis=dim)
             state[key] = torch.from_numpy(
                 np.array(v, dtype=np.float32)).to(dt).to(device)
     missing = sorted(set(want) - set(state))

@@ -8,8 +8,13 @@ MoE dispatch is the sort + capacity formulation: each token's k (expert,
 rank) slots come from one stable argsort of the flat expert ids, the
 tokens go into an ``(E, C, d)`` buffer (a slot past the capacity writes
 nothing and is counted in ``aux["dropped_frac"]``), and every expert's
-products run over its whole buffer. The model runs on one card, so the
-JAX package's expert-parallel sharding has no counterpart.
+products run over its whole buffer.
+
+Across a model group (``layout``, a ``dist.plan.ShardLayout``) the dense
+FFN holds this rank's ``mlp`` columns of ``w_gate``/``w_up`` and rows of
+``w_down``, and sums its partial output over the group
+(``dist.tensor_parallel.row_parallel``). The MoE FFN, whose experts the
+JAX package splits over the model axis, is not split (ROADMAP A15b).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..dist import tensor_parallel as TP
 from .config import ModelConfig
 from .layers import ParamBuilder, activation_fn, gelu, sigmoid, silu
 
@@ -36,17 +42,20 @@ class DenseFFN(nn.Module):
         d = cfg.d_model
         ff = d_ff or cfg.d_ff
         if cfg.activation in ("swiglu", "geglu"):
-            self.w_gate = b.add((d, ff))
-        self.w_up = b.add((d, ff))
-        self.w_down = b.add((ff, d))
+            self.w_gate = b.add((d, ff), ("embed", "mlp"))
+        self.w_up = b.add((d, ff), ("embed", "mlp"))
+        self.w_down = b.add((ff, d), ("mlp", "embed"))
 
 
-def dense_ffn(p: DenseFFN, cfg: ModelConfig, x: torch.Tensor):
+def dense_ffn(p: DenseFFN, cfg: ModelConfig, x: torch.Tensor,
+              layout=None):
     if cfg.activation in ("swiglu", "geglu"):
         act = silu if cfg.activation == "swiglu" else gelu
         h = act(x @ p.w_gate) * (x @ p.w_up)
     else:
         h = activation_fn(cfg.activation)(x @ p.w_up)
+    if TP.splits(layout, "mlp"):
+        return TP.row_parallel(h, p.w_down, layout, h.dtype)
     return h @ p.w_down
 
 
@@ -64,12 +73,12 @@ class MoEFFN(nn.Module):
         super().__init__()
         d, m = cfg.d_model, cfg.moe
         e, f = m.n_experts, m.expert_ff
-        self.router = b.add((d, e), scale=0.02)
-        self.router_bias = b.add((e,), init="zeros") \
+        self.router = b.add((d, e), ("embed", None), scale=0.02)
+        self.router_bias = b.add((e,), (None,), init="zeros") \
             if m.router == "sigmoid_bias" else None
-        self.w_gate = b.add((e, d, f))
-        self.w_up = b.add((e, d, f))
-        self.w_down = b.add((e, f, d))
+        self.w_gate = b.add((e, d, f), ("experts", "embed", "mlp"))
+        self.w_up = b.add((e, d, f), ("experts", "embed", "mlp"))
+        self.w_down = b.add((e, f, d), ("experts", "mlp", "embed"))
         self.shared = DenseFFN(b, cfg, d_ff=(m.shared_ff or m.expert_ff)
                                * m.n_shared) if m.n_shared else None
 

@@ -3,12 +3,14 @@
 The port of the JAX package's ``models/layers.py``. The same functions on
 torch tensors; :class:`ParamBuilder` draws from an explicit
 ``torch.Generator`` on a device, and the ``meta`` device takes the place
-of the JAX builder's ``abstract=True``.
+of the JAX ``ParamBuilder``'s ``abstract=True``. Each parameter carries
+the JAX ``ParamBuilder``'s logical axes, and a ``ParamBuilder`` given a
+:class:`~repro_torch.dist.plan.ShardLayout` keeps only one rank's slice.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,34 +40,65 @@ class ParamBuilder:
     ``shape[-2]`` for a tensor of rank 2 or more) and cast to ``dtype``.
     On the ``meta`` device nothing is drawn or allocated: the shapes and
     dtypes of a full-width model, as the JAX builder's ``abstract=True``.
+
+    Every :meth:`add` names the tensor's logical axes, as the JAX
+    ``ParamBuilder.add(name, shape, logical)``; :meth:`axes_of` gives them
+    back. With a ``layout``, a tensor split over its model axis is drawn
+    whole, in the same order, and only the rank's slice is kept
+    (:meth:`~repro_torch.dist.plan.ShardLayout.param_cut`): a sharded
+    model is then the exact slice of the whole one drawn from the same
+    generator.
     """
 
     def __init__(self, generator: Optional[torch.Generator],
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda",
+                 layout=None):
         self.device = resolve_model_device(device)
         if self.device.type != "meta" and generator is None:
             raise ValueError("a ParamBuilder off the meta device draws from "
                              "an explicit torch.Generator")
         self.generator = generator
         self.dtype = dtype
+        self.layout = layout
+        self._axes: Dict[int, Tuple[Optional[str], ...]] = {}
 
-    def add(self, shape: Sequence[int], scale: Optional[float] = None,
-            init: str = "normal") -> nn.Parameter:
-        shape = tuple(shape)
+    def add(self, shape: Sequence[int], axes: Sequence[Optional[str]],
+            scale: Optional[float] = None, init: str = "normal"
+            ) -> nn.Parameter:
+        shape, axes = tuple(shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} needs one logical axis a "
+                             f"dimension, got {axes}")
+        cut = self.layout.param_cut(shape, axes) if self.layout else None
+        local = list(shape)
+        if cut is not None:
+            local[cut[0]] = cut[2]
         if self.device.type == "meta":
-            t = torch.empty(shape, dtype=self.dtype, device="meta")
+            t = torch.empty(local, dtype=self.dtype, device="meta")
         elif init == "zeros":
-            t = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            t = torch.zeros(local, dtype=self.dtype, device=self.device)
         elif init == "ones":
-            t = torch.ones(shape, dtype=self.dtype, device=self.device)
+            t = torch.ones(local, dtype=self.dtype, device=self.device)
         else:
             if scale is None:
                 fan_in = shape[-2] if len(shape) > 1 else shape[-1]
                 scale = 1.0 / np.sqrt(max(1, fan_in))
             t = torch.randn(shape, generator=self.generator,
                             dtype=torch.float32, device=self.device)
-            t = t.mul_(float(scale)).to(self.dtype)
-        return nn.Parameter(t, requires_grad=False)
+            t = t.mul_(float(scale))
+            if cut is not None:
+                # a copy of the slice alone, so that the whole draw is freed
+                t = t.narrow(*cut).to(self.dtype, copy=True,
+                                      memory_format=torch.contiguous_format)
+            else:
+                t = t.to(self.dtype)
+        p = nn.Parameter(t, requires_grad=False)
+        self._axes[id(p)] = axes
+        return p
+
+    def axes_of(self, p: nn.Parameter) -> Tuple[Optional[str], ...]:
+        """The logical axes :meth:`add` gave ``p``."""
+        return self._axes[id(p)]
 
 
 # ---------------------------------------------------------------------------
@@ -97,10 +130,10 @@ class Norm(nn.Module):
         super().__init__()
         self.kind = kind
         if kind == "rmsnorm":
-            self.w = b.add((d,), init="zeros")
+            self.w = b.add((d,), (None,), init="zeros")
         else:
-            self.w = b.add((d,), init="ones")
-            self.b = b.add((d,), init="zeros")
+            self.w = b.add((d,), (None,), init="ones")
+            self.b = b.add((d,), (None,), init="zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "rmsnorm":

@@ -4,10 +4,17 @@ encoder-decoder (whisper) and the VLM (llava), for serving and training.
 The port of the JAX package's ``models/model.py``. The layer layout (an
 unrolled prefix, then a periodic pattern) becomes one ``ModuleList`` of
 blocks, the prefix first and then each period's slots in turn, run by a
-Python loop; the encoder is a ``ModuleList`` of its own. The model runs
-on one card: the JAX package's sharding annotations have no counterpart.
-The multi-token prediction head serves nothing; :func:`forward_train`
-adds its loss.
+Python loop; the encoder is a ``ModuleList`` of its own. The multi-token
+prediction head serves nothing; :func:`forward_train` adds its loss.
+
+Across cards (:func:`init_sharded`, :func:`shard_model`): each rank of a
+``(data, model)`` process mesh holds its slice of the weights, as a
+``dist.plan.ShardLayout`` (``model.layout``) says, and its rows of the
+batch and caches. The layers split themselves where the JAX package's
+``shard()`` calls would make XLA split them: GQA over its heads, the
+dense FFN over ``mlp``, the embedding and the logits over the vocabulary
+(``dist.tensor_parallel``). Serving only: training across cards is
+ROADMAP A15c.
 
 Remat (``cfg.remat`` other than ``"none"``, which the JAX package runs as
 ``jax.checkpoint`` without a policy, so ``"dots"`` is ``"full"``): under
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import tensor_parallel as TP
 from .attention import (GQA, MLA, gqa_forward, init_kv_cache,
                         init_mla_cache, mla_forward)
 from .config import ModelConfig
@@ -85,16 +93,18 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 cache=None, cache_pos: Optional[int] = None,
-                enc_out: Optional[torch.Tensor] = None, decode: bool = False
-                ) -> Tuple[torch.Tensor, object, Dict]:
-        """(x, the block's cache, the MoE FFN's aux stats or {})."""
+                enc_out: Optional[torch.Tensor] = None, decode: bool = False,
+                layout=None) -> Tuple[torch.Tensor, object, Dict]:
+        """(x, the block's cache, the MoE FFN's aux stats or {}); with a
+        ``layout`` the GQA mixer and the dense FFN run over its model
+        group."""
         cfg, aux = self.cfg, {}
         h = self.norm1(x)
         new_cache = cache
         if self.mixer == "attn":
             h, new_cache = gqa_forward(self.attn, cfg, h, positions,
                                        causal=True, cache=cache,
-                                       cache_pos=cache_pos)
+                                       cache_pos=cache_pos, layout=layout)
         elif self.mixer == "attn_bidir":
             h, _ = gqa_forward(self.attn, cfg, h, positions, causal=False)
         elif self.mixer == "mla":
@@ -114,7 +124,7 @@ class Block(nn.Module):
             if self.ffn_kind == "moe":
                 h, aux = moe_ffn(self.ffn, cfg, h)
             else:
-                h = dense_ffn(self.ffn, cfg, h)
+                h = dense_ffn(self.ffn, cfg, h, layout)
             x = x + h
         return x, new_cache, aux
 
@@ -128,7 +138,7 @@ class MTPHead(nn.Module):
         super().__init__()
         self.norm_h = Norm(b, cfg.d_model, cfg.norm)
         self.norm_e = Norm(b, cfg.d_model, cfg.norm)
-        self.proj = b.add((2 * cfg.d_model, cfg.d_model))
+        self.proj = b.add((2 * cfg.d_model, cfg.d_model), (None, "embed"))
         self.block = Block(b, cfg, ("attn", "dense"))
 
 
@@ -142,7 +152,11 @@ class Model(nn.Module):
     package's, with ``blocks.{i}.`` for its ``prefix.{i}.`` and for period
     ``p``, slot ``s`` of its stacked ``pattern`` (block ``len(prefix) +
     p * len(pattern) + s``); the encoder's ``enc.{i}.`` and the others
-    as they are."""
+    as they are.
+
+    :meth:`specs` gives each parameter's logical axes, the JAX package's
+    ``Model.specs`` under these names; ``layout`` is the ParamBuilder's
+    ``ShardLayout`` (None for a whole model)."""
 
     def __init__(self, b: ParamBuilder, cfg: ModelConfig,
                  max_positions: int = 0):
@@ -150,23 +164,26 @@ class Model(nn.Module):
         check_served(cfg)
         self.cfg = cfg
         d = cfg.d_model
-        self.embed = b.add((cfg.vocab, d), scale=0.02)
-        self.lm_head = None if cfg.tie_embeddings else b.add((d, cfg.vocab))
+        self.embed = b.add((cfg.vocab, d), ("vocab", "embed"), scale=0.02)
+        self.lm_head = None if cfg.tie_embeddings \
+            else b.add((d, cfg.vocab), ("embed", "vocab"))
         self.final_norm = Norm(b, d, cfg.norm)
         # vision frontend stub: a projection from precomputed embeddings
         self.vis_proj1 = self.vis_proj2 = None
         if cfg.frontend == "vision":
-            self.vis_proj1 = b.add((1024, d))
-            self.vis_proj2 = b.add((d, d))
+            self.vis_proj1 = b.add((1024, d), (None, "embed"))
+            self.vis_proj2 = b.add((d, d), ("embed", "embed"))
         # audio frontend stub: a projection from precomputed frames
         self.aud_proj = self.enc_pos = None
         if cfg.frontend == "audio":
-            self.aud_proj = b.add((128, d))
+            self.aud_proj = b.add((128, d), (None, "embed"))
             if cfg.enc_seq:
-                self.enc_pos = b.add((cfg.enc_seq, d), scale=0.02)
+                self.enc_pos = b.add((cfg.enc_seq, d), (None, "embed"),
+                                     scale=0.02)
         self.dec_pos = None
         if cfg.norm == "layernorm" and max_positions:
-            self.dec_pos = b.add((max_positions, d), scale=0.02)
+            self.dec_pos = b.add((max_positions, d), (None, "embed"),
+                                 scale=0.02)
         # encoder stack (whisper)
         self.enc = nn.ModuleList(Block(b, cfg, ("attn_bidir", "dense"))
                                  for _ in range(cfg.n_enc_layers))
@@ -174,6 +191,13 @@ class Model(nn.Module):
         self.blocks = nn.ModuleList(Block(b, cfg, spec, cross=cfg.is_encdec)
                                     for spec in cfg.layer_specs)
         self.mtp = MTPHead(b, cfg) if cfg.mtp else None
+        self.layout = b.layout
+        self._specs = {name: b.axes_of(p)
+                       for name, p in self.named_parameters()}
+
+    def specs(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Parameter name -> its logical axes."""
+        return dict(self._specs)
 
 
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -181,13 +205,41 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
     """A model with weights drawn from ``generator`` on ``device`` (which
     must be the generator's). ``device="meta"`` allocates nothing: the
     shapes and dtypes alone, as the JAX package's ``abstract=True``."""
+    return init_sharded(generator, cfg, None, device, max_positions)
+
+
+def init_sharded(generator: Optional[torch.Generator], cfg: ModelConfig,
+                 layout, device="cuda", max_positions: int = 0) -> Model:
+    """One rank's slice of the model :func:`init_params` draws from the
+    same generator, as ``layout`` (a ``dist.plan.ShardLayout``; None: the
+    whole model) cuts it: each tensor is drawn whole on ``device``, in
+    the same order, and only the rank's slice is kept, so the largest
+    transient is one whole tensor in f32."""
     return Model(ParamBuilder(generator, torch_dtype(cfg.param_dtype),
-                              device), cfg, max_positions)
+                              device, layout), cfg, max_positions)
 
 
-def abstract_params(cfg: ModelConfig, max_positions: int = 0) -> Model:
-    """Shape/dtype-only params (no allocation), on the ``meta`` device."""
-    return init_params(None, cfg, max_positions, device="meta")
+def abstract_params(cfg: ModelConfig, max_positions: int = 0,
+                    layout=None) -> Model:
+    """Shape/dtype-only params (no allocation), on the ``meta`` device;
+    with a ``layout``, one rank's shapes."""
+    return init_sharded(None, cfg, layout, "meta", max_positions)
+
+
+def shard_model(model: Model, layout) -> Model:
+    """A model holding ``layout``'s slice of each of ``model``'s (whole)
+    parameters, on their device."""
+    if model.layout is not None:
+        raise ValueError("shard_model takes a whole model")
+    maxpos = 0 if model.dec_pos is None else model.dec_pos.shape[0]
+    out = abstract_params(model.cfg, maxpos, layout)
+    specs, state = out.specs(), {}
+    for name, p in model.named_parameters():
+        cut = layout.param_cut(p.shape, specs[name])
+        state[name] = p.detach().clone() if cut is None \
+            else p.detach().narrow(*cut).clone()
+    out.load_state_dict(state, assign=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +248,7 @@ def abstract_params(cfg: ModelConfig, max_positions: int = 0) -> Model:
 
 def _embed_inputs(model: Model, batch: Dict) -> torch.Tensor:
     cfg = model.cfg
-    x = F.embedding(batch["tokens"], model.embed)
+    x = TP.vocab_embed(batch["tokens"], model.embed, model.layout)
     if cfg.frontend == "vision" and "patches" in batch:
         p = matmul(gelu(matmul(batch["patches"], model.vis_proj1)),
                    model.vis_proj2)
@@ -257,14 +309,15 @@ def _run_stack(model: Model, x: torch.Tensor, positions: torch.Tensor, *,
     for i, block in enumerate(model.blocks):
         x, nc, _ = block(x, positions,
                          cache=caches[i] if caches is not None else None,
-                         cache_pos=cache_pos, enc_out=enc_out, decode=decode)
+                         cache_pos=cache_pos, enc_out=enc_out, decode=decode,
+                         layout=model.layout)
         new_caches.append(nc)
     return x, (new_caches if caches is not None else None)
 
 
 def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
     head = model.embed.T if model.cfg.tie_embeddings else model.lm_head
-    return x @ head
+    return TP.vocab_logits(x, head, model.layout)
 
 
 def forward_train(model: Model, batch: Dict
@@ -274,8 +327,11 @@ def forward_train(model: Model, batch: Dict
     them; labels of -100 are masked, and so are the patch positions. With
     ``cfg.mtp`` the loss adds 0.3 x the MTP loss and the metrics say
     ``mtp``; ``metrics["loss"]`` is the LM loss alone, as in the JAX
-    package."""
+    package. A model split over a model group raises (ROADMAP A15c)."""
     cfg = model.cfg
+    if model.layout is not None and model.layout.tensor_parallel:
+        raise NotImplementedError("training across the cards of a model "
+                                  "group is not ported yet (ROADMAP A15c)")
     x = _embed_inputs(model, batch)
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
@@ -342,18 +398,27 @@ class Caches(list):
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device="cuda") -> Caches:
+                device="cuda", layout=None) -> Caches:
     """One cache a block, ``max_len`` positions each: GQA's in
     ``cfg.kv_cache_dtype``, MLA's latent cache in bf16, and SSD's conv
-    inputs in bf16 and state in f32, as the JAX package keeps them."""
+    inputs in bf16 and state in f32, as the JAX package keeps them. With
+    a ``layout``, the rank's rows of a global ``batch`` and GQA's kv heads
+    of its slice."""
     device = resolve_model_device(device)
     check_served(cfg)
+    if layout is not None:
+        rows = layout.rows(batch)
+        batch = rows.stop - rows.start
+        kv = layout.local("kv_heads", cfg.n_kv_heads)
+        n_kv = kv.stop - kv.start
+    else:
+        n_kv = cfg.n_kv_heads
 
     def one(spec):
         mixer, _ = spec
         if mixer == "attn":
-            return init_kv_cache(batch, max_len, cfg.n_kv_heads,
-                                 cfg.head_dim, cfg.kv_cache_dtype, device)
+            return init_kv_cache(batch, max_len, n_kv, cfg.head_dim,
+                                 cfg.kv_cache_dtype, device)
         if mixer == "mla":
             return init_mla_cache(batch, max_len, cfg, device=device)
         if mixer == "ssm":
@@ -393,7 +458,7 @@ def forward_prefill(model: Model, batch: Dict, caches: List
 def forward_decode(model: Model, token: torch.Tensor, pos: int,
                    caches: List) -> Tuple[torch.Tensor, Caches]:
     """One decode step. token (B, 1) int; pos the step's position."""
-    x = F.embedding(token, model.embed)
+    x = TP.vocab_embed(token, model.embed, model.layout)
     if model.dec_pos is not None:
         x = x + model.dec_pos[pos: pos + 1][None]
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,

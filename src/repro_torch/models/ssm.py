@@ -42,14 +42,14 @@ class SSD(nn.Module):
         di = s.expand * d
         nh = di // s.head_dim
         conv_ch = di + 2 * s.d_state
-        self.w_in = b.add((d, 2 * di + 2 * s.d_state + nh))
-        self.conv_w = b.add((s.d_conv, conv_ch))
-        self.conv_b = b.add((conv_ch,), init="zeros")
-        self.a_log = b.add((nh,), init="zeros")
-        self.dt_bias = b.add((nh,), init="zeros")
-        self.d_skip = b.add((nh,), init="zeros")
-        self.out_norm = b.add((di,), init="zeros")
-        self.w_out = b.add((di, d))
+        self.w_in = b.add((d, 2 * di + 2 * s.d_state + nh), ("embed", "mlp"))
+        self.conv_w = b.add((s.d_conv, conv_ch), (None, "mlp"))
+        self.conv_b = b.add((conv_ch,), ("mlp",), init="zeros")
+        self.a_log = b.add((nh,), ("heads",), init="zeros")
+        self.dt_bias = b.add((nh,), ("heads",), init="zeros")
+        self.d_skip = b.add((nh,), ("heads",), init="zeros")
+        self.out_norm = b.add((di,), ("mlp",), init="zeros")
+        self.w_out = b.add((di, d), ("mlp", "embed"))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -73,7 +73,8 @@ def _sync_all() -> None:
         torch.cuda.synchronize(i)
 
 
-def _union_ms(spans) -> float:
+def union_ms(spans) -> float:
+    """The ms covered by profiler spans ``(start_us, end_us)``."""
     total, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -110,8 +111,8 @@ def profile_cards(fn) -> Dict:
                    if e.self_cpu_time_total > 0),
                   key=lambda r: -r[1])[:10]
     return {"wall_ms": wall,
-            "busy_ms": {c: _union_ms(busy[c]) for c in cards},
-            "copy_ms": {c: _union_ms(copies.get(c, [])) for c in cards},
+            "busy_ms": {c: union_ms(busy[c]) for c in cards},
+            "copy_ms": {c: union_ms(copies.get(c, [])) for c in cards},
             "host_top": [{"op": k, "self_ms": ms, "calls": n}
                          for k, ms, n in host]}
 

@@ -6,8 +6,10 @@ The port of the JAX package's ``train/step.py``. A step takes the model
 (an ``nn.Module``), the optimizer state and a batch of tensors on the
 model's device, and returns them: the parameters and the state are
 updated in place (:func:`repro_torch.train.optimizer.adamw_update`).
-The JAX package's pipeline-parallel forward needs several cards and is
-not ported (ROADMAP A15).
+The JAX package's pipeline-parallel forward (``make_pipelined_forward``)
+and training across cards are not ported yet (ROADMAP A15c): serving
+splits a model over a model group (``dist.tensor_parallel``), training
+runs on one card.
 """
 from __future__ import annotations
 

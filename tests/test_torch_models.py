@@ -173,16 +173,17 @@ def test_param_builder_init_rule():
     f32 and cast; norms zeros, LayerNorm's weight ones."""
     g = torch.Generator().manual_seed(0)
     b = TL.ParamBuilder(g, torch.bfloat16, "cpu")
-    wq = b.add((256, 4, 64))
+    wq = b.add((256, 4, 64), ("embed", "heads", None))
     assert wq.dtype == torch.bfloat16 and not wq.requires_grad
     assert abs(wq.float().std().item() - 0.5) < 0.01
     g2 = torch.Generator().manual_seed(0)
     exp = (torch.randn((256, 4, 64), generator=g2) * 0.5).to(torch.bfloat16)
     assert torch.equal(wq, exp)
-    assert torch.equal(b.add((8,), init="zeros"), torch.zeros(8,
-                                                              dtype=wq.dtype))
+    assert torch.equal(b.add((8,), (None,), init="zeros"),
+                       torch.zeros(8, dtype=wq.dtype))
+    assert b.axes_of(wq) == ("embed", "heads", None)
     assert TL.ParamBuilder(None, torch.float32, "meta").add(
-        (3, 4)).device.type == "meta"
+        (3, 4), (None, None)).device.type == "meta"
     with pytest.raises(ValueError, match="Generator"):
         TL.ParamBuilder(None, torch.float32, "cpu")
 
