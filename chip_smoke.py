@@ -185,19 +185,26 @@ otherwise. Phases, each of which exits non-zero on failure:
    tokens/s, grad norms, peak memory, the top kernels and the bound;
 15. serving across ranks (``launch.mesh``, ``dist.plan.ShardLayout``,
    ``dist.tensor_parallel``), after phase 14's models are freed: each
-   case served unsharded on the card (its logits kept on the host, its
-   model freed), then by two processes over ``model=2``
+   case served unsharded on the card (its logits and MoE routing kept on
+   the host, its model freed), then by two processes over ``model=2``
    (``launch.mesh.run_ranks``; gloo on ``cuda:0`` on a machine of one
    card, NCCL on two cards where it has them), each rank drawing its
    slice of the same weights (``init_sharded``) and fed the unsharded
    run's tokens: 15a the five dense GQA archs' smoke configs in f32,
    logits within rtol 1e-4, atol 5e-4 of the unsharded run's; 15b
    command-r-plus-104b at its published widths with 2 of its 64 layers
-   (9.45 B parameters), 2 requests of 128 tokens and 4 steps, logits
-   normwise within ``TP_NORM_TOL``. Both ranks' logits equal, greedy
-   tokens equal where the unsharded run's margin is clear. Prints the
-   backend, the cards, each rank's draw and serve times and peak memory,
-   and the differences in bf16 ulps.
+   (9.45 B parameters); 15c the other five archs' smoke configs (MoE,
+   MLA, SSD, the encoder-decoder) in f32 as 15a (jamba's atol 2e-3, as
+   phase 13's), every MoE layer's routing equal on both ranks and to the
+   unsharded run's; 15d jamba-v0.1-52b at its published widths with 1
+   of its 4 periods (8 layers, 13.27 B parameters) in f32; 15b and 15d
+   with 2 requests of 128 tokens and 4 steps, logits normwise within
+   ``TP_NORM_TOL`` (15b) and ``TP_F32_NORM_TOL`` (15d). Both ranks'
+   logits and routing equal, greedy tokens
+   equal where the unsharded run's margin is clear. Prints the backend,
+   the cards, what each layout splits, each rank's draw and serve times
+   and peak memory, the differences in bf16 ulps and the MoE layers'
+   largest ``dropped_frac``.
 
 ``launches`` in the kernel record counts phase 4's paths, phase 7's
 stream, phase 8b's mesh decodes, phase 12's requests and phase 14c's steps, and for the seeds
@@ -888,8 +895,8 @@ def moe_recorder():
     from repro_torch.models import model as TM
     moe_ffn, records = TM.moe_ffn, []
 
-    def recorded(p, cfg, x):
-        y, aux = moe_ffn(p, cfg, x)
+    def recorded(p, cfg, x, layout=None):
+        y, aux = moe_ffn(p, cfg, x, layout)
         records.append((aux["idx"].cpu(), float(aux["dropped_frac"])))
         return y, aux
 
@@ -1820,37 +1827,57 @@ def train_families(args, gpu, card, counters, kernels) -> None:
 # 15a: the dense GQA archs' smoke configs in f32 (TF32 off, every cache
 # tensor in f32), held as phase 12 holds the card against the CPU. 15b:
 # command-r-plus-104b at its published widths with 2 of its 64 layers
-# (9.45 B parameters, 18.9 GB in bf16). Each: 2 requests, the prefill and
-# 4 decode steps, unsharded on the card, then over model=2
+# (9.45 B parameters, 18.9 GB in bf16). 15c: the other families' smoke
+# configs (MoE, MLA, SSD, the encoder-decoder) in f32, as 15a, their
+# routing equal on both ranks and to the unsharded run's. 15d:
+# jamba-v0.1-52b at its published widths with 1 of its 4 periods (8
+# layers, 4 of them MoE: 13.27 B parameters) in f32 (53 GB; f32 caches):
+# in bf16 these 8 layers decorrelate as 15b's would at that depth
+# (normwise 0.25-0.37 on an H100, PR 25; PERF.md section 6), so the
+# split's math is held where rounding does not compound. Each: 2
+# requests, the prefill and 4 decode steps, unsharded on the card, then
+# over model=2
 TP_ARCH, TP_PERIODS = "command-r-plus-104b", 2
+TP_FAMILY_ARCH, TP_FAMILY_PERIODS = "jamba-v0.1-52b", 1
+# the full-width cases: phase -> (arch, periods, dtype)
+TP_FULL = {"15b": (TP_ARCH, TP_PERIODS, "bfloat16"),
+           "15d": (TP_FAMILY_ARCH, TP_FAMILY_PERIODS, "float32")}
 TP_BATCH, TP_PROMPT, TP_SMOKE_PROMPT, TP_STEPS = 2, 128, 24, 4
 TP_RANKS = 2
 TP_TIMEOUT_S = 300
-# 15b's logits against the unsharded run's, by step: the norm of the
-# difference over the norm of the logits. Element by element the two
-# differ by more than bf16 rounding: the random weights make attention
-# near one-hot at full width (ParamBuilder scales wq by its head count and
-# wk by its kv heads, so scores have a std near 440), and a last-bit
-# change of a key moves which position a head reads. Measured 0.016-0.077
-# on an H100 (PERF.md section 6); a split that drops or repeats a
-# term differs by the whole norm. 15a holds the split math tightly
+# 15b's and 15d's logits against the unsharded run's, by step: the norm
+# of the difference over the norm of the logits. Element by element the
+# two differ by more than bf16 rounding: the random weights make
+# attention near one-hot at full width (ParamBuilder scales wq by its
+# head count and wk by its kv heads, so scores have a std near 440), and
+# a last-bit change of a key moves which position a head reads. Measured
+# 0.016-0.077 on an H100 (PERF.md section 6); a split that drops or
+# repeats a term differs by the whole norm. 15a and 15c hold the split
+# math tightly
 TP_NORM_TOL = 0.25
+# 15d's, in f32: PR 24 measured 9.1e-5 for a layer of command-r-plus over
+# four H100s; a dropped or repeated term differs by the whole norm
+TP_F32_NORM_TOL = 1e-2
 
 
-def tp_config():
+def tp_config(arch=TP_ARCH, n_periods=TP_PERIODS, dtype="bfloat16"):
     import dataclasses
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(TP_ARCH), n_periods=TP_PERIODS)
+    return dataclasses.replace(get_config(arch), n_periods=n_periods,
+                               dtype=dtype, param_dtype=dtype)
 
 
 def tp_cases(seed):
     """(name, config, inputs) of phase 15: each dense arch's smoke config
-    in f32, then command-r-plus-104b at published widths."""
+    in f32 (named by its arch), then command-r-plus-104b at published
+    widths (named ``"15b"``), then each other family's smoke config in
+    f32, then jamba at published widths (``"15d"``)."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     rng = np.random.default_rng(seed)
     cases = []
-    for arch in SERVED_ARCHS:
+
+    def smoke(arch):
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                                   param_dtype="float32")
         nv = cfg.n_patches if cfg.frontend == "vision" else 0
@@ -1859,10 +1886,23 @@ def tp_cases(seed):
         if nv:
             inputs["patches"] = torch.from_numpy(rng.normal(
                 0, 1, (TP_BATCH, nv, 1024))).to(torch.bfloat16)
+        if cfg.is_encdec:
+            inputs["frames"] = torch.from_numpy(rng.normal(
+                0, 1, (TP_BATCH, cfg.enc_seq, 128))).to(torch.bfloat16)
         cases.append((arch, cfg, inputs))
-    cfg = tp_config()
-    cases.append((TP_ARCH, cfg, {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab, (TP_BATCH, TP_PROMPT))).to(torch.int32)}))
+
+    def full(phase):
+        cfg = tp_config(*TP_FULL[phase])
+        cases.append((phase, cfg, {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (TP_BATCH, TP_PROMPT))).to(
+            torch.int32)}))
+
+    for arch in SERVED_ARCHS:
+        smoke(arch)
+    full("15b")
+    for arch in FAMILY_ARCHS:
+        smoke(arch)
+    full("15d")
     return cases
 
 
@@ -1872,7 +1912,8 @@ def tp_serve(model, cfg, inputs, feed, device, layout=None):
     rank's rows) or, without ``feed``, its own greedy token; an f32
     config's caches in f32. Returns the logits of every position (steps
     + 1, rows, vocab) and the greedy tokens (rows, steps + 1) on the
-    host, and the seconds."""
+    host, the seconds, and each MoE layer call's routing (``idx`` of
+    this rank's tokens, ``dropped_frac``)."""
     from repro_torch.models.model import init_caches
     from repro_torch.serve.step import make_decode_step, make_prefill_step
     n_pos = sum(v.shape[1] for k, v in inputs.items()
@@ -1885,29 +1926,33 @@ def tp_serve(model, cfg, inputs, feed, device, layout=None):
         batch = layout.batch(batch)
         feed = None if feed is None else feed[layout.rows(TP_BATCH)]
     decode = make_decode_step(cfg)
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    logits, caches = make_prefill_step(cfg)(model, batch, caches)
-    out = [logits[:, -1].float()]
-    tok = torch.argmax(out[0], -1)[:, None].to(torch.int32)
-    toks = [tok]
-    for i in range(TP_STEPS):
-        if feed is not None:
-            tok = feed[:, i:i + 1].to(device)
-        tok, logits, caches = decode(model, tok, n_pos + i, caches)
-        out.append(logits[:, -1].float())
-        toks.append(tok)
-    torch.cuda.synchronize(device)
-    secs = time.perf_counter() - t0
-    return torch.stack(out).cpu(), torch.cat(toks, 1).cpu(), secs
+    records, restore = moe_recorder()
+    try:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        logits, caches = make_prefill_step(cfg)(model, batch, caches)
+        out = [logits[:, -1].float()]
+        tok = torch.argmax(out[0], -1)[:, None].to(torch.int32)
+        toks = [tok]
+        for i in range(TP_STEPS):
+            if feed is not None:
+                tok = feed[:, i:i + 1].to(device)
+            tok, logits, caches = decode(model, tok, n_pos + i, caches)
+            out.append(logits[:, -1].float())
+            toks.append(tok)
+        torch.cuda.synchronize(device)
+        secs = time.perf_counter() - t0
+    finally:
+        restore()
+    return torch.stack(out).cpu(), torch.cat(toks, 1).cpu(), secs, records
 
 
 def tp_worker(args) -> None:
     """One rank of phase 15 (``--tp-dir``, started by
     ``launch.mesh.run_ranks``): joins the process mesh, then for each
     case draws its slice of the weights, serves the parent's requests fed
-    the parent's tokens (the full-width case twice: cold, warm) and saves
-    its logits."""
+    the parent's tokens (the full-width cases twice: cold, warm) and saves
+    its logits and routing."""
     sys.path.insert(0, str(SRC))
     from repro_torch.launch.mesh import (init_process_mesh,
                                          shutdown_process_mesh)
@@ -1918,7 +1963,7 @@ def tp_worker(args) -> None:
     pm = init_process_mesh(1, TP_RANKS, job["backend"], "cuda",
                            timeout_s=TP_TIMEOUT_S)
     try:
-        stats, logits = {}, {}
+        stats, logits, routing = {}, {}, {}
         for (name, cfg, inputs), feed in zip(tp_cases(args.seed),
                                              job["feeds"]):
             layout = pm.layout(cfg, TP_BATCH)
@@ -1929,21 +1974,22 @@ def tp_worker(args) -> None:
             torch.cuda.synchronize(pm.device)
             init_s = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats(pm.device)
-            got, _, cold = tp_serve(model, cfg, inputs, feed, pm.device,
-                                    layout)
-            logits[name, cfg.param_dtype] = got
-            if cfg.param_dtype != "float32":
-                _, _, warm = tp_serve(model, cfg, inputs, feed, pm.device,
-                                      layout)
-                stats = {"split": sorted(layout.split), "init_s": init_s,
-                         "cold_s": cold, "warm_s": warm,
-                         "params": sum(p.numel()
-                                       for p in model.parameters()),
-                         "peak_gb": torch.cuda.max_memory_allocated(
-                             pm.device) / 1e9}
+            got, _, cold, records = tp_serve(model, cfg, inputs, feed,
+                                             pm.device, layout)
+            logits[name], routing[name] = got, records
+            if name in TP_FULL:
+                _, _, warm, _ = tp_serve(model, cfg, inputs, feed, pm.device,
+                                         layout)
+                stats[name] = {
+                    "split": layout.report(), "init_s": init_s,
+                    "cold_s": cold, "warm_s": warm,
+                    "params": sum(p.numel() for p in model.parameters()),
+                    "peak_gb": torch.cuda.max_memory_allocated(
+                        pm.device) / 1e9}
             del model
-        torch.save(logits, work / f"rank{pm.rank}.pt")
-        print("RESULT " + json.dumps(dict(stats, rank=pm.rank,
+        torch.save({"logits": logits, "routing": routing},
+                   work / f"rank{pm.rank}.pt")
+        print("RESULT " + json.dumps(dict(stats=stats, rank=pm.rank,
                                           device=str(pm.device),
                                           backend=pm.backend)), flush=True)
     finally:
@@ -1952,32 +1998,34 @@ def tp_worker(args) -> None:
 
 def serve_across_ranks(args, gpu) -> None:
     """Phase 15: each case of ``tp_cases`` unsharded on the card (its
-    logits kept on the host, its model freed), then over ``model=2`` in
-    two processes (``launch.mesh.run_ranks``): over gloo on ``cuda:0`` on
-    a machine of one card, over NCCL on two cards where it has them. Each
-    rank draws its slice of the same weights (``init_sharded``) and
-    serves the same 2 requests fed the unsharded run's tokens. Both
-    ranks' logits must be equal; the smoke configs' (f32) within
-    ``LM_F32_TOL`` of the unsharded run's; the full-width run's within
+    logits and routing kept on the host, its model freed), then over
+    ``model=2`` in two processes (``launch.mesh.run_ranks``): over gloo
+    on ``cuda:0`` on a machine of one card, over NCCL on two cards where
+    it has them. Each rank draws its slice of the same weights
+    (``init_sharded``) and serves the same 2 requests fed the unsharded
+    run's tokens. Both ranks' logits and routing must be equal; the smoke
+    configs' (f32) logits within ``LM_F32_TOL`` of the unsharded run's
+    and their routing the unsharded run's; the full-width runs' within
     ``TP_NORM_TOL`` normwise; greedy tokens equal wherever the unsharded
-    run's top-2 margin exceeds the limit (for the full-width run, the
+    run's top-2 margin exceeds the limit (for a full-width run, the
     largest difference measured)."""
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models.model import init_params
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    exp, feeds, whole = {}, [], {}
+    exp, feeds, whole, exp_routing = {}, [], {}, {}
     for name, cfg, inputs in tp_cases(args.seed):
         model = init_params(torch.Generator(device=gpu).manual_seed(
             args.seed), cfg, device=gpu)
-        logits, toks, secs = tp_serve(model, cfg, inputs, None, gpu)
-        exp[name, cfg.param_dtype] = logits
+        logits, toks, secs, records = tp_serve(model, cfg, inputs, None,
+                                               gpu)
+        exp[name], exp_routing[name] = logits, records
         feeds.append(toks[:, :TP_STEPS])
-        if cfg.param_dtype != "float32":
-            _, _, warm = tp_serve(model, cfg, inputs, None, gpu)
-            whole = {"params": sum(p.numel() for p in model.parameters()),
-                     "cold_s": secs, "warm_s": warm,
-                     "layers": cfg.n_layers}
+        if name in TP_FULL:
+            _, _, warm, _ = tp_serve(model, cfg, inputs, None, gpu)
+            whole[name] = {
+                "params": sum(p.numel() for p in model.parameters()),
+                "cold_s": secs, "warm_s": warm, "layers": cfg.n_layers}
         del model
         torch.cuda.empty_cache()
     backend = "nccl" if torch.cuda.device_count() >= TP_RANKS else "gloo"
@@ -1998,67 +2046,97 @@ def serve_across_ranks(args, gpu) -> None:
     devices = [res["device"] for res in results]
     check(len(set(devices)) == (TP_RANKS if backend == "nccl" else 1),
           f"phase 15: ranks on {devices}")
-    smoke = []
-    for key, want in exp.items():
-        name, dtype = key
-        logits = got[0][key]
-        check(all(torch.equal(g[key], logits) for g in got),
+    smoke, full, moe = {}, {}, []
+    for name, want in exp.items():
+        logits = got[0]["logits"][name]
+        check(all(torch.equal(g["logits"][name], logits) for g in got),
               f"phase 15 {name}: the ranks hold different logits")
         check(bool(torch.isfinite(logits).all()), f"phase 15 {name}: a "
               f"logit is not finite")
+        rank_routing = [g["routing"][name] for g in got]
+        check(len(rank_routing[0]) == len(exp_routing[name])
+              and all(len(rr) == len(rank_routing[0]) and all(
+                  torch.equal(a[0], b[0]) and a[1] == b[1]
+                  for a, b in zip(rr, rank_routing[0]))
+                      for rr in rank_routing),
+              f"phase 15 {name}: the ranks route differently")
         diff = (logits - want).abs()
         top2 = torch.topk(want, 2).values
         margin = top2[..., 0] - top2[..., 1]
-        if dtype == "float32":
-            check(bool(lm_close(logits, want, LM_F32_TOL).all()),
+        if name not in TP_FULL:
+            tol = JAMBA_F32_TOL if name == TP_FAMILY_ARCH else LM_F32_TOL
+            check(bool(lm_close(logits, want, tol).all()),
                   f"phase 15 {name}: logits differ from the unsharded "
                   f"run's by {float(diff.max()):.3g}")
-            clear = margin > LM_F32_TOL["atol"] \
-                + LM_F32_TOL["rtol"] * top2[..., 0].abs()
-            smoke.append(f"{name} {float(diff.max()):.2g}")
+            if exp_routing[name]:
+                check(all(torch.equal(a[0], b[0]) for a, b in
+                          zip(rank_routing[0], exp_routing[name])),
+                      f"phase 15 {name}: routing differs from the "
+                      f"unsharded run's")
+                moe.append(f"{name} {len(exp_routing[name])}")
+            clear = margin > tol["atol"] + tol["rtol"] * top2[..., 0].abs()
+            smoke[name] = f"{name} {float(diff.max()):.2g}"
         else:
+            limit = TP_F32_NORM_TOL if TP_FULL[name][2] == "float32" \
+                else TP_NORM_TOL
             norm = (torch.linalg.vector_norm(logits - want, dim=-1)
                     / torch.linalg.vector_norm(want, dim=-1)).amax(-1)
-            check(float(norm.max()) <= TP_NORM_TOL, f"phase 15 {name}: "
+            check(float(norm.max()) <= limit, f"phase 15 {name}: "
                   f"logits differ from the unsharded run's by "
-                  f"{[round(float(v), 4) for v in norm]} normwise")
+                  f"{[round(float(v), 6) for v in norm]} normwise")
             worst = float(diff.max())
             clear = margin > worst
             ulps = (diff / bf16_ulp(want.abs().amax(-1, keepdim=True))
                     ).amax(dim=(1, 2))
             off = int((~lm_close(logits, want)).sum())
-            full = (f"normwise difference by position "
-                    f"{[round(float(v), 4) for v in norm]} (limit "
-                    f"{TP_NORM_TOL}), largest {worst:.3g} "
-                    f"({[round(float(u), 1) for u in ulps]} bf16 ulps of "
-                    f"the row's largest logit), {off} of {want.numel()} "
-                    f"outside rtol 0.08, atol 0.15")
+            same = torch.argmax(logits, -1) == torch.argmax(want, -1)
+            drops = [d for _, d in exp_routing[name]]
+            same_route = sum(int((a[0] == b[0]).all(-1).sum()) for a, b in
+                             zip(rank_routing[0], exp_routing[name]))
+            n_route = sum(a[0].shape[0] for a in exp_routing[name])
+            full[name] = (
+                f"normwise difference by position "
+                f"{[float(f'{v:.3g}') for v in norm]} (limit "
+                f"{limit}), largest {worst:.3g} "
+                f"({[round(float(u), 1) for u in ulps]} bf16 ulps of "
+                f"the row's largest logit), {off} of {want.numel()} "
+                f"outside rtol 0.08, atol 0.15; greedy tokens equal at the "
+                f"{int(clear.sum())} of {clear.numel()} positions whose "
+                f"margin exceeds it ({int(same.sum())} equal in all)"
+                + (f"; dropped_frac by MoE layer call up to "
+                   f"{max(drops):.3f}; the same experts for {same_route} of "
+                   f"{n_route} tokens' MoE layer calls" if drops else ""))
         check(torch.equal(torch.argmax(logits, -1)[clear],
                           torch.argmax(want, -1)[clear]),
               f"phase 15 {name}: a greedy token differs where the "
               f"unsharded run's margin is clear")
-        if dtype != "float32":
-            same = torch.argmax(logits, -1) == torch.argmax(want, -1)
-            full += (f"; greedy tokens equal at the {int(clear.sum())} of "
-                     f"{clear.numel()} positions whose margin exceeds it "
-                     f"({int(same.sum())} equal in all)")
+    limit = f"(limit rtol {LM_F32_TOL['rtol']} atol {LM_F32_TOL['atol']})"
     print(f"[tp] phase 15a: the dense archs' smoke configs in f32 over "
           f"model={TP_RANKS}, largest |logit difference| from the unsharded "
-          f"run: {', '.join(smoke)} (limit rtol {LM_F32_TOL['rtol']} atol "
-          f"{LM_F32_TOL['atol']})", flush=True)
-    res = results[0]
-    print(f"[tp] phase 15b: {TP_ARCH} at published widths, "
-          f"{whole['layers']} of 64 layers ({whole['params'] / 1e9:.2f} B "
-          f"parameters), {TP_BATCH} x {TP_PROMPT} tokens and {TP_STEPS} "
-          f"steps: unsharded on {gpu} {whole['cold_s']:.2f} s cold, "
-          f"{whole['warm_s']:.2f} s warm; over model={TP_RANKS} on "
-          f"{devices} by {backend}, split {res['split']}, "
-          + "; ".join(f"rank {r['rank']} {r['params'] / 1e9:.2f} B "
-                      f"parameters drawn in {r['init_s']:.1f} s, served "
-                      f"{r['cold_s']:.2f} s cold, {r['warm_s']:.2f} s warm, "
-                      f"peak {r['peak_gb']:.1f} GB" for r in results)
-          + f"; logits equal on both ranks; {full}; phase "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"run: {', '.join(smoke[a] for a in SERVED_ARCHS)} {limit}",
+          flush=True)
+    print(f"[tp] phase 15c: the other families' smoke configs in f32 over "
+          f"model={TP_RANKS}: {', '.join(smoke[a] for a in FAMILY_ARCHS)} "
+          f"{limit}, jamba's atol {JAMBA_F32_TOL['atol']}; routing of the "
+          f"MoE layer calls ({', '.join(moe)}) equal on both ranks and to "
+          f"the unsharded run's", flush=True)
+    for name, (arch, _, dtype) in TP_FULL.items():
+        w = whole[name]
+        stats = [res["stats"][name] for res in results]
+        print(f"[tp] phase {name}: {arch} at published widths in {dtype}, "
+              f"{w['layers']} layers ({w['params'] / 1e9:.2f} B "
+              f"parameters), {TP_BATCH} x {TP_PROMPT} tokens and {TP_STEPS} "
+              f"steps: unsharded on {gpu} {w['cold_s']:.2f} s cold, "
+              f"{w['warm_s']:.2f} s warm; over model={TP_RANKS} on "
+              f"{devices} by {backend}, {stats[0]['split']}, "
+              + "; ".join(f"rank {r} {st['params'] / 1e9:.2f} B "
+                          f"parameters drawn in {st['init_s']:.1f} s, served "
+                          f"{st['cold_s']:.2f} s cold, {st['warm_s']:.2f} s "
+                          f"warm, peak {st['peak_gb']:.1f} GB"
+                          for r, st in enumerate(stats))
+              + f"; logits equal on both ranks; {full[name]}", flush=True)
+    print(f"[tp] phase 15 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ bit-identical to the unpermuted plan's on every schedule and backend.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
+from typing import (Dict, FrozenSet, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -495,23 +496,38 @@ def param_rules(rules: Rules, cfg, mesh) -> Rules:
     return prules
 
 
-# what a model split over "model" cannot run yet, by the config's fields
-_NOT_SPLIT = (("mla", "MLA"), ("ssm", "SSD"), ("moe", "MoE"),
-              ("n_enc_layers", "an encoder"))
+class Segments(NamedTuple):
+    """How a parameter's dimension over the model axis is laid out when a
+    contiguous cut would mix unlike columns: runs of ``sizes`` in order,
+    each cut into ``model`` equal slices where ``split`` says so and held
+    whole on every rank where not. ``needs``: the logical axes that must
+    all be split for the cut; without any of them the parameter is held
+    whole. SSD's ``w_in`` is ``[z | x | B | C | dt]``: each rank holds its
+    heads' ``z``, ``x`` and ``dt`` and all of ``B`` and ``C``."""
+    sizes: Tuple[int, ...]
+    split: Tuple[bool, ...]
+    needs: Tuple[str, ...]
 
 
-def check_model_split(cfg, rules: Rules) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP A15b) for a config whose
-    layers the port cannot yet split over ``"model"``: MLA, SSD, MoE, an
-    encoder, or a ``kv_seq`` rule. Called where the model axis has more
-    than one rank; such a model is never quietly replicated."""
-    what = [label for field, label in _NOT_SPLIT if getattr(cfg, field)]
-    if "model" in normalize(rules.get("kv_seq")):
-        what.append("the kv_seq rule (decode_kv_shard='seq')")
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(what)} across the model axis is not "
-            f"ported yet (ROADMAP A15b); only dense GQA layers split")
+class Cut(NamedTuple):
+    """This rank's part of a parameter along ``dim``: the runs ``pieces``
+    (``(start, length)`` each) joined in order."""
+    dim: int
+    pieces: Tuple[Tuple[int, int], ...]
+
+    @property
+    def length(self) -> int:
+        return sum(n for _, n in self.pieces)
+
+    def take(self, t):
+        """This rank's part of ``t`` (a tensor or a numpy array of the
+        whole parameter): a tensor's one run is a view of it."""
+        if isinstance(t, np.ndarray):
+            idx = np.concatenate([np.arange(s, s + n)
+                                  for s, n in self.pieces])
+            return np.take(t, idx, axis=self.dim)
+        parts = [t.narrow(self.dim, s, n) for s, n in self.pieces]
+        return torch.cat(parts, self.dim) if len(parts) > 1 else parts[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -523,17 +539,26 @@ class ShardLayout:
     ``split`` are the logical axes cut over the model axis (after the
     audit of :func:`param_rules`); a parameter is cut on its first such
     dimension into ``model`` equal slices, of which this rank holds slice
-    ``model_rank`` (:meth:`param_cut`). With ``batch_split``, batch inputs
-    and caches hold the ``data_rank``-th of ``data`` equal runs of rows
-    (:meth:`rows`). ``group`` is the process group of this rank's model
-    axis, over which the layers reduce (None where no process group runs:
-    in one process, or to slice weights alone).
+    ``model_rank``, or by its :class:`Segments` (:meth:`param_cut`). With
+    ``batch_split``, batch inputs and caches hold the ``data_rank``-th of
+    ``data`` equal runs of rows (:meth:`rows`). ``group`` is the process
+    group of this rank's model axis, over which the layers reduce,
+    ``data_group`` that of its data axis, over which MoE counts its
+    capacity (None where no process group runs: in one process, or to
+    slice weights alone). ``kv_seq``: a decode layout of a
+    ``decode_kv_shard="seq"`` config, whose GQA caches hold this rank's
+    run of the cache length (:meth:`seq_range`) for every kv head.
+    ``whole`` names the layers held whole on every rank though the model
+    axis has several ranks (an SSD whose ``mlp`` or ``heads`` the audit
+    demoted): their values are the same either way.
 
     Caches differ in layout from the JAX package's, with the same values:
     there they stay batch-sharded only and XLA's partitioner reshards
     them for the attention; here each rank's caches hold the kv heads of
     its own slice (:meth:`local` of ``"kv_heads"``; all of them when the
-    audit kept ``kv_heads`` whole) and its data rank's rows.
+    audit kept ``kv_heads`` whole, or under ``kv_seq``), SSD's state its
+    heads and its conv inputs its ``x`` channels with all of ``B`` and
+    ``C``, MLA's latent whole, and its data rank's rows.
     """
     data: int = 1
     model: int = 1
@@ -541,8 +566,12 @@ class ShardLayout:
     model_rank: int = 0
     batch_split: bool = False
     split: FrozenSet[str] = frozenset()
+    kv_seq: bool = False
+    whole: FrozenSet[str] = frozenset()
     group: object = dataclasses.field(default=None, compare=False,
                                       repr=False)
+    data_group: object = dataclasses.field(default=None, compare=False,
+                                           repr=False)
 
     @property
     def tensor_parallel(self) -> bool:
@@ -553,18 +582,33 @@ class ShardLayout:
         return logical in self.split
 
     def param_cut(self, shape: Sequence[int],
-                  axes: Sequence[Optional[str]]
-                  ) -> Optional[Tuple[int, int, int]]:
-        """``(dim, start, length)`` of this rank's slice of a parameter of
-        ``shape`` with logical ``axes``, or None when it is held whole."""
+                  axes: Sequence[Optional[str]],
+                  segments: Optional[Segments] = None) -> Optional[Cut]:
+        """This rank's :class:`Cut` of a parameter of ``shape`` with
+        logical ``axes`` (and ``segments`` along its split dimension), or
+        None when it is held whole."""
+        if segments is not None and not all(
+                a in self.split for a in segments.needs):
+            return None
         for dim, logical in enumerate(axes):
-            if logical in self.split:
-                n = shape[dim] // self.model
-                if n * self.model != shape[dim]:
+            if logical not in self.split:
+                continue
+            runs = [(shape[dim], True)] if segments is None \
+                else list(zip(segments.sizes, segments.split))
+            if sum(n for n, _ in runs) != shape[dim]:
+                raise ValueError(f"segments {segments.sizes} do not make "
+                                 f"dimension {dim} of {tuple(shape)}")
+            pieces, off = [], 0
+            for n, cut in runs:
+                k = n // self.model
+                if cut and k * self.model != n:
                     raise ValueError(f"dimension {dim} of {tuple(shape)} "
                                      f"({logical}) does not split into "
                                      f"{self.model}")
-                return dim, self.model_rank * n, n
+                pieces.append((off + self.model_rank * k, k) if cut
+                              else (off, n))
+                off += n
+            return Cut(dim, tuple(pieces))
         return None
 
     def rows(self, batch: int) -> slice:
@@ -588,14 +632,38 @@ class ShardLayout:
         k = n // self.model
         return slice(self.model_rank * k, (self.model_rank + 1) * k)
 
+    def seq_range(self, n: int) -> slice:
+        """Under ``kv_seq``, this rank's positions of a cache of ``n``:
+        a run of ``ceil(n / model)`` (the last rank's may end early; its
+        cache is as long as the others', the tail never written); all of
+        them otherwise."""
+        if not self.kv_seq:
+            return slice(0, n)
+        k = -(-n // self.model)
+        return slice(min(self.model_rank * k, n),
+                     min((self.model_rank + 1) * k, n))
+
+    def report(self) -> str:
+        """What this rank's layout splits and holds whole, for a log."""
+        text = f"split={sorted(self.split)}"
+        if self.kv_seq:
+            text += " kv_seq"
+        if self.whole:
+            text += f" whole={sorted(self.whole)}"
+        return text
+
+
+# an SSD's parameters are cut (by their ``Segments``) only with both
+SSD_AXES = ("mlp", "heads")
+
 
 def shard_layout(cfg, mesh, rank: int, batch: int, kind: str = "decode",
-                 group=None) -> ShardLayout:
+                 group=None, data_group=None) -> ShardLayout:
     """Rank ``rank``'s :class:`ShardLayout` of ``cfg`` on a ``("data",
     "model")`` ``mesh`` (rank ``data_rank * model + model_rank``) for a
     global batch of ``batch``: :func:`rules_for`, then :func:`param_rules`.
-    With more than one model rank, a config the port cannot split raises
-    (:func:`check_model_split`)."""
+    Every family splits; an axis the audit demotes is held whole, as the
+    JAX package's partitioner holds it."""
     if tuple(mesh.axis_names) != ("data", "model"):
         raise ValueError(f"a ShardLayout needs a ('data', 'model') mesh, "
                          f"got axes {tuple(mesh.axis_names)}")
@@ -603,12 +671,15 @@ def shard_layout(cfg, mesh, rank: int, batch: int, kind: str = "decode",
     if not 0 <= rank < data * model:
         raise ValueError(f"rank {rank} outside a mesh of {data * model}")
     rules = rules_for(cfg, mesh, kind, batch)
-    if model > 1:
-        check_model_split(cfg, rules)
     prules = param_rules(rules, cfg, mesh)
     split = frozenset(k for k in MODEL_AXES if model > 1
                       and "model" in prules.get(k, ()))
+    whole = frozenset({"SSD"} if model > 1 and cfg.ssm is not None
+                      and not set(SSD_AXES) <= split else ())
     d, m = divmod(rank, model)
     return ShardLayout(data=data, model=model, data_rank=d, model_rank=m,
                        batch_split="data" in normalize(rules["batch"]),
-                       split=split, group=group)
+                       split=split,
+                       kv_seq=model > 1 and "model" in normalize(
+                           rules["kv_seq"]),
+                       whole=whole, group=group, data_group=data_group)

@@ -15,7 +15,13 @@ cuts where the partitioner would have inserted a collective:
   is not zero);
 * :func:`vocab_logits`: the local product with this rank's vocabulary
   columns, then an ``all_gather``, so that every rank holds the same
-  logits and greedy argmax picks the same token on each.
+  logits and greedy argmax picks the same token on each;
+* :func:`split_rmsnorm`: a norm over a vector cut across the group (SSD's
+  gated norm over ``mlp``): the f32 sum of squares summed over the group;
+* :func:`all_reduce_max`: the row maxima of a softmax whose positions are
+  cut over the group (the ``kv_seq`` rule);
+* :func:`gather_rows`: every data rank's rows, over the data group (MoE's
+  routing, whose capacity counts the global batch).
 
 With a layout of one model rank (or none) no collective runs, and the
 code is the single-card code. Under gloo a CUDA tensor goes through the
@@ -39,17 +45,33 @@ def _through_host(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
 
 
-def all_reduce_sum(x: torch.Tensor, layout) -> torch.Tensor:
-    """The sum of ``x`` over the layout's model group, in place where it
-    can be; returns the sum."""
+def _all_reduce(x: torch.Tensor, layout, op) -> torch.Tensor:
     if layout is None or layout.model == 1:
         return x
     if _through_host(x, layout.group):
         host = x.cpu()
-        dist.all_reduce(host, group=layout.group)
+        dist.all_reduce(host, op=op, group=layout.group)
         return x.copy_(host)
-    dist.all_reduce(x, group=layout.group)
+    dist.all_reduce(x, op=op, group=layout.group)
     return x
+
+
+def all_reduce_sum(x: torch.Tensor, layout) -> torch.Tensor:
+    """The sum of ``x`` over the layout's model group, in place where it
+    can be; returns the sum."""
+    return _all_reduce(x, layout, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, layout) -> torch.Tensor:
+    """The largest of each element of ``x`` over the model group."""
+    return _all_reduce(x, layout, dist.ReduceOp.MAX)
+
+
+def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    src = x.cpu() if _through_host(x, group) else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
 
 
 def all_gather(x: torch.Tensor, layout, dim: int = -1) -> torch.Tensor:
@@ -57,20 +79,44 @@ def all_gather(x: torch.Tensor, layout, dim: int = -1) -> torch.Tensor:
     order."""
     if layout is None or layout.model == 1:
         return x
-    group = layout.group
-    src = x.cpu() if _through_host(x, group) else x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(layout.model)]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    return _gather(x, layout.group, layout.model, dim)
+
+
+def data_split(layout) -> bool:
+    """Whether the layout's data ranks hold different rows of the batch."""
+    return layout is not None and layout.batch_split and layout.data > 1
+
+
+def gather_rows(x: torch.Tensor, layout) -> torch.Tensor:
+    """Every data rank's ``x`` (its rows of the batch first), joined along
+    dimension 0 in data-rank order: the global batch's."""
+    if not data_split(layout):
+        return x
+    return _gather(x, layout.data_group, layout.data, 0)
+
+
+def split_rmsnorm(x: torch.Tensor, weight: torch.Tensor, n: int, layout,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rmsnorm`` of a vector of ``n`` whose last dimension is cut
+    over the model group (``x`` and ``weight`` this rank's slices): the
+    sum of squares in f32 over the group, then this rank's slice scaled."""
+    dt = x.dtype
+    x = x.float()
+    ss = all_reduce_sum(torch.sum(x * x, dim=-1, keepdim=True), layout)
+    x = x * torch.rsqrt(ss / n + eps)
+    return (x * (1.0 + weight.float())).to(dt)
 
 
 def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (``a`` (..., k), ``b`` (k, n)) accumulated and returned in
-    f32 without rounding to the operands' dtype: on the card a bf16 GEMM
-    with an f32 output, elsewhere the product of the f32 operands (bf16
-    values are exact in f32)."""
+    """``a @ b`` (``a`` (..., k), ``b`` (k, n); or a batch of products,
+    ``a`` (E, m, k), ``b`` (E, k, n)) accumulated and returned in f32
+    without rounding to the operands' dtype: on the card a bf16 GEMM with
+    an f32 output, elsewhere the product of the f32 operands (bf16 values
+    are exact in f32)."""
     if a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16,
                                                         torch.float16):
+        if b.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
         out = torch.mm(a.reshape(-1, a.shape[-1]), b,
                        out_dtype=torch.float32)
         return out.reshape(*a.shape[:-1], b.shape[-1])

@@ -205,10 +205,12 @@ class ProcessMesh:
 
     def layout(self, cfg, batch: int, kind: str = "decode"):
         """This rank's ``dist.plan.ShardLayout`` of ``cfg`` for a global
-        batch of ``batch``, reducing over the model group."""
+        batch of ``batch``, reducing over the model group (and MoE's
+        capacity counted over the data group)."""
         from ..dist.plan import shard_layout
         return shard_layout(cfg, self, self.rank, batch, kind,
-                            group=self.model_group)
+                            group=self.model_group,
+                            data_group=self.data_group)
 
 
 def init_process_mesh(data: int, model: int, backend: Optional[str],

@@ -14,7 +14,8 @@ Across cards, one process a rank (torchrun, or
       --arch llama3-8b --mesh data=1,model=4 --dist-backend nccl
 
 Each rank holds its slice of the weights and its rows of the batch
-(``dist.plan.ShardLayout``); rank 0 prints the run's numbers.
+(``dist.plan.ShardLayout``), for every arch; rank 0 prints the run's
+numbers and what the layout splits and holds whole.
 """
 from __future__ import annotations
 
@@ -64,8 +65,8 @@ def _sync(device: torch.device) -> None:
 
 def run(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
         device="cuda", patches: Optional[torch.Tensor] = None,
-        seed: int = 0, mesh=None, backend: Optional[str] = None
-        ) -> ServeRun:
+        seed: int = 0, mesh=None, backend: Optional[str] = None,
+        max_len: Optional[int] = None) -> ServeRun:
     """Serve ``batch`` requests of ``prompt_len`` tokens (and, for the VLM,
     ``patches`` (batch, n_patches, 1024), drawn from ``seed`` when None;
     for the encoder-decoder, frames (batch, enc_seq, 128) drawn from
@@ -78,6 +79,9 @@ def run(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
     before it returns. Each rank then draws its slice of the same
     weights (``models.model.init_sharded``) and serves its rows of the
     same requests; the run's tensors are this rank's rows.
+
+    ``max_len``: the caches' positions (by default the prompt, the patches,
+    the generated tokens and 8 more).
     """
     check_served(cfg)
     own = mesh is not None and not isinstance(mesh, ProcessMesh)
@@ -85,18 +89,22 @@ def run(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
         mesh = init_process_mesh(*mesh, backend, device)
     try:
         return _serve(cfg, batch, prompt_len, gen, device, patches, seed,
-                      mesh)
+                      mesh, max_len)
     finally:
         if own:
             shutdown_process_mesh(mesh)
 
 
 def _serve(cfg, batch, prompt_len, gen, device, patches, seed,
-           mesh: Optional[ProcessMesh]) -> ServeRun:
+           mesh: Optional[ProcessMesh], max_len: Optional[int]) -> ServeRun:
     dev = mesh.device if mesh is not None else resolve_device(device)
     layout = mesh.layout(cfg, batch) if mesh is not None else None
     n_vis = cfg.n_patches if cfg.frontend == "vision" else 0
-    max_len = prompt_len + gen + 8 + n_vis
+    need = prompt_len + gen + n_vis
+    max_len = need + 8 if max_len is None else max_len
+    if max_len < need:
+        raise ValueError(f"a cache of {max_len} positions cannot hold "
+                         f"{need}")
     maxpos = max_len if cfg.norm == "layernorm" else 0
     model = init_sharded(torch.Generator(device=dev).manual_seed(seed), cfg,
                          layout, dev, max_positions=maxpos)
@@ -244,7 +252,7 @@ def main(argv: Optional[List[str]] = None) -> ServeRun:
     print(f"arch={cfg.name} batch={args.batch} device={r.tokens.device}")
     if pm is not None:
         print(f"mesh data={data} model={model} backend={pm.backend} "
-              f"split={sorted(r.model.layout.split)}")
+              f"{r.model.layout.report()}")
     print(f"prefill: {args.prompt_len} tokens x {args.batch} in "
           f"{r.prefill_s * 1e3:.1f}ms")
     print(f"decode : {r.decode_steps} steps in {r.decode_s * 1e3:.1f}ms "

@@ -14,8 +14,19 @@ arrays.
 Across a model group (``layout``, a ``dist.plan.ShardLayout``), GQA runs
 this rank's query heads against its kv heads (or, where the audit kept
 ``kv_heads`` whole, the kv heads its query heads read) and sums ``wo``'s
-partial products over the group (``dist.tensor_parallel.row_parallel``).
-MLA is not split (ROADMAP A15b).
+partial products over the group (``dist.tensor_parallel.row_parallel``);
+so do the encoder's bidirectional attention and the decoder's
+cross-attention over the encoder's output. MLA runs this rank's heads of
+``w_uq``, ``w_uk``, ``w_uv`` and ``wo``; its latent projections, norms
+and latent cache are whole on every rank, which each compute the same
+latent. Under the ``kv_seq`` rule (``layout.kv_seq``: a decode of a
+``decode_kv_shard="seq"`` config) a GQA cache holds this rank's run of
+the positions for every kv head: the ranks gather their heads of q, k
+and v, each attends over its positions in f32, and the softmax is
+merged over the group (one ``all_reduce`` of the row maxima, one of the
+rescaled sums and outputs) before ``wo``. MLA keeps its latent cache
+whole under the rule: the JAX package's caches stay batch-sharded, and
+the values are the same either way.
 """
 from __future__ import annotations
 
@@ -183,9 +194,18 @@ def init_kv_cache(batch, max_len, hkv, d, dtype="bfloat16",
     return KVCache(z[0], z[1], None, None, 0)
 
 
-def cache_update(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
-    """Write (B, S_new, Hkv, D) at position ``pos``, in place."""
-    at = slice(pos, pos + k_new.shape[1])
+def cache_update(cache: KVCache, k_new, v_new, pos: int,
+                 offset: int = 0) -> KVCache:
+    """Write (B, S_new, Hkv, D) at position ``pos``, in place. A cache
+    that holds the positions from ``offset`` on (one rank's run under the
+    ``kv_seq`` rule) takes only the new positions that fall in it."""
+    s_new = k_new.shape[1]
+    lo = max(pos, offset)
+    hi = min(pos + s_new, offset + cache.k.shape[1])
+    if hi <= lo:
+        return cache._replace(length=cache.length + s_new)
+    k_new, v_new = k_new[:, lo - pos:hi - pos], v_new[:, lo - pos:hi - pos]
+    at = slice(lo - offset, hi - offset)
     if cache.k_scale is not None:
         kq, ks = _quantize(k_new)
         vq, vs = _quantize(v_new)
@@ -196,7 +216,7 @@ def cache_update(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
     else:
         cache.k[:, at] = k_new.to(cache.k.dtype)
         cache.v[:, at] = v_new.to(cache.v.dtype)
-    return cache._replace(length=cache.length + k_new.shape[1])
+    return cache._replace(length=cache.length + s_new)
 
 
 def cache_kv(cache: KVCache):
@@ -234,7 +254,8 @@ def gqa_forward(
     (encoder states) switches to cross-attention (no cache, no causal
     mask); without ``use_rope`` no position is rotated. With a
     ``layout`` that splits the heads, ``p`` holds this rank's heads and
-    the output is summed over its model group."""
+    the output is summed over its model group; under its ``kv_seq`` rule
+    a cache holds this rank's positions (:func:`_seq_attention`)."""
     split = TP.splits(layout, "heads")
     kv_src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
@@ -248,7 +269,12 @@ def gqa_forward(
         k = apply_rope(k, kv_pos, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and layout is not None and layout.kv_seq:
+        o, new_cache = _seq_attention(q, k, v, cache, cache_pos, positions,
+                                      cfg, layout)
+        if split:
+            o = o[:, :, layout.local("heads", cfg.n_heads)]
+    elif cache is not None:
         new_cache = cache_update(cache, k, v, cache_pos)
         k, v = cache_kv(new_cache)
         kpos = torch.arange(k.shape[1], device=x.device)
@@ -269,14 +295,7 @@ def gqa_forward(
             softcap=cfg.attn_logit_softcap, q_chunk=cfg.attn_chunk // 2,
             kv_chunk=cfg.attn_chunk,
         )
-    if split:
-        o = o.to(x.dtype)
-        out = TP.row_parallel(o.reshape(*o.shape[:2], -1),
-                              p.wo.reshape(-1, p.wo.shape[-1]), layout,
-                              x.dtype)
-    else:
-        out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
-    return out, new_cache
+    return _heads_out(o.to(x.dtype), p.wo, layout), new_cache
 
 
 def _kv_of_heads(k, v, cfg: ModelConfig, layout):
@@ -299,6 +318,37 @@ def _kv_of_heads(k, v, cfg: ModelConfig, layout):
         return k[:, :, first:first + 1], v[:, :, first:first + 1]
     idx = torch.arange(heads.start, heads.stop, device=k.device) // g
     return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _seq_attention(q, k, v, cache: KVCache, cache_pos: int,
+                   positions: torch.Tensor, cfg: ModelConfig, layout):
+    """Attention over a cache whose positions are cut over the model group
+    (the ``kv_seq`` rule): every head's q, k and v gathered where the
+    layout splits them, the new positions written on the rank that owns
+    them, this rank's positions attended in f32, and the softmax merged
+    over the group. Returns every head's output and the cache."""
+    if TP.splits(layout, "heads"):
+        q = TP.all_gather(q, layout, dim=2)
+    if TP.splits(layout, "kv_heads"):
+        k = TP.all_gather(k, layout, dim=2)
+        v = TP.all_gather(v, layout, dim=2)
+    offset = layout.model_rank * cache.k.shape[1]
+    new_cache = cache_update(cache, k, v, cache_pos, offset)
+    k, v = cache_kv(new_cache)
+    kpos = offset + torch.arange(k.shape[1], device=q.device)
+    qpos = positions
+    mask = kpos[None, None, :] <= qpos[:, :, None]
+    if cfg.sliding_window > 0:
+        mask &= (qpos[:, :, None] - kpos[None, None, :]) < cfg.sliding_window
+    scale = q.shape[-1] ** -0.5
+    ob, mb, lb = _attend_block(q * weak_scalar(scale, q.dtype), k, v, mask,
+                               cfg.attn_logit_softcap)
+    top = TP.all_reduce_max(mb.clone(), layout)
+    c = torch.exp(mb - top)
+    part = torch.cat([ob * c[..., None], (lb * c)[..., None]], dim=-1)
+    part = TP.all_reduce_sum(part, layout)
+    o = part[..., :-1] / torch.clamp_min(part[..., -1:], 1e-30)
+    return o.to(v.dtype), new_cache
 
 
 def _cached_attention(q, k, v, mask, softcap):
@@ -358,15 +408,19 @@ class MLA(nn.Module):
 def mla_forward(
     p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
     cache: Optional[MLACache] = None, cache_pos: Optional[int] = None,
+    layout=None,
 ) -> Tuple[torch.Tensor, Optional[MLACache]]:
     """x (B,S,d). With a cache (prefill and decode): writes the latent and
     rotary key at ``cache_pos`` and attends in the absorbed form over the
     whole cache, an f32 (B, S, H, Smax) score block. Without one: the
     keys and values expanded per head, through :func:`chunked_attention`.
+    With a ``layout`` that splits the heads, ``p`` holds this rank's
+    heads (the latent is whole) and the output is summed over its model
+    group.
     """
     m = cfg.mla
     bsz, s, _ = x.shape
-    h = cfg.n_heads
+    h = p.w_uq.shape[1]
     cq = rmsnorm(torch.einsum("bsd,dq->bsq", x, p.w_dq), p.q_norm)
     q = torch.einsum("bsq,qhk->bshk", cq, p.w_uq)
     q_nope, q_rope = q[..., : m.nope_dim], q[..., m.nope_dim:]
@@ -408,5 +462,14 @@ def mla_forward(
             kv_chunk=cfg.attn_chunk, scale=scale,
         )
         new_cache = None
-    out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
-    return out, new_cache
+    return _heads_out(o.to(x.dtype), p.wo, layout), new_cache
+
+
+def _heads_out(o: torch.Tensor, wo: torch.Tensor, layout) -> torch.Tensor:
+    """``o`` (B, S, H, Dv) through ``wo`` (H, Dv, d): over a model group
+    that splits the heads, this rank's heads' partial products summed in
+    f32 and rounded once."""
+    if TP.splits(layout, "heads"):
+        return TP.row_parallel(o.reshape(*o.shape[:2], -1),
+                               wo.reshape(-1, wo.shape[-1]), layout, o.dtype)
+    return torch.einsum("bshk,hkd->bsd", o, wo)

@@ -42,7 +42,6 @@ def params_from_jax(flat: Dict[str, np.ndarray], cfg: ModelConfig,
     model = abstract_params(cfg, max_positions, layout)
     whole = abstract_params(cfg, max_positions)
     want = {k: tuple(v.shape) for k, v in whole.state_dict().items()}
-    specs = model.specs()
     n_pre, n_pat = len(cfg.prefix_layers), len(cfg.pattern)
     dt = torch_dtype(cfg.param_dtype)
     state = {}
@@ -69,10 +68,10 @@ def params_from_jax(flat: Dict[str, np.ndarray], cfg: ModelConfig,
             if v.shape != want[key]:
                 raise ValueError(f"{name}: shape {v.shape}, the port's "
                                  f"{key!r} is {want[key]}")
-            cut = layout.param_cut(v.shape, specs[key]) if layout else None
+            cut = model.param_cut(key, v.shape, layout) if layout \
+                else None
             if cut is not None:
-                dim, start, n = cut
-                v = np.take(v, np.arange(start, start + n), axis=dim)
+                v = cut.take(v)
             state[key] = torch.from_numpy(
                 np.array(v, dtype=np.float32)).to(dt).to(device)
     missing = sorted(set(want) - set(state))

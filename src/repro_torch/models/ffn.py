@@ -13,8 +13,15 @@ products run over its whole buffer.
 Across a model group (``layout``, a ``dist.plan.ShardLayout``) the dense
 FFN holds this rank's ``mlp`` columns of ``w_gate``/``w_up`` and rows of
 ``w_down``, and sums its partial output over the group
-(``dist.tensor_parallel.row_parallel``). The MoE FFN, whose experts the
-JAX package splits over the model axis, is not split (ROADMAP A15b).
+(``dist.tensor_parallel.row_parallel``). The MoE FFN holds this rank's
+``experts`` (or, where the audit demotes them, every expert's ``mlp``
+columns) and the shared experts' ``mlp`` columns: every rank of the group
+routes the same tokens alike, fills and runs only its experts' rows of
+the ``(E, C, d)`` buffer, and sums its kept slots' weighted outputs a
+token in f32; that partial and the shared experts' join before one
+``all_reduce``. Over a data group the capacity and the ranks within each
+expert count the global batch, as the JAX function's argsort over the
+traced global shape does: the routing is gathered over the data group.
 """
 from __future__ import annotations
 
@@ -47,13 +54,16 @@ class DenseFFN(nn.Module):
         self.w_down = b.add((ff, d), ("mlp", "embed"))
 
 
-def dense_ffn(p: DenseFFN, cfg: ModelConfig, x: torch.Tensor,
-              layout=None):
+def _hidden(p: DenseFFN, cfg: ModelConfig, x: torch.Tensor):
     if cfg.activation in ("swiglu", "geglu"):
         act = silu if cfg.activation == "swiglu" else gelu
-        h = act(x @ p.w_gate) * (x @ p.w_up)
-    else:
-        h = activation_fn(cfg.activation)(x @ p.w_up)
+        return act(x @ p.w_gate) * (x @ p.w_up)
+    return activation_fn(cfg.activation)(x @ p.w_up)
+
+
+def dense_ffn(p: DenseFFN, cfg: ModelConfig, x: torch.Tensor,
+              layout=None):
+    h = _hidden(p, cfg, x)
     if TP.splits(layout, "mlp"):
         return TP.row_parallel(h, p.w_down, layout, h.dtype)
     return h @ p.w_down
@@ -100,11 +110,13 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
     return -(-cap // 32) * 32
 
 
-def moe_ffn(p: MoEFFN, cfg: ModelConfig, x: torch.Tensor
+def moe_ffn(p: MoEFFN, cfg: ModelConfig, x: torch.Tensor, layout=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) -> (B, S, d), aux stats: ``dropped_frac`` and
-    ``router_entropy`` as the JAX function gives them, and ``idx``, the
-    (B*S, k) experts each token was routed to."""
+    ``router_entropy`` as the JAX function gives them (over the global
+    batch), and ``idx``, the (B*S, k) experts each of this rank's tokens
+    was routed to. With a ``layout`` that cuts the MoE over its model
+    group or the batch over its data group, :func:`_moe_split` runs."""
     m = cfg.moe
     bsz, s, d = x.shape
     t = bsz * s
@@ -121,6 +133,12 @@ def moe_ffn(p: MoEFFN, cfg: ModelConfig, x: torch.Tensor
     else:
         w, idx = top_k(torch.softmax(logits, dim=-1), k)
     w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    entropy = -(torch.softmax(logits, -1)
+                * torch.log_softmax(logits, -1)).sum(-1)
+    if TP.data_split(layout) or TP.splits(layout, "experts") \
+            or TP.splits(layout, "mlp"):
+        out, aux = _moe_split(p, cfg, xt, w, idx, entropy, layout)
+        return out.reshape(bsz, s, d), aux
 
     cap = capacity(cfg, t)
     flat_e = idx.reshape(-1)                                   # (T*k,)
@@ -155,10 +173,90 @@ def moe_ffn(p: MoEFFN, cfg: ModelConfig, x: torch.Tensor
     if p.shared is not None:
         out = out + dense_ffn(p.shared, cfg, xt[None])[0]
 
-    aux = {
-        "dropped_frac": 1.0 - keep.float().mean(),
-        "router_entropy": -(torch.softmax(logits, -1)
-                            * torch.log_softmax(logits, -1)).sum(-1).mean(),
-        "idx": idx,
-    }
+    aux = {"dropped_frac": 1.0 - keep.float().mean(),
+           "router_entropy": entropy.mean(), "idx": idx}
     return out.reshape(bsz, s, d), aux
+
+
+def _moe_split(p: MoEFFN, cfg: ModelConfig, xt: torch.Tensor,
+               w: torch.Tensor, idx: torch.Tensor, entropy: torch.Tensor,
+               layout) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The MoE FFN of this rank's tokens ``xt`` (T, d), routed to ``idx``
+    with gates ``w`` (T, k), over the layout's groups.
+
+    Routing: every data rank's ``idx`` (and router entropies) gathered,
+    one stable argsort over the global batch gives each slot its rank
+    within its expert, the capacity counts the global tokens, and this
+    rank keeps its own tokens' slots. Dispatch: the rows of this rank's
+    experts in an ``(E_local, C, d)`` buffer, each slot at its global
+    rank. Combine: each token's kept slots of this rank's experts (or,
+    with the experts demoted, the partial products over its ``mlp``
+    columns), weighted and summed in f32 in the order of their expert
+    ids, as the JAX function's scatter-add sums them; the shared experts'
+    f32 partial joins, and one ``all_reduce`` over the model group sums
+    the parts, rounded once. A part held whole on every rank joins on
+    model rank 0 alone."""
+    m = cfg.moe
+    t, d = xt.shape
+    k = m.top_k
+    dev = xt.device
+    experts = TP.splits(layout, "experts")
+    cols = not experts and TP.splits(layout, "mlp")
+    e_loc = p.w_gate.shape[0]
+    e0 = layout.model_rank * e_loc if experts else 0
+
+    t0, idx_all, ent_all = 0, idx, entropy
+    if TP.data_split(layout):
+        got = TP.gather_rows(torch.cat([idx.float(), entropy[:, None]], 1),
+                             layout)
+        idx_all, ent_all = got[:, :k].long(), got[:, k]
+        t0 = layout.data_rank * t
+    cap = capacity(cfg, idx_all.shape[0])
+    flat_e = idx_all.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(m.n_experts,
+                                                       device=dev),
+                                side="left")
+    rank_all = torch.empty_like(flat_e)
+    rank_all[order] = torch.arange(flat_e.numel(), device=dev) \
+        - starts[sorted_e]
+    keep_all = rank_all < cap
+    rank = rank_all[t0 * k:(t0 + t) * k].reshape(t, k)
+    keep = keep_all[t0 * k:(t0 + t) * k].reshape(t, k)
+
+    # each token's slots in the order of their expert ids
+    by_e = torch.argsort(idx, dim=-1)
+    slot_e = torch.gather(idx, 1, by_e) - e0
+    rank = torch.gather(rank, 1, by_e)
+    gate = torch.gather(w, 1, by_e)
+    mine = torch.gather(keep, 1, by_e) & (slot_e >= 0) & (slot_e < e_loc)
+    tok = torch.arange(t, device=dev)[:, None].expand(t, k)
+
+    buf = xt.new_zeros((e_loc, cap, d))
+    buf[slot_e[mine], rank[mine]] = xt[tok[mine]]
+    act = silu if cfg.activation == "swiglu" else gelu
+    h = act(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
+    y_buf = TP.f32_product(h, p.w_down) if cols \
+        else torch.bmm(h, p.w_down).float()
+    y = y_buf[slot_e.clamp(0, e_loc - 1), rank.clamp(max=cap - 1)]
+    y = torch.where(mine[..., None], y * gate[..., None], 0.0)
+    out = y[:, 0]
+    for j in range(1, k):
+        out = out + y[:, j]
+
+    # with a part split over the model group, the parts held whole join
+    # on model rank 0 alone, and one all_reduce sums them all
+    reduce = experts or TP.splits(layout, "mlp")
+    lead = not reduce or layout.model_rank == 0
+    if not (experts or cols or lead):
+        out = torch.zeros_like(out)
+    if p.shared is not None and (lead or TP.splits(layout, "mlp")):
+        out = out + TP.f32_product(_hidden(p.shared, cfg, xt),
+                                   p.shared.w_down)
+    if reduce:
+        out = TP.all_reduce_sum(out, layout)
+    out = out.to(xt.dtype)
+    aux = {"dropped_frac": 1.0 - keep_all.float().mean(),
+           "router_entropy": ent_all.mean(), "idx": idx}
+    return out, aux

@@ -43,8 +43,10 @@ class ParamBuilder:
 
     Every :meth:`add` names the tensor's logical axes, as the JAX
     ``ParamBuilder.add(name, shape, logical)``; :meth:`axes_of` gives them
-    back. With a ``layout``, a tensor split over its model axis is drawn
-    whole, in the same order, and only the rank's slice is kept
+    back, and :meth:`segments_of` the ``dist.plan.Segments`` of a tensor
+    whose split dimension joins unlike runs (SSD's). With a ``layout``, a
+    tensor split over its model axis is drawn whole, in the same order,
+    and only the rank's part is kept
     (:meth:`~repro_torch.dist.plan.ShardLayout.param_cut`): a sharded
     model is then the exact slice of the whole one drawn from the same
     generator.
@@ -61,18 +63,20 @@ class ParamBuilder:
         self.dtype = dtype
         self.layout = layout
         self._axes: Dict[int, Tuple[Optional[str], ...]] = {}
+        self._segments: Dict[int, object] = {}
 
     def add(self, shape: Sequence[int], axes: Sequence[Optional[str]],
-            scale: Optional[float] = None, init: str = "normal"
-            ) -> nn.Parameter:
+            scale: Optional[float] = None, init: str = "normal",
+            segments=None) -> nn.Parameter:
         shape, axes = tuple(shape), tuple(axes)
         if len(shape) != len(axes):
             raise ValueError(f"shape {shape} needs one logical axis a "
                              f"dimension, got {axes}")
-        cut = self.layout.param_cut(shape, axes) if self.layout else None
+        cut = self.layout.param_cut(shape, axes, segments) \
+            if self.layout else None
         local = list(shape)
         if cut is not None:
-            local[cut[0]] = cut[2]
+            local[cut.dim] = cut.length
         if self.device.type == "meta":
             t = torch.empty(local, dtype=self.dtype, device="meta")
         elif init == "zeros":
@@ -87,18 +91,24 @@ class ParamBuilder:
                             dtype=torch.float32, device=self.device)
             t = t.mul_(float(scale))
             if cut is not None:
-                # a copy of the slice alone, so that the whole draw is freed
-                t = t.narrow(*cut).to(self.dtype, copy=True,
-                                      memory_format=torch.contiguous_format)
+                # a copy of the part alone, so that the whole draw is freed
+                t = cut.take(t).to(self.dtype, copy=True,
+                                   memory_format=torch.contiguous_format)
             else:
                 t = t.to(self.dtype)
         p = nn.Parameter(t, requires_grad=False)
         self._axes[id(p)] = axes
+        if segments is not None:
+            self._segments[id(p)] = segments
         return p
 
     def axes_of(self, p: nn.Parameter) -> Tuple[Optional[str], ...]:
         """The logical axes :meth:`add` gave ``p``."""
         return self._axes[id(p)]
+
+    def segments_of(self, p: nn.Parameter):
+        """The ``Segments`` :meth:`add` gave ``p``, or None."""
+        return self._segments.get(id(p))
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,12 @@ Across cards (:func:`init_sharded`, :func:`shard_model`): each rank of a
 ``(data, model)`` process mesh holds its slice of the weights, as a
 ``dist.plan.ShardLayout`` (``model.layout``) says, and its rows of the
 batch and caches. The layers split themselves where the JAX package's
-``shard()`` calls would make XLA split them: GQA over its heads, the
-dense FFN over ``mlp``, the embedding and the logits over the vocabulary
-(``dist.tensor_parallel``). Serving only: training across cards is
+``shard()`` calls would make XLA split them: GQA (causal, the encoder's
+bidirectional, the cross-attention) and MLA over their heads, SSD over
+its heads, the dense FFN over ``mlp``, the MoE FFN over its experts
+(``mlp`` where the audit demotes them), the embedding and the logits over
+the vocabulary (``dist.tensor_parallel``); under the ``kv_seq`` rule the
+GQA caches over their positions. Serving only: training across cards is
 ROADMAP A15c.
 
 Remat (``cfg.remat`` other than ``"none"``, which the JAX package runs as
@@ -37,7 +40,8 @@ from .attention import (GQA, MLA, gqa_forward, init_kv_cache,
 from .config import ModelConfig
 from .ffn import DenseFFN, MoEFFN, dense_ffn, moe_ffn
 from .layers import Norm, ParamBuilder, gelu, matmul, resolve_model_device
-from .ssm import SSD, SSMCache, ssd_decode_step, ssd_forward
+from .ssm import (SSD, SSMCache, ssd_decode_step, ssd_forward,
+                  ssd_split)
 
 MIXERS = ("attn", "attn_bidir", "mla", "ssm")
 FFNS = ("dense", "moe", "none")
@@ -96,8 +100,7 @@ class Block(nn.Module):
                 enc_out: Optional[torch.Tensor] = None, decode: bool = False,
                 layout=None) -> Tuple[torch.Tensor, object, Dict]:
         """(x, the block's cache, the MoE FFN's aux stats or {}); with a
-        ``layout`` the GQA mixer and the dense FFN run over its model
-        group."""
+        ``layout`` its mixers and FFN run over its groups."""
         cfg, aux = self.cfg, {}
         h = self.norm1(x)
         new_cache = cache
@@ -106,23 +109,26 @@ class Block(nn.Module):
                                        causal=True, cache=cache,
                                        cache_pos=cache_pos, layout=layout)
         elif self.mixer == "attn_bidir":
-            h, _ = gqa_forward(self.attn, cfg, h, positions, causal=False)
+            h, _ = gqa_forward(self.attn, cfg, h, positions, causal=False,
+                               layout=layout)
         elif self.mixer == "mla":
             h, new_cache = mla_forward(self.attn, cfg, h, positions,
-                                       cache=cache, cache_pos=cache_pos)
+                                       cache=cache, cache_pos=cache_pos,
+                                       layout=layout)
         elif decode:
-            h, new_cache = ssd_decode_step(self.ssm, cfg, h, cache)
+            h, new_cache = ssd_decode_step(self.ssm, cfg, h, cache, layout)
         else:
-            h, new_cache = ssd_forward(self.ssm, cfg, h, cache=cache)
+            h, new_cache = ssd_forward(self.ssm, cfg, h, cache=cache,
+                                       layout=layout)
         x = x + h
         if enc_out is not None and self.xattn is not None:
             h, _ = gqa_forward(self.xattn, cfg, self.norm_x(x), positions,
-                               kv_x=enc_out, use_rope=False)
+                               kv_x=enc_out, use_rope=False, layout=layout)
             x = x + h
         if self.ffn is not None:
             h = self.norm2(x)
             if self.ffn_kind == "moe":
-                h, aux = moe_ffn(self.ffn, cfg, h)
+                h, aux = moe_ffn(self.ffn, cfg, h, layout)
             else:
                 h = dense_ffn(self.ffn, cfg, h, layout)
             x = x + h
@@ -194,10 +200,20 @@ class Model(nn.Module):
         self.layout = b.layout
         self._specs = {name: b.axes_of(p)
                        for name, p in self.named_parameters()}
+        self._segments = {name: b.segments_of(p)
+                          for name, p in self.named_parameters()
+                          if b.segments_of(p) is not None}
 
     def specs(self) -> Dict[str, Tuple[Optional[str], ...]]:
         """Parameter name -> its logical axes."""
         return dict(self._specs)
+
+    def param_cut(self, name: str, shape, layout):
+        """``layout``'s cut of parameter ``name`` of the whole ``shape``
+        (``dist.plan.ShardLayout.param_cut`` with its axes and
+        segments)."""
+        return layout.param_cut(shape, self._specs[name],
+                                self._segments.get(name))
 
 
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -233,11 +249,11 @@ def shard_model(model: Model, layout) -> Model:
         raise ValueError("shard_model takes a whole model")
     maxpos = 0 if model.dec_pos is None else model.dec_pos.shape[0]
     out = abstract_params(model.cfg, maxpos, layout)
-    specs, state = out.specs(), {}
+    state = {}
     for name, p in model.named_parameters():
-        cut = layout.param_cut(p.shape, specs[name])
+        cut = out.param_cut(name, p.shape, layout)
         state[name] = p.detach().clone() if cut is None \
-            else p.detach().narrow(*cut).clone()
+            else cut.take(p.detach()).clone()
     out.load_state_dict(state, assign=True)
     return out
 
@@ -260,14 +276,15 @@ def _embed_inputs(model: Model, batch: Dict) -> torch.Tensor:
 
 
 def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
-    """Whisper-style encoder over stub frame embeddings (B, T, 128)."""
+    """Whisper-style encoder over stub frame embeddings (B, T, 128); over
+    a model group its output is whole on every rank."""
     x = matmul(frames, model.aud_proj)
     if model.enc_pos is not None:
         x = x + model.enc_pos[None, : x.shape[1]]
     pos = torch.arange(x.shape[1], device=x.device)[None].expand(
         x.shape[0], -1)
     for block in model.enc:
-        x, _, _ = block(x, pos)
+        x, _, _ = block(x, pos, layout=model.layout)
     return model.enc_norm(x)
 
 
@@ -402,28 +419,34 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """One cache a block, ``max_len`` positions each: GQA's in
     ``cfg.kv_cache_dtype``, MLA's latent cache in bf16, and SSD's conv
     inputs in bf16 and state in f32, as the JAX package keeps them. With
-    a ``layout``, the rank's rows of a global ``batch`` and GQA's kv heads
-    of its slice."""
+    a ``layout``, the rank's rows of a global ``batch`` and its part of
+    each cache: GQA's kv heads of its slice (under ``kv_seq``, every kv
+    head over its run of the positions), an SSD's state of its heads and
+    conv inputs of its ``x`` channels with all of ``B`` and ``C``, MLA's
+    latent whole."""
     device = resolve_model_device(device)
     check_served(cfg)
+    n_kv, kv_len, parts = cfg.n_kv_heads, max_len, 1
     if layout is not None:
         rows = layout.rows(batch)
         batch = rows.stop - rows.start
-        kv = layout.local("kv_heads", cfg.n_kv_heads)
-        n_kv = kv.stop - kv.start
-    else:
-        n_kv = cfg.n_kv_heads
+        if layout.kv_seq:
+            kv_len = -(-max_len // layout.model)
+        else:
+            kv = layout.local("kv_heads", cfg.n_kv_heads)
+            n_kv = kv.stop - kv.start
+        parts = layout.model if ssd_split(layout) else 1
 
     def one(spec):
         mixer, _ = spec
         if mixer == "attn":
-            return init_kv_cache(batch, max_len, n_kv, cfg.head_dim,
+            return init_kv_cache(batch, kv_len, n_kv, cfg.head_dim,
                                  cfg.kv_cache_dtype, device)
         if mixer == "mla":
             return init_mla_cache(batch, max_len, cfg, device=device)
         if mixer == "ssm":
             s = cfg.ssm
-            di = s.expand * cfg.d_model
+            di = s.expand * cfg.d_model // parts
             return SSMCache(
                 torch.zeros((batch, s.d_conv - 1, di + 2 * s.d_state),
                             dtype=torch.bfloat16, device=device),

@@ -12,6 +12,19 @@ here with its operands cast as ``jnp`` casts them, and with the
 roundings the JAX functions make (the state rounded to the input's dtype
 before the inter-chunk product; the conv summed in f32 and rounded once).
 The cache is updated in place.
+
+Across a model group (``layout``, a ``dist.plan.ShardLayout`` that
+splits both ``mlp`` and ``heads``: :func:`ssd_split`) each rank holds
+its heads' columns of ``w_in`` (``z``, ``x`` and ``dt``) with all of
+``B`` and ``C`` (mamba-2 with one group shares them over the heads: the
+``Segments`` of each parameter), the conv of its ``x`` channels and of
+``B`` and ``C``, its heads' ``a_log``, ``dt_bias``, ``d_skip``,
+``out_norm`` and rows of ``w_out``, and the state of its heads. The
+gated norm over the whole inner width sums its squares over the group
+in f32 (``dist.tensor_parallel.split_rmsnorm``), and ``w_out``'s
+partial products are summed over it (``row_parallel``). Where the audit
+demotes either axis the SSD is held whole on every rank
+(``ShardLayout.whole``).
 """
 from __future__ import annotations
 
@@ -21,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist import tensor_parallel as TP
+from ..dist.plan import SSD_AXES, Segments
 from .config import ModelConfig
 from .layers import ParamBuilder, rmsnorm, silu
 
@@ -42,14 +57,31 @@ class SSD(nn.Module):
         di = s.expand * d
         nh = di // s.head_dim
         conv_ch = di + 2 * s.d_state
-        self.w_in = b.add((d, 2 * di + 2 * s.d_state + nh), ("embed", "mlp"))
-        self.conv_w = b.add((s.d_conv, conv_ch), (None, "mlp"))
-        self.conv_b = b.add((conv_ch,), ("mlp",), init="zeros")
-        self.a_log = b.add((nh,), ("heads",), init="zeros")
-        self.dt_bias = b.add((nh,), ("heads",), init="zeros")
-        self.d_skip = b.add((nh,), ("heads",), init="zeros")
-        self.out_norm = b.add((di,), ("mlp",), init="zeros")
-        self.w_out = b.add((di, d), ("mlp", "embed"))
+        n = s.d_state
+
+        def runs(*sizes_split):
+            sizes, split = zip(*sizes_split)
+            return Segments(sizes, split, SSD_AXES)
+
+        heads = runs((nh, True))
+        inner = runs((di, True))
+        self.w_in = b.add((d, 2 * di + 2 * n + nh), ("embed", "mlp"),
+                          segments=runs((di, True), (di, True), (n, False),
+                                        (n, False), (nh, True)))
+        xbc = runs((di, True), (n, False), (n, False))
+        self.conv_w = b.add((s.d_conv, conv_ch), (None, "mlp"), segments=xbc)
+        self.conv_b = b.add((conv_ch,), ("mlp",), init="zeros", segments=xbc)
+        self.a_log = b.add((nh,), ("heads",), init="zeros", segments=heads)
+        self.dt_bias = b.add((nh,), ("heads",), init="zeros", segments=heads)
+        self.d_skip = b.add((nh,), ("heads",), init="zeros", segments=heads)
+        self.out_norm = b.add((di,), ("mlp",), init="zeros", segments=inner)
+        self.w_out = b.add((di, d), ("mlp", "embed"), segments=inner)
+
+
+def ssd_split(layout) -> bool:
+    """Whether an SSD runs over the layout's model group: both of
+    :data:`SSD_AXES` split (else it is held whole)."""
+    return all(TP.splits(layout, a) for a in SSD_AXES)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -57,12 +89,28 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _split_in(cfg: ModelConfig, proj: torch.Tensor):
-    s = cfg.ssm
-    di = s.expand * cfg.d_model
-    nh = di // s.head_dim
-    z, xbc, dt = torch.split(proj, [di, di + 2 * s.d_state, nh], dim=-1)
+def _split_in(p: SSD, cfg: ModelConfig, proj: torch.Tensor):
+    """(z, xbc, dt, di, nh) of ``w_in``'s product, ``di`` and ``nh`` the
+    inner width and heads that ``p`` holds."""
+    di, nh = p.out_norm.shape[0], p.a_log.shape[0]
+    z, xbc, dt = torch.split(proj, [di, di + 2 * cfg.ssm.d_state, nh],
+                             dim=-1)
     return z, xbc, dt, di, nh
+
+
+def _gated_norm(y: torch.Tensor, p: SSD, cfg: ModelConfig, layout):
+    """``rmsnorm(y, out_norm)`` over the whole inner width."""
+    if ssd_split(layout):
+        return TP.split_rmsnorm(y, p.out_norm,
+                                cfg.ssm.expand * cfg.d_model, layout)
+    return rmsnorm(y, p.out_norm)
+
+
+def _out(y: torch.Tensor, p: SSD, layout) -> torch.Tensor:
+    """``y @ w_out``, summed over the model group when it is cut."""
+    if ssd_split(layout):
+        return TP.row_parallel(y, p.w_out, layout, y.dtype)
+    return torch.einsum("bse,ed->bsd", y, p.w_out)
 
 
 def _conv(window: torch.Tensor, p: SSD, k: int) -> torch.Tensor:
@@ -139,14 +187,15 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
 
 def ssd_forward(
     p: SSD, cfg: ModelConfig, x: torch.Tensor, *,
-    cache: Optional[SSMCache] = None,
+    cache: Optional[SSMCache] = None, layout=None,
 ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """Full-sequence (prefill) forward. Returns the output and, with a
-    cache, the cache holding the last conv inputs and the final state."""
+    cache, the cache holding the last conv inputs and the final state;
+    over ``layout``'s model group, of this rank's heads."""
     s_cfg = cfg.ssm
     bsz, s, _ = x.shape
     proj = torch.einsum("bsd,de->bse", x, p.w_in)
-    z, xbc, dt, di, nh = _split_in(cfg, proj)
+    z, xbc, dt, di, nh = _split_in(p, cfg, proj)
 
     # causal depthwise conv over (x, B, C) channels, accumulated in f32
     # and rounded once, as ssd_decode_step's
@@ -163,8 +212,8 @@ def ssd_forward(
     y, h_final = _ssd_chunked(xh, dt, a, bmat, cmat, s_cfg.chunk)
     y = y + xh.float() * p.d_skip.float()[None, None, :, None]
     y = y.reshape(bsz, s, di)
-    y = rmsnorm(y * silu(z).float(), p.out_norm)
-    out = torch.einsum("bse,ed->bsd", y.to(x.dtype), p.w_out)
+    y = _gated_norm(y * silu(z).float(), p, cfg, layout)
+    out = _out(y.to(x.dtype), p, layout)
 
     new_cache = None
     if cache is not None:
@@ -176,12 +225,13 @@ def ssd_forward(
 
 def ssd_decode_step(
     p: SSD, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache,
+    layout=None,
 ) -> Tuple[torch.Tensor, SSMCache]:
     """Single-token recurrent step. x (B, 1, d)."""
     s_cfg = cfg.ssm
     bsz = x.shape[0]
     proj = torch.einsum("bsd,de->bse", x, p.w_in)
-    z, xbc, dt, di, nh = _split_in(cfg, proj)
+    z, xbc, dt, di, nh = _split_in(p, cfg, proj)
     k = s_cfg.d_conv
     wdt = torch.promote_types(cache.conv.dtype, xbc.dtype)
     window = torch.cat([cache.conv.to(wdt), xbc.to(wdt)], dim=1)  # (B,k,C)
@@ -200,8 +250,8 @@ def ssd_decode_step(
     y = torch.einsum("bn,bhnp->bhp", cmat, state)
     y = y + xh * p.d_skip.float()[None, :, None]
     y = y.reshape(bsz, 1, di)
-    y = rmsnorm(y.to(x.dtype) * silu(z), p.out_norm)
-    out = torch.einsum("bse,ed->bsd", y.to(x.dtype), p.w_out)
+    y = _gated_norm(y.to(x.dtype) * silu(z), p, cfg, layout)
+    out = _out(y.to(x.dtype), p, layout)
     cache.conv.copy_(window[:, 1:, :])
     cache.state.copy_(state)
     return out, cache

@@ -1,9 +1,9 @@
-"""Serving across the cards of one host, measured (ROADMAP A15a).
+"""Serving across the cards of one host, measured (ROADMAP A15a, A15b).
 
 Run from the root of a checkout on a machine with four cards::
 
     PYTHONPATH=src python3 -m repro_torch.tools.tp_serve \\
-        --out tp_serve.json [--quick]
+        --out tp_serve.json [--quick] [--only a,b]
 
 Each run starts its ranks, one process a card, through
 ``launch.mesh.run_ranks`` (torchrun's environment; NCCL; a run of one
@@ -17,27 +17,41 @@ rank keeps its slice of the same draw). Every run serves 4 requests of
 * llama3-8b whole on one card, and over ``(data, model)`` = ``(1, 2)``,
   ``(1, 4)`` and ``(2, 2)``;
 * command-r-plus-104b whole over ``model=4`` (107 B parameters, 53.5 GB
-  a card).
+  a card);
+* jamba-v0.1-52b with 1 of its 4 periods (8 layers, 13.3 B parameters)
+  and deepseek-v2-236b with 7 of its 60 layers (25.2 B) on one card,
+  and over ``model=4``;
+* jamba-v0.1-52b whole over ``model=4`` (51.5 B parameters, 25.8 GB a
+  card), and again under the ``kv_seq`` rule (``decode_kv_shard="seq"``)
+  with caches of 32,768 positions, each rank holding 8,192 of them;
+* deepseek-v2-236b with 31 of its 60 layers over ``model=4`` (120.6 B
+  parameters, 60.8 GB a card, reckoned on the ``meta`` device: the
+  deepest whose peak stays under 72 GB a card, ``DSV2_PERIODS``);
 
 and, to hold the split at published widths, command-r-plus-104b and
-llama3-8b with one layer in f32 (f32 caches, 128 prompt tokens) on one
-card and over ``model=4`` (llama also ``(2, 2)``), and llama3-8b whole
-on one card serving 2 of the 4 requests.
+llama3-8b with one layer, jamba with one period and deepseek-v2 with two
+layers (its dense prefix layer and one MoE layer), in f32 (f32 caches,
+128 prompt tokens) on one card and over ``model=4`` (llama also
+``(2, 2)``), and llama3-8b whole on one card serving 2 of the 4
+requests.
 
 Each rank serves its requests through ``run`` (cold), then once more on
 the same weights (warm), then profiles 4 more decode steps. A run is
-held against the one-card run of its model on the warm pass: the
+held against its reference run (one card, or for the ``kv_seq`` run the
+same model over ``model=4`` without the rule) on the warm pass: the
 prefill's last-position logits of each rank's requests (largest and
 normwise difference), the greedy tokens, and the first decode step's
 logits where the prefill picked the same token. Per rank it writes: the
 cold and warm prefill ms, decode ms a step, tokens/s, peak memory, the
 decode steps' idle share and the share of device time in NCCL kernels,
+kernel launches a decode step, MoE layers' largest ``dropped_frac``,
 and the bounds (a decode step's bytes: the rank's weights but for an
-untied embedding, and its caches, over 3.35 TB/s; a prefill's matrix
-products over 989 TFLOP/s bf16).
-``--quick`` cuts the layers and tokens (a check of the path, not a
-measurement). Every number names the cards and their power limits
-(``nvidia-smi``).
+untied embedding, of its experts those its tokens were routed to, and
+the filled positions of its caches, over 3.35 TB/s; a prefill's
+products, of its experts the kept slots routed to them, over 989
+TFLOP/s bf16). ``--quick`` cuts the layers and tokens (a check of the
+path, not a measurement). Every number names the cards and their power
+limits (``nvidia-smi``).
 """
 from __future__ import annotations
 
@@ -73,18 +87,27 @@ class Run:
     arch: str
     n_periods: Optional[int]     # None: the whole model
     mesh: tuple                  # (data, model)
-    ref: Optional[str] = None    # the one-card run it is held against
+    ref: Optional[str] = None    # the run it is held against
     dtype: str = "bfloat16"      # "float32": weights, activations, caches
     batch: int = BATCH
     prompt: int = PROMPT
     gen: int = GEN
+    seq: bool = False            # decode_kv_shard="seq": the kv_seq rule
+    max_len: Optional[int] = None  # cache positions (default: just enough)
 
 
+# deepseek-v2-236b over model=4: its dense prefix layer and 30 of its 59
+# MoE layers, the deepest reckoned to peak under 72 GB a card (on the
+# meta device: 30.41 B parameters, 60.8 GB in bf16, a card; the largest
+# transient, one expert tensor drawn whole in f32, 5.0 GB)
+DSV2_PERIODS = 30
 # one layer in f32 at published widths: the split's own rounding, which
 # the near one-hot attention of these random weights amplifies layer by
 # layer in bf16 (the unsharded model's two-request run against its
-# four-request run shows the same)
+# four-request run shows the same); jamba's smallest unit is a period of
+# 8 layers, deepseek-v2's its dense prefix layer and one MoE layer
 F32 = dict(dtype="float32", prompt=128, gen=8)
+JAMBA, DSV2 = "jamba-v0.1-52b", "deepseek-v2-236b"
 RUNS = (
     Run("crp1f-1", "command-r-plus-104b", 1, (1, 1), **F32),
     Run("crp1f-m4", "command-r-plus-104b", 1, (1, 4), "crp1f-1", **F32),
@@ -99,9 +122,21 @@ RUNS = (
     Run("llama-m4", "llama3-8b", None, (1, 4), "llama-1"),
     Run("llama-d2m2", "llama3-8b", None, (2, 2), "llama-1"),
     Run("crp-m4", "command-r-plus-104b", None, (1, 4)),
+    Run("jamba1f-1", JAMBA, 1, (1, 1), **F32),
+    Run("jamba1f-m4", JAMBA, 1, (1, 4), "jamba1f-1", **F32),
+    Run("dsv2-2f-1", DSV2, 1, (1, 1), **F32),
+    Run("dsv2-2f-m4", DSV2, 1, (1, 4), "dsv2-2f-1", **F32),
+    Run("jamba8-1", JAMBA, 1, (1, 1)),
+    Run("jamba8-m4", JAMBA, 1, (1, 4), "jamba8-1"),
+    Run("dsv2-7-1", DSV2, 6, (1, 1)),
+    Run("dsv2-7-m4", DSV2, 6, (1, 4), "dsv2-7-1"),
+    Run("jamba-m4", JAMBA, None, (1, 4)),
+    Run("jamba-seq-m4", JAMBA, None, (1, 4), "jamba-m4", seq=True,
+        max_len=32768),
+    Run("dsv2-31-m4", DSV2, DSV2_PERIODS, (1, 4)),
 )
-# --quick: (layers for a cut model, layers for a whole one, prompt, gen)
-QUICK = (2, 4, 128, 8)
+# --quick: one period of each model, 128 prompt tokens, 8 generated
+QUICK = (1, 128, 8)
 
 
 def _config(spec: dict):
@@ -110,6 +145,8 @@ def _config(spec: dict):
                               param_dtype=spec["dtype"])
     if spec["n_periods"]:
         cfg = dataclasses.replace(cfg, n_periods=spec["n_periods"])
+    if spec["seq"]:
+        cfg = dataclasses.replace(cfg, decode_kv_shard="seq")
     return cfg
 
 
@@ -127,31 +164,117 @@ def _union_of(prof, pick) -> float:
                      and pick(e.name)])
 
 
-def _bounds(model, cfg, layout, batch: int, prompt: int, max_len: int):
-    """(decode step ms, prefill ms, the bytes and the operations): the
-    rank's weights (all but an untied embedding, of which a step reads a
-    row a request) and the caches a step reads, over the memory rate; the
-    prefill's products (weights, the score and value products over the
-    cache, one head row a request) over the bf16 peak."""
+def _bounds(model, cfg, layout, batch: int, prompt: int, gen: int,
+            max_len: int, routed: Dict[str, float]):
+    """(decode step ms, prefill ms, the bytes and the operations).
+
+    A decode step reads the rank's weights but for an untied embedding (a
+    row a request), of its experts only the share its tokens were routed
+    to (``routed["decode_hit"]``), and the filled positions of its caches
+    (an SSD's state and conv inputs whole), over the memory rate. A
+    prefill's products: 2 x its tokens x the rank's weights (its experts'
+    for the kept slots routed to them, ``routed["prefill_slots"]`` of
+    every token's k), the attention's score and value products over the
+    filled positions (GQA; MLA's absorbed form over its latent; SSD's
+    chunked scan), one head row a request, over the bf16 peak."""
+    from ..models.model import init_caches
     rows = layout.rows(batch)
     b = rows.stop - rows.start
-    heads = layout.local("heads", cfg.n_heads)
-    kv = layout.local("kv_heads", cfg.n_kv_heads)
-    h, hkv = heads.stop - heads.start, kv.stop - kv.start
-    layers = cfg.n_layers
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for n, p in model.named_parameters()
-                       if n != "embed" or cfg.tie_embeddings)
-    cache_bytes = 2 * layers * b * max_len * hkv * cfg.head_dim * 2
+    tokens, filled = b * prompt, prompt + gen
+    n_h = layout.local("heads", cfg.n_heads)
+    h = n_h.stop - n_h.start
+    expert_bytes = expert_params = other_bytes = other_params = 0
+    for n, p in model.named_parameters():
+        if n == "embed" and not cfg.tie_embeddings:
+            continue
+        if n.startswith("mtp."):
+            continue
+        if p.dim() == 3 and ".ffn.w_" in n:
+            expert_bytes += p.numel() * p.element_size()
+            expert_params += p.numel()
+        else:
+            other_bytes += p.numel() * p.element_size()
+            other_params += p.numel()
     head = model.embed if cfg.tie_embeddings else model.lm_head
-    per_layer = sum(p.numel() for n, p in model.named_parameters()
-                    if n.startswith("blocks.0.") and p.dim() > 1)
-    tokens = b * prompt
-    flops = 2 * per_layer * layers * tokens \
-        + 4 * layers * tokens * max_len * h * cfg.head_dim \
+    cache_bytes = 0
+    for c in init_caches(cfg, batch, max_len, "meta", layout):
+        if c is None:
+            continue
+        share = 1.0 if type(c).__name__ == "SSMCache" \
+            else min(1.0, filled / max_len)
+        cache_bytes += share * sum(t.numel() * t.element_size() for t in c
+                                   if isinstance(t, torch.Tensor))
+    step_bytes = other_bytes + expert_bytes * routed.get("decode_hit", 0.0) \
+        + cache_bytes
+    flops = 2 * tokens * (other_params - head.numel()) \
+        + 2 * tokens * expert_params * routed.get("prefill_slots", 0.0) \
         + 2 * b * head.numel()
-    return (1e3 * (weight_bytes + cache_bytes) / HBM_BYTES_PER_S,
-            1e3 * flops / BF16_FLOP_PER_S, weight_bytes, flops)
+    positions = filled / layout.model if layout.kv_seq else filled
+    for mixer, _ in cfg.layer_specs:
+        if mixer == "attn":
+            heads = cfg.n_heads if layout.kv_seq else h
+            flops += 4 * tokens * positions * heads * cfg.head_dim
+        elif mixer == "mla":
+            m = cfg.mla
+            flops += 2 * tokens * filled * h * (2 * m.kv_lora + m.rope_dim)
+        elif mixer == "ssm":
+            s = cfg.ssm
+            nh = s.expand * cfg.d_model // s.head_dim
+            nh = nh // layout.model if layout.splits("heads") \
+                and layout.splits("mlp") else nh
+            flops += 2 * tokens * s.chunk * (s.d_state + nh * s.head_dim) \
+                + 4 * tokens * nh * s.d_state * s.head_dim
+    return (1e3 * step_bytes / HBM_BYTES_PER_S,
+            1e3 * flops / BF16_FLOP_PER_S, step_bytes, flops)
+
+
+class _Routing:
+    """While installed, notes each MoE layer call's ``dropped_frac``, its
+    tokens and the experts of this rank its kept slots were routed to,
+    as tensors on the device (no host read until :meth:`summary`)."""
+
+    def __init__(self, cfg, layout):
+        from ..models import model as TM
+        self.tm, self.calls = TM, []
+        self.moe = TM.moe_ffn
+        self.local = layout.local("experts", cfg.moe.n_experts) \
+            if cfg.moe else None
+        self.k = cfg.moe.top_k if cfg.moe else 0
+
+    def __enter__(self):
+        def noted(*args, **kw):
+            y, aux = self.moe(*args, **kw)
+            self.calls.append((aux["dropped_frac"], aux["idx"]))
+            return y, aux
+        self.tm.moe_ffn = noted
+        return self
+
+    def __exit__(self, *exc):
+        self.tm.moe_ffn = self.moe
+
+    def summary(self, n_prefill: int) -> Dict[str, float]:
+        """Of the first ``n_prefill`` calls (the prefill's) the largest
+        ``dropped_frac`` and the kept slots' share of this rank's experts
+        an average token reaches; of the rest (decode steps) the share of
+        this rank's experts hit a call."""
+        if not self.calls:
+            return {}
+        lo, hi = self.local.start, self.local.stop
+        n_local = hi - lo
+        drops = [float(d) for d, _ in self.calls]
+        hit, slots = [], []
+        for j, (d, idx) in enumerate(self.calls):
+            mine = (idx >= lo) & (idx < hi)
+            if j < n_prefill:
+                # kept slots on this rank's experts, over E x tokens: the
+                # share of the experts' products a token's k slots need
+                slots.append(float(mine.sum()) * (1 - drops[j])
+                             / (idx.shape[0] * n_local))
+            else:
+                hit.append(len(torch.unique(idx[mine])) / n_local)
+        return {"dropped_frac_max": max(drops),
+                "prefill_slots": float(np.mean(slots)) if slots else 0.0,
+                "decode_hit": float(np.mean(hit)) if hit else 0.0}
 
 
 def worker(spec: dict, out: Path) -> None:
@@ -170,7 +293,8 @@ def worker(spec: dict, out: Path) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
         batch, prompt, gen = spec["batch"], spec["prompt"], spec["gen"]
         t0 = time.perf_counter()
-        r = LS.run(cfg, batch, prompt, gen, device=dev, seed=0, mesh=pm)
+        r = LS.run(cfg, batch, prompt, gen, device=dev, seed=0, mesh=pm,
+                   max_len=spec["max_len"])
         cold_s = time.perf_counter() - t0
         layout = r.model.layout
 
@@ -180,21 +304,25 @@ def worker(spec: dict, out: Path) -> None:
         caches = init_caches(cfg, batch, r.max_len, dev, layout)
         if spec["dtype"] == "float32":
             caches = _f32_caches(caches)
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        logits, caches = prefill(r.model, r.batch, caches)
-        pre = logits[:, -1].float()
-        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-        torch.cuda.synchronize(dev)
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        toks, first = [tok], None
-        t0 = time.perf_counter()
-        for i in range(gen - 1):
-            tok, logits, caches = decode(r.model, tok, prompt + i, caches)
-            first = logits[:, -1].float() if first is None else first
-            toks.append(tok)
-        torch.cuda.synchronize(dev)
-        decode_ms = (time.perf_counter() - t0) * 1e3 / (gen - 1)
+        n_moe = sum(f == "moe" for _, f in cfg.layer_specs)
+        with _Routing(cfg, layout) as routing:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            logits, caches = prefill(r.model, r.batch, caches)
+            pre = logits[:, -1].float()
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            torch.cuda.synchronize(dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            toks, first = [tok], None
+            t0 = time.perf_counter()
+            for i in range(gen - 1):
+                tok, logits, caches = decode(r.model, tok, prompt + i,
+                                             caches)
+                first = logits[:, -1].float() if first is None else first
+                toks.append(tok)
+            torch.cuda.synchronize(dev)
+            decode_ms = (time.perf_counter() - t0) * 1e3 / (gen - 1)
+        routed = routing.summary(n_moe)
 
         act = [torch.profiler.ProfilerActivity.CPU,
                torch.profiler.ProfilerActivity.CUDA]
@@ -212,11 +340,19 @@ def worker(spec: dict, out: Path) -> None:
                        for e in prof.key_averages()
                        if e.self_cpu_time_total > 0),
                       key=lambda row: -row[1])[:8]
-        decode_bound, prefill_bound, weight_bytes, flops = _bounds(
-            r.model, cfg, layout, batch, prompt, r.max_len)
+        decode_bound, prefill_bound, step_bytes, flops = _bounds(
+            r.model, cfg, layout, batch, prompt, gen, r.max_len, routed)
+        launches = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for n, p in r.model.named_parameters()
+                           if n != "embed" or cfg.tie_embeddings)
         res = dict(
             rank=pm.rank, coords=list(pm.coords), device=str(dev),
             backend=pm.backend, split=sorted(layout.split),
+            layout=layout.report(), max_len=r.max_len,
+            launches_per_step=launches / PROFILE_STEPS,
+            step_bound_gb=step_bytes / 1e9, **routed,
             rows=[layout.rows(batch).start, layout.rows(batch).stop],
             params=sum(p.numel() for p in r.model.parameters()),
             step_read_gb=weight_bytes / 1e9, prefill_tflop=flops / 1e12,
@@ -315,12 +451,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                 continue
             n_periods, prompt, gen = run.n_periods, run.prompt, run.gen
             if args.quick:
-                n_periods = min(n_periods or QUICK[1], QUICK[0]
-                                if n_periods else QUICK[1])
-                prompt, gen = QUICK[2], QUICK[3]
+                n_periods, prompt, gen = QUICK
             spec = dict(name=run.name, arch=run.arch, n_periods=n_periods,
                         mesh=list(run.mesh), dtype=run.dtype,
-                        batch=run.batch, prompt=prompt, gen=gen)
+                        batch=run.batch, prompt=prompt, gen=gen,
+                        seq=run.seq, max_len=run.max_len)
             t0 = time.perf_counter()
             ranks = run_ranks(
                 ["-m", "repro_torch.tools.tp_serve", "--worker",

@@ -69,12 +69,12 @@ def both_models(arch, **kw):
     return cj, ct, m, load(jax_flat(m.params), ct)
 
 
-def prompts(cfg, seed=0):
-    """(JAX batch, torch batch): S positions, the VLM's patches first; the
-    encoder-decoder's frames (B, enc_seq, 128) after the tokens."""
+def prompts(cfg, seed=0, s=S):
+    """(JAX batch, torch batch): ``s`` positions, the VLM's patches first;
+    the encoder-decoder's frames (B, enc_seq, 128) after the tokens."""
     rng = np.random.default_rng(seed)
     nv = cfg.n_patches if cfg.frontend == "vision" else 0
-    toks = rng.integers(0, cfg.vocab, (B, S - nv)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab, (B, s - nv)).astype(np.int32)
     bj, bt = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
     if nv:
         p = rng.normal(0, 1, (B, nv, 1024)).astype(np.float32)

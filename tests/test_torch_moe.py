@@ -187,8 +187,8 @@ def test_model_routing_matches_repro(arch, monkeypatch):
     got, exp = [], []
     tm_moe, rm_moe = TM.moe_ffn, RM.moe_ffn
 
-    def torch_moe(p, cfg, x):
-        y, aux = tm_moe(p, cfg, x)
+    def torch_moe(p, cfg, x, layout=None):
+        y, aux = tm_moe(p, cfg, x, layout)
         got.append((aux["idx"].numpy(), float(aux["dropped_frac"])))
         return y, aux
 

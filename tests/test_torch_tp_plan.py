@@ -185,21 +185,150 @@ def test_layout_rows_heads_and_caches():
 
 @pytest.mark.parametrize("arch", NOT_SPLIT)
 def test_families_not_split_raise_a15b(arch):
-    """MLA, SSD, MoE and the encoder raise over a model axis, and are never
-    replicated in silence; over the data axis alone they serve."""
+    """MLA, SSD, MoE and the encoder split over a model axis (they raised
+    before they were ported): every layout of the smoke config on
+    ``(1, 2)``, ``(1, 4)`` and ``(2, 2)`` cuts ``heads``, ``mlp`` and
+    ``vocab`` and holds nothing whole; over the data axis alone they
+    serve whole."""
     ct = TC.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        TP.shard_layout(ct, duck_mesh(1, 2), 0, 2)
+    for data, model in ((1, 2), (1, 4), (2, 2)):
+        for rank in range(data * model):
+            lay = TP.shard_layout(ct, duck_mesh(data, model), rank, 2)
+            assert {"heads", "mlp", "vocab"} <= lay.split
+            assert lay.whole == frozenset() and not lay.kv_seq
+            if ct.moe is not None:
+                assert "experts" in lay.split
     lay = TP.shard_layout(ct, duck_mesh(2, 1), 1, 2)
     assert lay.model == 1 and lay.rows(2) == slice(1, 2)
+    assert lay.split == frozenset()
 
 
 def test_kv_seq_rule_raises_a15b():
+    """The ``kv_seq`` rule (it raised before it was ported) holds in a
+    decode layout over a model axis: each rank's run of the cache length
+    (``ceil(n / model)``, the last run cut short), for every kv head; a
+    prefill layout has no such rule, nor a layout of one model rank."""
     ct = dataclasses.replace(TC.get_smoke_config("llama3-8b"),
                              decode_kv_shard="seq")
-    with pytest.raises(NotImplementedError, match="kv_seq.*A15b"):
-        TP.shard_layout(ct, duck_mesh(1, 2), 0, 2, kind="decode")
-    TP.shard_layout(ct, duck_mesh(1, 2), 0, 2, kind="prefill")
+    runs = []
+    for rank in range(4):
+        lay = TP.shard_layout(ct, duck_mesh(1, 4), rank, 2, kind="decode")
+        assert lay.kv_seq and "kv_seq" in lay.report()
+        runs.append(lay.seq_range(62))
+        caches = TM.init_caches(ct, 2, 62, device="cpu", layout=lay)
+        assert tuple(caches[0].k.shape) == (2, 16, ct.n_kv_heads,
+                                            ct.head_dim)
+    assert runs == [slice(0, 16), slice(16, 32), slice(32, 48),
+                    slice(48, 62)]
+    assert not TP.shard_layout(ct, duck_mesh(1, 2), 0, 2,
+                               kind="prefill").kv_seq
+    assert not TP.shard_layout(ct, duck_mesh(2, 1), 0, 2).kv_seq
+
+
+def test_kv_seq_cache_update_writes_owned_positions():
+    """``cache_update`` with an offset writes only the new positions of
+    the run it holds."""
+    from repro_torch.models.attention import cache_update, init_kv_cache
+    k = torch.arange(2 * 6 * 1 * 2, dtype=torch.float32).reshape(2, 6, 1, 2)
+    for offset, lo, hi in ((0, 3, 4), (4, 4, 8), (8, 8, 9), (12, 0, 0)):
+        cache = init_kv_cache(2, 4, 1, 2, device="cpu")
+        cache = cache_update(cache, k, -k, 3, offset)
+        assert cache.length == 6
+        want = torch.zeros(2, 4, 1, 2)
+        if hi > lo:
+            want[:, lo - offset:hi - offset] = k[:, lo - 3:hi - 3]
+        assert torch.equal(cache.k.float(), want), offset
+        assert torch.equal(cache.v.float(), -want), offset
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_ssd_segment_cuts(arch):
+    """An SSD's ``w_in`` is cut by segments: each rank holds its heads'
+    ``z``, ``x`` and ``dt`` columns and all of ``B`` and ``C``; its conv
+    its ``x`` channels and all of ``B`` and ``C``; its ``a_log``,
+    ``dt_bias``, ``d_skip``, ``out_norm`` and ``w_out`` its heads'. The
+    three ways to a rank's weights agree, and the parts give the whole
+    back."""
+    ct = dataclasses.replace(TC.get_smoke_config(arch),
+                             param_dtype="float32")
+    s = ct.ssm
+    di, n = s.expand * ct.d_model, s.d_state
+    nh = di // s.head_dim
+    whole = TM.init_params(torch.Generator().manual_seed(3), ct,
+                           device="cpu")
+    flat = to_flat(whole)
+    name = next(k for k in whole.specs() if k.endswith("ssm.w_in"))
+    pre = name[:-len("w_in")]
+    for model in (2, 4):
+        parts = []
+        for rank in range(model):
+            lay = TP.shard_layout(ct, duck_mesh(1, model), rank, 2)
+            sh = TM.init_sharded(torch.Generator().manual_seed(3), ct, lay,
+                                 device="cpu")
+            for other in (TM.shard_model(whole, lay),
+                          params_from_jax(flat, ct, device="cpu",
+                                          layout=lay)):
+                for key, p in sh.named_parameters():
+                    assert torch.equal(other.get_parameter(key), p), key
+            parts.append(sh)
+        k, h = di // model, nh // model
+        w_in = whole.get_parameter(name)
+        z, x, b, c, dt = torch.split(w_in, [di, di, n, n, nh], dim=1)
+        for r, sh in enumerate(parts):
+            got = sh.get_parameter(name)
+            assert tuple(got.shape) == (ct.d_model, 2 * k + 2 * n + h)
+            want = torch.cat([z[:, r * k:(r + 1) * k], x[:, r * k:(r + 1) * k],
+                              b, c, dt[:, r * h:(r + 1) * h]], dim=1)
+            assert torch.equal(got, want)
+            conv = whole.get_parameter(pre + "conv_w")
+            assert torch.equal(sh.get_parameter(pre + "conv_w"), torch.cat(
+                [conv[:, r * k:(r + 1) * k], conv[:, di:]], dim=1))
+        for leaf, dim in (("a_log", 0), ("out_norm", 0), ("w_out", 0)):
+            assert torch.equal(torch.cat([sh.get_parameter(pre + leaf)
+                                          for sh in parts], dim),
+                               whole.get_parameter(pre + leaf))
+
+
+def test_ssd_held_whole_where_the_audit_demotes_heads():
+    """jamba-smoke on ``model=8``: its 4 attention heads do not divide 8,
+    so the audit demotes ``heads`` and keeps ``mlp``; its SSD is then
+    held whole on every rank (named in the layout's report), and its 4
+    experts, demoted too, leave the MoE cut over ``mlp``: every rank
+    holds every expert's ``mlp`` columns (the plan alone, no
+    processes)."""
+    ct = TC.get_smoke_config("jamba-v0.1-52b")
+    lay = TP.shard_layout(ct, duck_mesh(1, 8), 5, 2)
+    assert lay.split == {"mlp", "vocab"}
+    assert lay.whole == {"SSD"} and "whole=['SSD']" in lay.report()
+    sh = TM.abstract_params(ct, layout=lay)
+    whole = TM.abstract_params(ct)
+    for key, p in sh.named_parameters():
+        if ".ssm." in key or ".attn." in key:
+            assert p.shape == whole.get_parameter(key).shape, key
+    moe = next(k for k in whole.specs() if k.endswith("ffn.w_gate")
+               and whole.get_parameter(k).dim() == 3)
+    e, d, f = whole.get_parameter(moe).shape
+    assert tuple(sh.get_parameter(moe).shape) == (e, d, f // 8)
+    caches = TM.init_caches(ct, 2, 16, device="cpu", layout=lay)
+    ssm = next(c for c in caches if type(c).__name__ == "SSMCache")
+    di = ct.ssm.expand * ct.d_model
+    assert ssm.conv.shape[-1] == di + 2 * ct.ssm.d_state
+
+
+def test_whisper_vocab_kept_whole():
+    """whisper-base's vocabulary of 51,865 divides neither 2 nor 4: the
+    audit keeps it whole (embedding and logits on every rank), as the
+    reference's audit does, and splits the rest."""
+    cj, ct = both("whisper-base", "full")
+    for model in (2, 4):
+        mesh = duck_mesh(1, model)
+        lay = TP.shard_layout(ct, mesh, 0, 2)
+        assert "vocab" not in lay.split
+        assert {"heads", "kv_heads", "mlp"} <= lay.split
+        pj = RP.param_rules(RP.rules_for(cj, mesh, "decode", 2), cj, mesh)
+        assert not pj["vocab"]
+        sh = TM.abstract_params(ct, layout=lay)
+        assert tuple(sh.embed.shape) == (51865, ct.d_model)
 
 
 def test_one_model_rank_runs_no_collective():
