@@ -204,7 +204,26 @@ otherwise. Phases, each of which exits non-zero on failure:
    equal where the unsharded run's margin is clear. Prints the backend,
    the cards, what each layout splits, each rank's draw and serve times
    and peak memory, the differences in bf16 ulps and the MoE layers'
-   largest ``dropped_frac``.
+   largest ``dropped_frac``;
+16. training across ranks (``dist.plan.grad_classes``,
+   ``train.step.exchange_grads``, ``train.checkpoint``,
+   ``train.step.make_pipelined_forward``), two processes on the card
+   over gloo (``launch.mesh.run_ranks``; NCCL refuses two ranks on one
+   card): 16a each arch's smoke config in f32 (TF32 off) over model=2 and
+   16b llama3-8b's and deepseek-v2's (capacity 0.5, 96 positions a row:
+   experts overflow) over data=2, each rank drawing its slice of the
+   same weights and its rows of the same batch, one ``make_train_step``
+   step held against the unsplit run on the card: the loss, every joined
+   gradient (normwise), the grad norm, the joined moments and parameters
+   after the step, each MoE layer call's routing and ``dropped_frac``;
+   what the ranks hold whole (16b: everything) bit-identical on both;
+   16c ``python -m repro_torch.launch.train --mesh model=2`` with
+   checkpoints every 2 steps, its last removed, then ``--resume auto``
+   over ``--mesh data=2``: steps 2-3 rerun from the step-2 checkpoint,
+   losses within ``RESUME_RTOL``; 16d the pipelined forward over 2
+   stages against the whole forward on the card. Prints each case's
+   largest differences and the phase's seconds. No kernel of the port
+   lies on these paths.
 
 ``launches`` in the kernel record counts phase 4's paths, phase 7's
 stream, phase 8b's mesh decodes, phase 12's requests and phase 14c's steps, and for the seeds
@@ -1560,12 +1579,12 @@ def train_launcher(args, gpu) -> None:
     saved, restored = {}, {}
     save, restore = LT.save_checkpoint, LT.restore_checkpoint
 
-    def saving(d, step, tree):
+    def saving(d, step, tree, *args, **kw):
         saved[step] = host(tree)
-        return save(d, step, tree)
+        return save(d, step, tree, *args, **kw)
 
-    def restoring(d, step, target):
-        out = restore(d, step, target)
+    def restoring(d, step, target, *args, **kw):
+        out = restore(d, step, target, *args, **kw)
         restored[step] = host(out)  # the run then updates it in place
         return out
 
@@ -1606,44 +1625,6 @@ def train_launcher(args, gpu) -> None:
     del first, again, saved, restored
 
 
-def train_memory(model, cfg, batch, seq, moment_bytes):
-    """Bytes a train step holds at its peak, reckoned from the shapes:
-    (parameters, gradients, moments, the block inputs remat keeps, one
-    layer's recompute and backward, the f32 logits with the loss and its
-    gradient). Under remat a layer's attention keeps three f32 score
-    blocks a (query chunk, key chunk) pair: the masked scores (``amax``'s
-    input), their ``exp`` and its masked copy (the value product's
-    input)."""
-    n = sum(p.numel() for p in model.parameters())
-    qc, kc = cfg.attn_chunk // 2, cfg.attn_chunk
-    pairs = -(-seq // qc) * -(-seq // kc)
-    block = batch * qc * cfg.n_heads * kc * 4
-    return {"parameters": 2 * n, "gradients": 2 * n,
-            "moments": 2 * moment_bytes * n,
-            "block inputs": cfg.n_layers * batch * seq * cfg.d_model * 2,
-            "one layer's recompute": 3 * block * pairs,
-            "logits": 3 * batch * seq * cfg.vocab * 4}
-
-
-def train_flops(model, cfg, batch, seq):
-    """(bf16, f32) FLOP of one train step, reckoned as ``family_flops``
-    reckons a prefill: each block's products 2 x parameters a position
-    for the forward, again for the remat forward and 4 x for the
-    backward; the head's and the projector's 6 x (no remat); the
-    attention's f32 scores and values over every (query chunk, key
-    chunk) pair, padded, forward, recompute and backward (2 x)."""
-    blk = sum(p.numel() for p in model.blocks.parameters())
-    vis = model.vis_proj1.numel() + model.vis_proj2.numel()
-    head = model.lm_head.numel()
-    t = batch * seq
-    bf16 = 8 * blk * t + 6 * head * t + 6 * vis * batch * cfg.n_patches
-    qc, kc = cfg.attn_chunk // 2, cfg.attn_chunk
-    sq, sk = -(-seq // qc) * qc, -(-seq // kc) * kc
-    f32 = 4 * (2 * 2 * batch * sq * cfg.n_heads * sk * cfg.head_dim) \
-        * cfg.n_layers
-    return bf16, f32
-
-
 def train_vlm(args, gpu, card, counters, kernels) -> None:
     """Phase 14c: llava-next-mistral-7b at full width trained on patches
     from ``JpegVisionPipeline`` on the card (B1, B2, B4);
@@ -1656,6 +1637,8 @@ def train_vlm(args, gpu, card, counters, kernels) -> None:
     from repro_torch.jpeg.encoder import DatasetSpec, build_dataset
     from repro_torch.models import model as TM
     from repro_torch.train import step as TS
+    from repro_torch.dist.plan import ShardLayout
+    from repro_torch.tools.tp_train import reckon, step_flops
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 
     gc.collect()
@@ -1674,7 +1657,7 @@ def train_vlm(args, gpu, card, counters, kernels) -> None:
     n_params = sum(p.numel() for p in model.parameters())
     check(len(model.blocks) == cfg.n_layers == 32 and cfg.d_model == 4096,
           "phase 14c: the model is not the full-width one")
-    mem = train_memory(model, cfg, bsz, seq, moment_bytes=2)
+    mem = reckon(cfg, ShardLayout(), bsz, seq, moment_bytes=2)
     predicted = sum(mem.values()) / 1e9
     print(f"[train] llava-next-mistral-7b full width, batch {bsz} x {seq} "
           f"positions: memory reckoned from the shapes " + ", ".join(
@@ -1775,7 +1758,7 @@ def train_vlm(args, gpu, card, counters, kernels) -> None:
         rec["launches"] += launches.get(rec["name"], 0)
 
     warm = rows[VLM_TRAIN_STEPS - 2]
-    bf16_flop, f32_flop = train_flops(model, cfg, bsz, seq)
+    bf16_flop, f32_flop = step_flops(model, cfg, ShardLayout(), bsz, seq)
     bound_ms = (bf16_flop / BF16_FLOP_PER_S + f32_flop / F32_FLOP_PER_S) * 1e3
     # the profiled step's busy time over the warm step's unprofiled wall
     # (the profiler's own host cost stretches the profiled step's wall)
@@ -1843,7 +1826,7 @@ TP_FAMILY_ARCH, TP_FAMILY_PERIODS = "jamba-v0.1-52b", 1
 TP_FULL = {"15b": (TP_ARCH, TP_PERIODS, "bfloat16"),
            "15d": (TP_FAMILY_ARCH, TP_FAMILY_PERIODS, "float32")}
 TP_BATCH, TP_PROMPT, TP_SMOKE_PROMPT, TP_STEPS = 2, 128, 24, 4
-TP_RANKS = 2
+TP_RANKS = TT_RANKS = 2
 TP_TIMEOUT_S = 300
 # 15b's and 15d's logits against the unsharded run's, by step: the norm
 # of the difference over the norm of the logits. Element by element the
@@ -2139,6 +2122,370 @@ def serve_across_ranks(args, gpu) -> None:
           flush=True)
 
 
+# -- phase 16: training across ranks ---------------------------------------
+
+# 16a: each arch's smoke config in f32 (TF32 off) over model=2; 16b
+# llama3-8b's and deepseek-v2's over data=2, deepseek-v2's with capacity
+# factor 0.5 and 96 positions a row so that experts overflow; a batch of
+# TT_BATCH rows, one make_train_step step (lr TT_LR, constant schedule).
+# Held against the unsplit run on the card: the loss within rtol 1e-5,
+# each joined gradient normwise within TT_NORM (the archs of TT_NORM_LOOSE
+# looser), the grad norm within the same share, mu and nu within 2 and 4
+# times it, the parameters within 2 x lr (TRAIN_STEP_ATOL's reason). The
+# CPU tests (tests/_torch_tp_train.py) measured the split's own rounding
+# at up to 7.4e-5 normwise (jamba 7.2e-4, deepseek-v3 3.6e-4, whisper
+# 3.3e-4, llava 1.9e-4): random-init smoke models move by 1e-4-2e-3 under
+# an ulp's change of their weights
+TT_BATCH, TT_SEQ, TT_LR = 2, 24, 1e-3
+TT_DROP = (("deepseek-v2-236b", 0.5, 96),)
+TT_NORM = 2e-4
+TT_NORM_LOOSE = {"jamba-v0.1-52b": 4e-3, "deepseek-v3-671b": 2e-3,
+                 "whisper-base": 2e-3, "llava-next-mistral-7b": 1.2e-3}
+# 16c: the launcher as users run it, 4 steps over --mesh model=2 saving
+# every 2, its step-4 checkpoint removed, then --resume auto over --mesh
+# data=2 (bf16 smoke: the resumed losses within RESUME_RTOL)
+TT_ARGV = ["-m", "repro_torch.launch.train", "--arch", "llama3-8b",
+           "--smoke", "--steps", "4", "--batch", "4", "--seq", "64",
+           "--save-every", "2", "--log-every", "1", "--dist-backend",
+           "gloo"]
+# 16d: llama3-8b's smoke config with 2 periods in f32 over 2 stages, 8
+# rows in 4 microbatches, against the whole forward on the card: within
+# this share of the largest |logit|
+TT_PIPE = (2, 8, 24, 4)
+TT_PIPE_TOL = 1e-4
+TT_TIMEOUT_S = 300
+
+
+def tt_cases(seed):
+    """(name, config, arrays, data split) of phase 16a and 16b: each
+    arch's smoke config in f32 over model=2, then llama3-8b's and the
+    MoE drop case over data=2; ``TT_BATCH`` rows, row 0's first 3 labels
+    masked, patches and frames drawn from ``seed``."""
+    import dataclasses
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def case(name, arch, seq, split, **moe):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  param_dtype="float32")
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, **moe))
+        nv = cfg.n_patches if cfg.frontend == "vision" else 0
+        toks = rng.integers(0, cfg.vocab, (TT_BATCH, seq - nv + 1))
+        labels = toks[:, 1:].copy()
+        labels[0, :3] = -100
+        arrays = {"tokens": toks[:, :-1].astype(np.int32),
+                  "labels": labels.astype(np.int32)}
+        if nv:
+            arrays["patches"] = rng.normal(0, 1, (TT_BATCH, nv, 1024))
+        if cfg.is_encdec:
+            arrays["frames"] = rng.normal(0, 1, (TT_BATCH, cfg.enc_seq, 128))
+        cases.append((name, cfg, arrays, split))
+
+    for arch in ARCH_IDS:
+        case(arch, arch, TT_SEQ, False)
+    case("llama3-8b d2", "llama3-8b", TT_SEQ, True)
+    for arch, factor, seq in TT_DROP:
+        case(f"{arch} drops d2", arch, seq, True, capacity_factor=factor)
+    return cases
+
+
+def tt_batch(arrays, rows, device):
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
+        device, torch.bfloat16 if k in ("patches", "frames") else None)
+        for k, v in arrays.items()}
+
+
+def tt_run(model, cfg, batch):
+    """Of ``model`` (a rank's slice or the whole) on ``batch``: the loss of
+    a forward without gradients and each MoE layer call's routing, then
+    one ``make_train_step`` step: its loss and grad norm, each gradient
+    as the step's exchange completed it, every parameter and moment after
+    it; on the host."""
+    from repro_torch.models import model as TM
+    from repro_torch.train import step as TS
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    records, restore = moe_recorder()
+    try:
+        with torch.no_grad():
+            _, metrics = TM.forward_train(model, batch)
+        routing = list(records)
+    finally:
+        restore()
+    noted, exchange = {}, TS.exchange_grads
+
+    def noting(grads, classes, layout):
+        exchange(grads, classes, layout)
+        noted.update({k: g.detach().float().cpu() for k, g in grads.items()})
+
+    opt = AdamWConfig(lr=TT_LR)
+    params = dict(model.named_parameters())
+    state = init_opt_state(params, opt)
+    TS.exchange_grads = noting
+    try:
+        _, state, m = TS.make_train_step(cfg, opt, schedule="constant")(
+            model, state, batch)
+    finally:
+        TS.exchange_grads = exchange
+
+    def host(tree):
+        return {k: v.detach().float().cpu() for k, v in tree.items()}
+    return dict(loss=float(metrics["loss"]), step_loss=float(m["loss"]),
+                gnorm=float(m["grad_norm"]), routing=routing, grad=noted,
+                param=host(params), mu=host(state.mu), nu=host(state.nu))
+
+
+def tt_worker(args) -> None:
+    """One rank of phase 16 (``--tt-dir``, started by
+    ``launch.mesh.run_ranks``): each case of ``tt_cases`` on its slice
+    (model=2) or its rows (data=2) of the same weights, then its stage of
+    the pipelined forward; its results saved for the parent."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import (ProcessMesh, init_process_mesh,
+                                         shutdown_process_mesh)
+    from repro_torch.models.model import init_params, init_sharded
+    from repro_torch.train.step import (make_pipelined_forward, stage_model,
+                                        train_rows)
+    work = Path(args.tt_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pm = init_process_mesh(1, TT_RANKS, "gloo", "cuda",
+                           timeout_s=TT_TIMEOUT_S)
+    try:
+        # the same ranks as a data=2 mesh: the world is its data group
+        dm = ProcessMesh(TT_RANKS, 1, pm.rank, pm.device, pm.backend, None,
+                         dist.group.WORLD)
+        out = {}
+        for name, cfg, arrays, split in tt_cases(args.seed):
+            layout = (dm if split else pm).layout(cfg, TT_BATCH, "train")
+            model = init_sharded(torch.Generator(device=pm.device)
+                                 .manual_seed(args.seed), cfg, layout,
+                                 pm.device)
+            out[name] = tt_run(model, cfg, tt_batch(
+                arrays, train_rows(layout, TT_BATCH), pm.device))
+            out[name]["split"] = sorted(layout.split)
+            del model
+        periods, b, seq, micro = TT_PIPE
+        cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                                  n_periods=periods, remat="none",
+                                  dtype="float32", param_dtype="float32")
+        whole = init_params(torch.Generator(device=pm.device).manual_seed(
+            args.seed), cfg, device=pm.device)
+        tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, (b, seq)).astype(np.int32)).to(pm.device)
+        out["pipeline"] = make_pipelined_forward(cfg, TT_RANKS)(
+            stage_model(whole, TT_RANKS, pm.rank), {"tokens": tokens},
+            micro).cpu()
+        torch.save(out, work / f"rank{pm.rank}.pt")
+        print("RESULT " + json.dumps(dict(rank=pm.rank,
+                                          device=str(pm.device),
+                                          backend=pm.backend)), flush=True)
+    finally:
+        shutdown_process_mesh(pm)
+
+
+def tt_join(cfg, parts, mesh, prefix):
+    """Each parameter of the ranks' ``prefix`` arrays (a model group's:
+    ``parts`` by model rank) joined whole: a cut one's runs put in place
+    (a run held whole from the first rank), a whole one the first
+    rank's."""
+    from repro_torch.dist.plan import CUT, grad_classes, shard_layout
+    from repro_torch.models.model import abstract_params
+    out = {}
+    models = [abstract_params(cfg, layout=shard_layout(
+        cfg, mesh, r, TT_BATCH, "train")) for r in range(len(parts))]
+    classes = [grad_classes(m) for m in models]
+    for name, c0 in classes[0].items():
+        if c0.kind != CUT:
+            out[name] = parts[0][prefix][name]
+            continue
+        whole = torch.zeros(models[0].whole_shape(name))
+        for r, part in enumerate(parts):
+            c = classes[r][name]
+            for (start, n), (at, _, held) in zip(c.cut.pieces, c.runs):
+                if not held or r == 0:
+                    whole.narrow(c.cut.dim, start, n).copy_(
+                        part[prefix][name].narrow(c.cut.dim, at, n))
+        out[name] = whole
+    return out
+
+
+def train_across_ranks(args, gpu) -> None:
+    """Phase 16: each case of ``tt_cases`` unsplit on the card (one step,
+    its results kept on the host), then by two processes on the card over
+    gloo (``launch.mesh.run_ranks``; NCCL refuses two ranks on one card):
+    16a over model=2, 16b over data=2, 16d the pipelined forward over 2
+    stages; then 16c the launcher over model=2, resumed over data=2."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist.plan import WHOLE, grad_classes, shard_layout
+    from repro_torch.launch.mesh import ProcessMesh, run_ranks
+    from repro_torch.models import model as TM
+    from repro_torch.models.model import abstract_params, init_params
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs, cases = {}, tt_cases(args.seed)
+    for name, cfg, arrays, _ in cases:
+        model = init_params(torch.Generator(device=gpu).manual_seed(
+            args.seed), cfg, device=gpu)
+        refs[name] = tt_run(model, cfg, tt_batch(arrays, slice(None), gpu))
+        del model
+    periods, b, seq, micro = TT_PIPE
+    pcfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                               n_periods=periods, remat="none",
+                               dtype="float32", param_dtype="float32")
+    whole = init_params(torch.Generator(device=gpu).manual_seed(args.seed),
+                        pcfg, device=gpu)
+    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, pcfg.vocab, (b, seq)).astype(np.int32)).to(gpu)
+    with torch.no_grad():
+        h, _ = TM._run_stack(whole, TM._embed_inputs(whole, {
+            "tokens": tokens}), torch.arange(seq, device=gpu)[None].expand(
+            b, seq))
+        plain = TM._logits(whole, h).cpu()
+    del whole
+    with tempfile.TemporaryDirectory() as work:
+        ranks = run_ranks([str(Path(__file__).resolve()), "--tt-dir", work,
+                           "--seed", str(args.seed)], TT_RANKS, TT_TIMEOUT_S)
+        for r, (rc, log) in enumerate(ranks):
+            if rc != 0 or "RESULT " not in log:
+                print(log[-4000:])
+                fail(f"phase 16: rank {r} exited {rc}")
+        got = [torch.load(Path(work) / f"rank{r}.pt")
+               for r in range(TT_RANKS)]
+    lines = {"16a": [], "16b": []}
+    for name, cfg, _, split in cases:
+        ref, parts = refs[name], [g[name] for g in got]
+        what = f"phase 16 {name}"
+        # the mesh's shape, as dist.plan reads it
+        mesh = ProcessMesh(TT_RANKS, 1, 0, gpu) if split \
+            else ProcessMesh(1, TT_RANKS, 0, gpu)
+        limit = TT_NORM_LOOSE.get(name.split()[0], TT_NORM)
+        n = TT_BATCH // TT_RANKS if split else TT_BATCH
+        for r, part in enumerate(parts):
+            lo = r * n if split else 0
+            check(abs(part["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"])
+                  and abs(part["step_loss"] - ref["step_loss"])
+                  <= 1e-5 * abs(ref["loss"]),
+                  f"{what}: rank {r} loss {part['loss']}, unsplit "
+                  f"{ref['loss']}")
+            check(abs(part["gnorm"] - ref["gnorm"]) <= limit * ref["gnorm"],
+                  f"{what}: rank {r} grad norm {part['gnorm']}, unsplit "
+                  f"{ref['gnorm']}")
+            # each MoE layer call: this rank's tokens' experts, the
+            # global batch's dropped_frac
+            check(len(part["routing"]) == len(ref["routing"]) and all(
+                torch.equal(got_idx, idx.reshape(TT_BATCH, -1, idx.shape[-1])
+                            [lo:lo + n].reshape(got_idx.shape))
+                and abs(got_drop - drop) <= 1e-7
+                for (got_idx, got_drop), (idx, drop)
+                in zip(part["routing"], ref["routing"])),
+                f"{what}: rank {r} routes differently from the unsplit run")
+        worst = {}
+        joined = parts[0] if split else {
+            p: tt_join(cfg, parts, mesh, p)
+            for p in ("grad", "param", "mu", "nu")}
+        for prefix, factor in (("grad", 1), ("mu", 2), ("nu", 4)):
+            for k, exp in ref[prefix].items():
+                den = float(torch.linalg.vector_norm(exp))
+                gap = float(torch.linalg.vector_norm(joined[prefix][k] - exp)
+                            ) / (den if den else 1.0)
+                worst[prefix] = max(worst.get(prefix, 0.0), gap)
+                check(gap <= factor * limit, f"{what}: {prefix} of {k} "
+                      f"differs from the unsplit run's by {gap:.3g} "
+                      f"normwise")
+        step_gap = max(float((joined["param"][k] - v).abs().max())
+                       for k, v in ref["param"].items())
+        check(step_gap <= TRAIN_STEP_ATOL, f"{what}: a parameter after the "
+              f"step differs by {step_gap}")
+        # what the ranks hold whole is the same on both, bit for bit; over
+        # data=2 every leaf is
+        classes = grad_classes(abstract_params(cfg, layout=shard_layout(
+            cfg, mesh, 0, TT_BATCH, "train")))
+        for k, c in classes.items():
+            for prefix in ("param", "mu", "nu", "grad"):
+                if split or c.kind != "cut":
+                    same = torch.equal(parts[0][prefix][k],
+                                       parts[1][prefix][k])
+                else:
+                    same = all(torch.equal(
+                        parts[0][prefix][k].narrow(c.cut.dim, at, n),
+                        parts[1][prefix][k].narrow(c.cut.dim, at, n))
+                        for at, n in c.whole_runs)
+                check(same, f"{what}: the ranks' {prefix} of {k} differ")
+        n_whole = sum(c.kind == WHOLE for c in classes.values())
+        drops = max((d for _, d in ref["routing"]), default=0.0)
+        lines["16b" if split else "16a"].append(
+            f"{name} grad {worst['grad']:.2g} mu {worst['mu']:.2g} nu "
+            f"{worst['nu']:.2g} (limit {limit:g}), params within "
+            f"{step_gap:.2g}" + (f", max dropped_frac {drops:.3f}"
+                                 if ref["routing"] else ""))
+        if not split:
+            check(n_whole < len(classes), f"{what}: nothing is cut")
+    print(f"[tt] phase 16a: the ten archs' smoke configs in f32 over "
+          f"model={TT_RANKS} (gloo on {gpu}), one train step against the "
+          f"unsplit run on the card: losses within rtol 1e-5, grad norms, "
+          f"routing equal, parts held whole bit-identical on both ranks; "
+          f"largest normwise differences: " + "; ".join(lines["16a"]),
+          flush=True)
+    print(f"[tt] phase 16b: over data={TT_RANKS}, both replicas "
+          f"bit-identical: " + "; ".join(lines["16b"]), flush=True)
+    pipe = got[0]["pipeline"]
+    top = float(plain.abs().max())
+    gap = float((pipe - plain).abs().max())
+    check(torch.equal(pipe, got[1]["pipeline"]) and gap <= TT_PIPE_TOL * top,
+          f"phase 16d: the pipelined forward differs from the whole one by "
+          f"{gap} (largest |logit| {top})")
+    print(f"[tt] phase 16d: make_pipelined_forward over {TT_RANKS} stages "
+          f"({periods} periods of llama3-8b's smoke config in f32, {b} rows "
+          f"of {seq} in {micro} microbatches): both stages' logits equal, "
+          f"within {gap:.3g} of the whole forward's (largest |logit| "
+          f"{top:.4g}, limit {TT_PIPE_TOL} of it)", flush=True)
+
+    # 16c: the launcher as users run it
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as ckpt:
+        logs = []
+        for mesh, extra in (("model=2", []),
+                            ("data=2", ["--resume", "auto"])):
+            if extra:
+                shutil.rmtree(os.path.join(ckpt, "step_00000004"))
+            ranks = run_ranks(TT_ARGV + ["--mesh", mesh, "--ckpt-dir", ckpt]
+                              + extra, TT_RANKS, TT_TIMEOUT_S, env=env)
+            for r, (rc, log) in enumerate(ranks):
+                if rc != 0:
+                    print(log[-4000:])
+                    fail(f"phase 16c: rank {r} of --mesh {mesh} exited {rc}")
+            logs.append(ranks[0][1])
+            saved = sorted(os.listdir(ckpt))
+    losses = []
+    for log in logs:
+        losses.append({int(ln.split()[1]): float(ln.split("loss=")[1]
+                                                 .split()[0])
+                       for ln in log.splitlines()
+                       if ln.startswith("step ")})
+    first, again = losses
+    check(sorted(first) == [0, 1, 2, 3] and sorted(again) == [2, 3]
+          and "resumed from step 2" in logs[1]
+          and "split=['experts', 'heads', 'kv_heads', 'mlp', 'vocab']"
+          in logs[0] and all(np.isfinite(v) for v in
+                             list(first.values()) + list(again.values()))
+          and all(abs(again[i] - first[i]) <= RESUME_RTOL * abs(first[i])
+                  for i in again), f"phase 16c: losses {first} over "
+          f"model=2, resumed over data=2 {again}")
+    print(f"[tt] phase 16c: python {' '.join(TT_ARGV)} --mesh model=2 "
+          f"(bf16 on {gpu}): losses {first}, checkpoints {saved}; resumed "
+          f"from step 2 over --mesh data=2 (--resume auto): losses {again} "
+          f"(within rtol {RESUME_RTOL})", flush=True)
+    print(f"[tt] phase 16 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 values at |x| (8 significant bits)."""
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
@@ -2159,6 +2506,7 @@ def main() -> None:
                     help=argparse.SUPPRESS)
     ap.add_argument("--mp-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tt-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2170,6 +2518,9 @@ def main() -> None:
         return
     if args.tp_dir is not None:
         tp_worker(args)
+        return
+    if args.tt_dir is not None:
+        tt_worker(args)
         return
     sys.path.insert(0, str(SRC))
 
@@ -3188,6 +3539,9 @@ def main() -> None:
 
     # -- 15. serving across ranks ---------------------------------------------
     serve_across_ranks(args, gpu)
+
+    # -- 16. training across ranks ---------------------------------------------
+    train_across_ranks(args, gpu)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

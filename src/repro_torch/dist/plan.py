@@ -683,3 +683,78 @@ def shard_layout(cfg, mesh, rank: int, batch: int, kind: str = "decode",
                        kv_seq=model > 1 and "model" in normalize(
                            rules["kv_seq"]),
                        whole=whole, group=group, data_group=data_group)
+
+
+# ---------------------------------------------------------------------------
+# The gradient classes of a split model's parameters
+# ---------------------------------------------------------------------------
+
+# a rank's gradient of a parameter it holds cut: its own part, complete
+CUT = "cut"
+# of a parameter held whole whose consumers are whole: complete, the same
+# on every rank of the model group
+WHOLE = "whole"
+# of a parameter held whole whose consumers are split (each rank feeds it
+# only its own heads, experts or columns): a share, summed over the group
+PARTIAL = "partial"
+
+# the sub-layers a layout splits; a parameter's sub-layer is its name up to
+# the first of these
+SUBLAYERS = ("attn", "xattn", "ssm", "ffn")
+
+
+class GradClass(NamedTuple):
+    """How one rank's gradient of a parameter relates to the unsplit
+    model's: ``kind`` is :data:`CUT`, :data:`WHOLE` or :data:`PARTIAL`.
+    A :data:`CUT` parameter's ``runs`` are its local runs along
+    ``cut.dim``, ``(start, length, whole)`` each: a run held whole on
+    every rank (a :class:`Segments` run that is not split, as SSD's
+    ``B`` and ``C``) feeds the rank's split heads only, so its gradient
+    is partial too."""
+    kind: str
+    cut: Optional[Cut] = None
+    runs: Tuple[Tuple[int, int, bool], ...] = ()
+
+    @property
+    def whole_runs(self) -> Tuple[Tuple[int, int], ...]:
+        return tuple((s, n) for s, n, whole in self.runs if whole)
+
+
+def _sublayer(name: str) -> Optional[str]:
+    parts = name.split(".")
+    for i, part in enumerate(parts[:-1]):
+        if part in SUBLAYERS:
+            return ".".join(parts[:i + 1])
+    return None
+
+
+def grad_classes(model) -> Dict[str, GradClass]:
+    """Parameter name -> its :class:`GradClass` on ``model`` (a rank's
+    slice, ``model.layout``), from the layout's cut of each parameter and
+    the sub-layer it belongs to (its name; ``Model.specs()`` gives the
+    axes the cut follows). A parameter the layout cuts is :data:`CUT`. A
+    parameter held whole in a sub-layer (GQA, MLA, SSD, an FFN) of which
+    the layout cuts another parameter feeds that sub-layer's split
+    products alone, and is :data:`PARTIAL`: GQA's ``wk``/``wv`` where the
+    audit keeps ``kv_heads`` whole, MLA's latent projections and norms,
+    the MoE router (its gates weigh a rank's own experts only) and shared
+    experts held whole (run on model rank 0 alone). Every other
+    parameter (norms, a layer held whole, the frontends; everything
+    without a model group) is :data:`WHOLE`."""
+    cuts = {name: model.cut_of(name) for name, _ in model.named_parameters()}
+    split = {_sublayer(name) for name, cut in cuts.items()
+             if cut is not None} - {None}
+    out = {}
+    for name, cut in cuts.items():
+        if cut is None:
+            out[name] = GradClass(PARTIAL if _sublayer(name) in split
+                                  else WHOLE)
+            continue
+        seg = model.segments(name)
+        flags = seg.split if seg is not None else (True,)
+        runs, at = [], 0
+        for (_, n), cut_run in zip(cut.pieces, flags):
+            runs.append((at, n, not cut_run))
+            at += n
+        out[name] = GradClass(CUT, cut, tuple(runs))
+    return out

@@ -110,6 +110,12 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
     return -(-cap // 32) * 32
 
 
+def moe_splits(layout) -> bool:
+    """Whether an MoE FFN runs over the layout's model group: its experts
+    split, or (demoted) every expert's ``mlp`` columns."""
+    return TP.splits(layout, "experts") or TP.splits(layout, "mlp")
+
+
 def moe_ffn(p: MoEFFN, cfg: ModelConfig, x: torch.Tensor, layout=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) -> (B, S, d), aux stats: ``dropped_frac`` and
@@ -135,8 +141,7 @@ def moe_ffn(p: MoEFFN, cfg: ModelConfig, x: torch.Tensor, layout=None
     w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     entropy = -(torch.softmax(logits, -1)
                 * torch.log_softmax(logits, -1)).sum(-1)
-    if TP.data_split(layout) or TP.splits(layout, "experts") \
-            or TP.splits(layout, "mlp"):
+    if TP.data_split(layout) or moe_splits(layout):
         out, aux = _moe_split(p, cfg, xt, w, idx, entropy, layout)
         return out.reshape(bsz, s, d), aux
 
@@ -207,8 +212,9 @@ def _moe_split(p: MoEFFN, cfg: ModelConfig, xt: torch.Tensor,
 
     t0, idx_all, ent_all = 0, idx, entropy
     if TP.data_split(layout):
-        got = TP.gather_rows(torch.cat([idx.float(), entropy[:, None]], 1),
-                             layout)
+        # routing only: indices, and entropies for the aux stats
+        got = TP.gather_rows(torch.cat([idx.float(), entropy[:, None]], 1)
+                             .detach(), layout)
         idx_all, ent_all = got[:, :k].long(), got[:, k]
         t0 = layout.data_rank * t
     cap = capacity(cfg, idx_all.shape[0])
@@ -247,7 +253,7 @@ def _moe_split(p: MoEFFN, cfg: ModelConfig, xt: torch.Tensor,
 
     # with a part split over the model group, the parts held whole join
     # on model rank 0 alone, and one all_reduce sums them all
-    reduce = experts or TP.splits(layout, "mlp")
+    reduce = moe_splits(layout)
     lead = not reduce or layout.model_rank == 0
     if not (experts or cols or lead):
         out = torch.zeros_like(out)
@@ -255,7 +261,7 @@ def _moe_split(p: MoEFFN, cfg: ModelConfig, xt: torch.Tensor,
         out = out + TP.f32_product(_hidden(p.shared, cfg, xt),
                                    p.shared.w_down)
     if reduce:
-        out = TP.all_reduce_sum(out, layout)
+        out = TP.reduce_from_group(out, layout)
     out = out.to(xt.dtype)
     aux = {"dropped_frac": 1.0 - keep_all.float().mean(),
            "router_entropy": ent_all.mean(), "idx": idx}

@@ -63,6 +63,7 @@ class ParamBuilder:
         self.dtype = dtype
         self.layout = layout
         self._axes: Dict[int, Tuple[Optional[str], ...]] = {}
+        self._shapes: Dict[int, Tuple[int, ...]] = {}
         self._segments: Dict[int, object] = {}
 
     def add(self, shape: Sequence[int], axes: Sequence[Optional[str]],
@@ -98,6 +99,7 @@ class ParamBuilder:
                 t = t.to(self.dtype)
         p = nn.Parameter(t, requires_grad=False)
         self._axes[id(p)] = axes
+        self._shapes[id(p)] = shape
         if segments is not None:
             self._segments[id(p)] = segments
         return p
@@ -105,6 +107,10 @@ class ParamBuilder:
     def axes_of(self, p: nn.Parameter) -> Tuple[Optional[str], ...]:
         """The logical axes :meth:`add` gave ``p``."""
         return self._axes[id(p)]
+
+    def shape_of(self, p: nn.Parameter) -> Tuple[int, ...]:
+        """The whole shape of ``p``, of which a layout may keep a part."""
+        return self._shapes[id(p)]
 
     def segments_of(self, p: nn.Parameter):
         """The ``Segments`` :meth:`add` gave ``p``, or None."""

@@ -16,8 +16,10 @@ bidirectional, the cross-attention) and MLA over their heads, SSD over
 its heads, the dense FFN over ``mlp``, the MoE FFN over its experts
 (``mlp`` where the audit demotes them), the embedding and the logits over
 the vocabulary (``dist.tensor_parallel``); under the ``kv_seq`` rule the
-GQA caches over their positions. Serving only: training across cards is
-ROADMAP A15c.
+GQA caches over their positions. Training splits alike
+(:func:`forward_train`): the input of each split sub-layer and of a split
+head passes ``copy_to_group``, whose gradient is summed over the model
+group, and the loss counts the global batch's labels.
 
 Remat (``cfg.remat`` other than ``"none"``, which the JAX package runs as
 ``jax.checkpoint`` without a policy, so ``"dots"`` is ``"full"``): under
@@ -30,7 +32,6 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -38,7 +39,7 @@ from ..dist import tensor_parallel as TP
 from .attention import (GQA, MLA, gqa_forward, init_kv_cache,
                         init_mla_cache, mla_forward)
 from .config import ModelConfig
-from .ffn import DenseFFN, MoEFFN, dense_ffn, moe_ffn
+from .ffn import DenseFFN, MoEFFN, dense_ffn, moe_ffn, moe_splits
 from .layers import Norm, ParamBuilder, gelu, matmul, resolve_model_device
 from .ssm import (SSD, SSMCache, ssd_decode_step, ssd_forward,
                   ssd_split)
@@ -100,9 +101,14 @@ class Block(nn.Module):
                 enc_out: Optional[torch.Tensor] = None, decode: bool = False,
                 layout=None) -> Tuple[torch.Tensor, object, Dict]:
         """(x, the block's cache, the MoE FFN's aux stats or {}); with a
-        ``layout`` its mixers and FFN run over its groups."""
+        ``layout`` its mixers and FFN run over its groups, and the input of
+        each that splits passes ``copy_to_group`` (its gradient summed over
+        the model group under autograd)."""
         cfg, aux = self.cfg, {}
         h = self.norm1(x)
+        if self.mixer == "ssm" and ssd_split(layout) \
+                or self.mixer != "ssm" and TP.splits(layout, "heads"):
+            h = TP.copy_to_group(h, layout)
         new_cache = cache
         if self.mixer == "attn":
             h, new_cache = gqa_forward(self.attn, cfg, h, positions,
@@ -122,11 +128,18 @@ class Block(nn.Module):
                                        layout=layout)
         x = x + h
         if enc_out is not None and self.xattn is not None:
-            h, _ = gqa_forward(self.xattn, cfg, self.norm_x(x), positions,
-                               kv_x=enc_out, use_rope=False, layout=layout)
+            h, kv_x = self.norm_x(x), enc_out
+            if TP.splits(layout, "heads"):
+                h = TP.copy_to_group(h, layout)
+                kv_x = TP.copy_to_group(kv_x, layout)
+            h, _ = gqa_forward(self.xattn, cfg, h, positions, kv_x=kv_x,
+                               use_rope=False, layout=layout)
             x = x + h
         if self.ffn is not None:
             h = self.norm2(x)
+            if moe_splits(layout) if self.ffn_kind == "moe" \
+                    else TP.splits(layout, "mlp"):
+                h = TP.copy_to_group(h, layout)
             if self.ffn_kind == "moe":
                 h, aux = moe_ffn(self.ffn, cfg, h, layout)
             else:
@@ -200,6 +213,8 @@ class Model(nn.Module):
         self.layout = b.layout
         self._specs = {name: b.axes_of(p)
                        for name, p in self.named_parameters()}
+        self._shapes = {name: b.shape_of(p)
+                        for name, p in self.named_parameters()}
         self._segments = {name: b.segments_of(p)
                           for name, p in self.named_parameters()
                           if b.segments_of(p) is not None}
@@ -214,6 +229,22 @@ class Model(nn.Module):
         segments)."""
         return layout.param_cut(shape, self._specs[name],
                                 self._segments.get(name))
+
+    def whole_shape(self, name: str) -> Tuple[int, ...]:
+        """The whole shape of parameter ``name``, of which this model may
+        hold its layout's part."""
+        return self._shapes[name]
+
+    def segments(self, name: str):
+        """The ``dist.plan.Segments`` of parameter ``name``, or None."""
+        return self._segments.get(name)
+
+    def cut_of(self, name: str):
+        """The ``dist.plan.Cut`` of parameter ``name`` this model holds, or
+        None where it holds the whole parameter."""
+        if self.layout is None:
+            return None
+        return self.param_cut(name, self._shapes[name], self.layout)
 
 
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -289,10 +320,10 @@ def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
 
 
 def _blocks_forward(x: torch.Tensor, positions: torch.Tensor,
-                    enc_out: Optional[torch.Tensor], *blocks: Block
+                    enc_out: Optional[torch.Tensor], layout, *blocks: Block
                     ) -> torch.Tensor:
     for block in blocks:
-        x, _, _ = block(x, positions, enc_out=enc_out)
+        x, _, _ = block(x, positions, enc_out=enc_out, layout=layout)
     return x
 
 
@@ -318,9 +349,13 @@ def _run_stack(model: Model, x: torch.Tensor, positions: torch.Tensor, *,
     if caches is None and model.cfg.remat != "none" \
             and torch.is_grad_enabled():
         for group in remat_groups(model):
-            # the blocks draw no random numbers: no RNG state to replay
-            x = checkpoint(_blocks_forward, x, positions, enc_out, *group,
-                           use_reentrant=False, preserve_rng_state=False)
+            # the blocks draw no random numbers: no RNG state to replay;
+            # over a model group the recompute runs each group's
+            # collectives again inside backward, in the same order on
+            # every rank (the ranks' graphs are the same)
+            x = checkpoint(_blocks_forward, x, positions, enc_out,
+                           model.layout, *group, use_reentrant=False,
+                           preserve_rng_state=False)
         return x, None
     new_caches = []
     for i, block in enumerate(model.blocks):
@@ -344,11 +379,20 @@ def forward_train(model: Model, batch: Dict
     them; labels of -100 are masked, and so are the patch positions. With
     ``cfg.mtp`` the loss adds 0.3 x the MTP loss and the metrics say
     ``mtp``; ``metrics["loss"]`` is the LM loss alone, as in the JAX
-    package. A model split over a model group raises (ROADMAP A15c)."""
+    package.
+
+    Over a ``(data, model)`` layout (``model.layout``; ``batch`` this
+    rank's rows of the global batch) the loss is this data rank's share
+    of the global batch's mean: its NLL summed over the labels of its
+    rows, over the label count of the global batch (summed over the data
+    group), so that the data ranks' gradients sum to the gradient of the
+    global mean, which the JAX package takes. Every rank of a model
+    group computes the same loss, its split layers each giving their own
+    share of the gradients (``dist.tensor_parallel``); the logits' loss
+    is vocabulary-parallel where the vocabulary is cut
+    (``dist.tensor_parallel.vocab_loss``). ``metrics["loss"]`` and
+    ``metrics["tokens"]`` are the global batch's on every rank."""
     cfg = model.cfg
-    if model.layout is not None and model.layout.tensor_parallel:
-        raise NotImplementedError("training across the cards of a model "
-                                  "group is not ported yet (ROADMAP A15c)")
     x = _embed_inputs(model, batch)
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
@@ -371,16 +415,28 @@ def forward_train(model: Model, batch: Dict
 
 def _lm_loss(model: Model, x: torch.Tensor, labels: torch.Tensor
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token NLL over the labels >= 0, from f32 logits."""
-    logits = _logits(model, x).float()
+    """Mean next-token NLL over the labels >= 0, from f32 logits; over a
+    layout, this data rank's share of the global batch's mean
+    (:func:`forward_train`)."""
+    layout = model.layout
     mask = labels >= 0
-    safe = torch.clamp_min(labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = (logz - gold) * mask
-    denom = torch.clamp_min(mask.sum(), 1)
+    if TP.splits(layout, "vocab"):
+        head = model.embed.T if model.cfg.tie_embeddings else model.lm_head
+        nll = TP.vocab_loss(x, head, labels, layout)
+    else:
+        logits = _logits(model, x).float()
+        safe = torch.clamp_min(labels, 0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        nll = (logz - gold) * mask
+    count = mask.sum()
+    if TP.data_split(layout):
+        count = TP.data_sum(count, layout)
+    denom = torch.clamp_min(count, 1)
     loss = nll.sum() / denom
-    return loss, {"loss": loss, "tokens": denom}
+    total = TP.data_sum(loss.detach().clone(), layout) \
+        if TP.data_split(layout) else loss
+    return loss, {"loss": total, "tokens": denom}
 
 
 def _mtp_loss(model: Model, x: torch.Tensor, batch: Dict,
@@ -388,13 +444,14 @@ def _mtp_loss(model: Model, x: torch.Tensor, batch: Dict,
     """DeepSeek-V3 multi-token prediction (depth 1): predict t+2."""
     cfg, mtp = model.cfg, model.mtp
     tokens = batch["tokens"]
-    emb_next = F.embedding(torch.roll(tokens, -1, dims=1), model.embed)
+    emb_next = TP.vocab_embed(torch.roll(tokens, -1, dims=1), model.embed,
+                              model.layout)
     if x.shape[1] != tokens.shape[1]:  # VLM: only the text tail
         x = x[:, -tokens.shape[1]:]
         positions = positions[:, -tokens.shape[1]:]
     h = matmul(torch.cat([mtp.norm_h(x), mtp.norm_e(emb_next.to(x.dtype))],
                          dim=-1), mtp.proj)
-    h, _, _ = mtp.block(h, positions)
+    h, _, _ = mtp.block(h, positions, layout=model.layout)
     labels2 = torch.roll(batch["labels"], -2, dims=1)
     labels2[:, -2:] = -100
     loss, _ = _lm_loss(model, h, labels2)

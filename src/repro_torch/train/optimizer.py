@@ -11,6 +11,16 @@ the state's tensors in place, the counterpart of the JAX launcher's
 donated buffers: the f32 temporaries of one parameter are alive at a
 time, so a full-width model's update needs no second copy of its
 parameters or moments.
+
+Over a model group (``layout``, a ``dist.plan.ShardLayout``, with the
+parameters' ``dist.plan.grad_classes``) each rank updates its own slices
+of the parameters and of the state, cut as the parameters are; the
+gradients given are whole (the train step has summed them over the data
+group and the partial ones over the model group). What is not elementwise
+spans the group: the global norm sums the squares of the cut parts over
+the group and counts each part held whole once, and a compressed leaf's
+int8 scale is the largest ``|g|`` over the group, so that every rank
+scales, clips and dequantizes as the unsplit model does.
 """
 from __future__ import annotations
 
@@ -18,6 +28,9 @@ import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..dist import tensor_parallel as TP
+from ..dist.plan import CUT
 
 Tree = Dict[str, torch.Tensor]
 
@@ -80,26 +93,68 @@ def abstract_opt_state(params: Tree, cfg: AdamWConfig) -> OptState:
     return _state(params, cfg, meta=True)
 
 
-def _compress_int8(g: torch.Tensor, err: torch.Tensor
+def _compress_int8(g: torch.Tensor, err: torch.Tensor,
+                   amax: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Error-feedback int8 compression: (the dequantised gradient, the
     residual carried to the next step), both bf16. ``torch.round`` rounds
-    half to even, as ``jnp.round`` does."""
+    half to even, as ``jnp.round`` does. ``amax``: the largest ``|g +
+    err|`` of the whole leaf where this is a rank's part of it."""
     g = g.float() + err.float()
-    scale = torch.clamp_min(torch.amax(torch.abs(g)), 1e-12) / 127.0
+    if amax is None:
+        amax = torch.amax(torch.abs(g))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127)
     deq = q * scale
     return deq.to(torch.bfloat16), (g - deq).to(torch.bfloat16)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+def _split(layout) -> bool:
+    return layout is not None and layout.model > 1
+
+
+def global_norm(tree: Tree, classes=None, layout=None) -> torch.Tensor:
+    """The norm of every leaf together. Over a model group (``classes``,
+    ``layout``): the squares of the cut parts summed over the group (one
+    ``all_reduce``), the parts held whole counted once; the same on
+    every rank."""
+    if not _split(layout):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree.values()))
+    x0 = next(iter(tree.values()))
+    cut = torch.zeros((), dtype=torch.float32, device=x0.device)
+    whole = torch.zeros_like(cut)
+    for k, x in tree.items():
+        c = classes[k]
+        if c.kind != CUT:
+            whole = whole + torch.sum(torch.square(x.float()))
+        elif not c.whole_runs:
+            cut = cut + torch.sum(torch.square(x.float()))
+        else:
+            for start, n, held in c.runs:
+                sq = torch.sum(torch.square(
+                    x.narrow(c.cut.dim, start, n).float()))
+                if held:
+                    whole = whole + sq
+                else:
+                    cut = cut + sq
+    return torch.sqrt(TP.all_reduce_sum(cut, layout) + whole)
+
+
+def _amax_over_group(grads: Tree, err: Tree, layout) -> Dict:
+    """Each leaf's largest ``|g + err|`` over the model group (one
+    ``all_reduce`` of their vector)."""
+    keys = list(grads)
+    amax = torch.stack([torch.amax(torch.abs(grads[k].float()
+                                             + err[k].float()))
+                        for k in keys])
+    return dict(zip(keys, TP.all_reduce_max(amax, layout)))
 
 
 @torch.no_grad()
 def adamw_update(params: Tree, grads: Tree, state: OptState,
-                 cfg: AdamWConfig, lr_scale: torch.Tensor
+                 cfg: AdamWConfig, lr_scale: torch.Tensor, classes=None,
+                 layout=None
                  ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step; returns (params, state, metrics), the parameters and
     the state's moments, master copy and residual updated in place (the
@@ -107,15 +162,20 @@ def adamw_update(params: Tree, grads: Tree, state: OptState,
     the raw gradient norm and the LR, tensors on the device. The order of
     operations is the JAX package's: the clip scale from the raw norm,
     ``step + 1`` before the bias corrections, the update from the master
-    copy when there is one, the moments cast back to their dtype."""
+    copy when there is one, the moments cast back to their dtype. Over a
+    model group (``classes`` from ``dist.plan.grad_classes``, ``layout``)
+    the norm and the compression scales span the group (the module
+    docstring)."""
     if cfg.compress_grads:
+        amax = _amax_over_group(grads, state.error, layout) \
+            if _split(layout) else {}
         out = {}
         for k, g in grads.items():
-            out[k], err = _compress_int8(g, state.error[k])
+            out[k], err = _compress_int8(g, state.error[k], amax.get(k))
             state.error[k].copy_(err)
         grads = out
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, classes, layout)
     # a tensor numerator: torch takes ``scalar / t`` as ``t.reciprocal() *
     # scalar``, an ulp off the division
     scale = torch.clamp_max(

@@ -1,26 +1,78 @@
 """The train and eval steps: grad accumulation (microbatching), remat
-(``cfg.remat``, in :func:`repro_torch.models.model._run_stack`) and mixed
-precision.
+(``cfg.remat``, in :func:`repro_torch.models.model._run_stack`), mixed
+precision, and the GPipe forward over a stage group.
 
 The port of the JAX package's ``train/step.py``. A step takes the model
 (an ``nn.Module``), the optimizer state and a batch of tensors on the
 model's device, and returns them: the parameters and the state are
 updated in place (:func:`repro_torch.train.optimizer.adamw_update`).
-The JAX package's pipeline-parallel forward (``make_pipelined_forward``)
-and training across cards are not ported yet (ROADMAP A15c): serving
-splits a model over a model group (``dist.tensor_parallel``), training
-runs on one card.
+
+Across cards the model is one rank's slice (``model.layout``, a
+``dist.plan.ShardLayout`` of a ``(data, model)`` process mesh) and the
+batch its rows of the global batch (:func:`train_rows`). The step is
+the same: the forward and backward run over the model group
+(``models.model.forward_train``), then :func:`exchange_grads` sums each
+gradient over the data group once (after the last microbatch) and the
+partial ones over the model group (``dist.plan.grad_classes``), and
+AdamW updates each rank's slices with the norm and compression scales
+taken over the group. The JAX package gets the same from XLA's
+partitioner under its training rules.
+
+:func:`make_pipelined_forward` is the JAX package's GPipe forward over
+ranks of a stage group (forward only: ROADMAP A15d).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..dist import tensor_parallel as TP
+from ..dist.plan import CUT, PARTIAL, grad_classes
 from ..models.config import ModelConfig
-from ..models.model import Model, forward_train
+from ..models.model import (Model, _embed_inputs, _logits, _run_stack,
+                            abstract_params, forward_train)
 from .optimizer import AdamWConfig, OptState, adamw_update
 from .schedule import SCHEDULES
+
+
+def train_rows(layout, batch: int, microbatches: int = 1) -> np.ndarray:
+    """This rank's rows of a global batch of ``batch`` for a step of
+    ``microbatches``: of each microbatch's run of rows (the JAX step's
+    split of the global batch), its data rank's share, so that its
+    microbatch ``i`` holds its part of the global microbatch ``i``. All
+    rows without a data split."""
+    rows = np.arange(batch)
+    if not TP.data_split(layout):
+        return rows
+    if batch % (microbatches * layout.data):
+        raise ValueError(f"a batch of {batch} does not split into "
+                         f"{microbatches} microbatches over {layout.data} "
+                         f"data ranks")
+    n = batch // (microbatches * layout.data)
+    return rows.reshape(microbatches, layout.data, n)[
+        :, layout.data_rank].reshape(-1)
+
+
+def exchange_grads(grads: Dict[str, torch.Tensor], classes, layout) -> None:
+    """Complete each rank's gradients in place: each summed over the data
+    group where the data ranks hold different rows, then each
+    :data:`~repro_torch.dist.plan.PARTIAL` one (and the runs of a cut one
+    held whole) summed over the model group."""
+    if layout is None:
+        return
+    for k, g in grads.items():
+        TP.data_sum(g, layout)
+        c = classes[k]
+        if c.kind == PARTIAL:
+            TP.all_reduce_sum(g, layout)
+        elif c.kind == CUT:
+            for start, n in c.whole_runs:
+                part = g.narrow(c.cut.dim, start, n)
+                part.copy_(TP.all_reduce_sum(part.contiguous(), layout))
 
 
 def make_train_step(
@@ -41,6 +93,9 @@ def make_train_step(
     them into f32 sums, and divides by ``microbatches``; its metrics are
     then the mean ``loss`` alone, beside the optimizer's. The LR scale is
     the schedule at ``opt_state.step``, before the update counts it.
+    Over a layout (``model.layout``; ``batch`` the rank's rows,
+    :func:`train_rows`) the gradients are exchanged
+    (:func:`exchange_grads`) before the update.
     """
     sched_kwargs = schedule_kwargs or {}
     sched = SCHEDULES[schedule]
@@ -54,8 +109,7 @@ def make_train_step(
         model.zero_grad(set_to_none=True)
         params = dict(model.named_parameters())
         if microbatches <= 1:
-            loss, metrics = forward_train(model, batch)
-            loss.backward()
+            metrics = _backward(model, batch)
             grads = grads_of(params)
         else:
             def split(x, i):
@@ -70,21 +124,24 @@ def make_train_step(
             lsum = torch.zeros((), dtype=torch.float32,
                                device=opt_state.step.device)
             for i in range(microbatches):
-                loss, _ = forward_train(
+                mb = _backward(
                     model, {k: split(v, i) for k, v in batch.items()})
-                loss.backward()
                 for k, p in params.items():
                     if p.grad is not None:
                         gsum[k].add_(p.grad)
                 model.zero_grad(set_to_none=True)
-                lsum = lsum + loss.detach()
+                lsum = lsum + mb["loss"].detach()
             grads = {k: g / microbatches for k, g in gsum.items()}
             del gsum
             metrics = {"loss": lsum / microbatches}
 
+        layout = model.layout
+        classes = grad_classes(model) if layout is not None else None
+        exchange_grads(grads, classes, layout)
         lr_scale = sched(opt_state.step, **sched_kwargs)
         _, opt_state, opt_metrics = adamw_update(params, grads, opt_state,
-                                                 opt_cfg, lr_scale)
+                                                 opt_cfg, lr_scale, classes,
+                                                 layout)
         del grads
         model.zero_grad(set_to_none=True)
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
@@ -93,6 +150,14 @@ def make_train_step(
         return model, opt_state, metrics
 
     return train_step
+
+
+def _backward(model: Model, batch: Dict) -> Dict:
+    """:func:`forward_train`'s metrics, its loss's gradients left in
+    ``.grad``."""
+    loss, metrics = forward_train(model, batch)
+    loss.backward()
+    return metrics
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:
@@ -105,3 +170,119 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
         return metrics
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (GPipe) over a stage group
+# ---------------------------------------------------------------------------
+
+def stage_config(cfg: ModelConfig, n_stages: int) -> ModelConfig:
+    """The config of one of ``n_stages`` pipeline stages: ``n_periods //
+    n_stages`` periods of the pattern. Raises ``ValueError`` where the
+    periods do not divide, and for a config with prefix layers or an
+    encoder: the JAX package's stages drop them (``prefix_layers=()``,
+    no encoder output), which computes another model."""
+    if cfg.prefix_layers:
+        raise ValueError(f"{cfg.name}: a pipeline stage holds periods of "
+                         f"the pattern; the {len(cfg.prefix_layers)} "
+                         f"prefix layers would be dropped")
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: a pipeline stage runs no encoder")
+    if cfg.n_periods % n_stages:
+        raise ValueError(f"{cfg.name}: {cfg.n_periods} periods do not "
+                         f"split into {n_stages} stages")
+    return dataclasses.replace(cfg, n_periods=cfg.n_periods // n_stages)
+
+
+def stage_model(model: Model, n_stages: int, stage: int) -> Model:
+    """Stage ``stage`` of a whole ``model``: its run of periods (the
+    blocks of ``stage_config``), and the embedding, final norm and head,
+    sharing ``model``'s tensors."""
+    cfg = stage_config(model.cfg, n_stages)
+    maxpos = 0 if model.dec_pos is None else model.dec_pos.shape[0]
+    out = abstract_params(cfg, maxpos)
+    n = len(out.blocks)
+    state = {}
+    for name, t in model.state_dict().items():
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            i = int(i) - stage * n
+            if not 0 <= i < n:
+                continue
+            name = f"blocks.{i}.{rest}"
+        state[name] = t
+    out.load_state_dict(state, assign=True)
+    return out
+
+
+def make_pipelined_forward(cfg: ModelConfig, n_stages: int, group=None
+                           ) -> Callable:
+    """The JAX package's ``make_pipelined_forward``: the periods split over
+    ``n_stages`` ranks of ``group`` (the default group when None), and
+    microbatches passed round a ring of them (GPipe fill and drain).
+    Returns ``pipeline(stage, batch, n_microbatches) -> logits``, where
+    ``stage`` is this rank's :func:`stage_model` (the stage of its rank
+    in ``group``). Forward only (its gradient is ROADMAP A15d).
+
+    Every stage embeds the batch (the first stage's input) and splits it
+    into ``n_microbatches``; over ``n_microbatches + n_stages - 1`` ticks
+    the first stage takes microbatch ``t`` (the others what the ring
+    brought), each stage runs its periods (``_run_stack``) where its
+    microbatch is a real one, and sends its output to the next stage
+    (``batch_isend_irecv``); the last stage keeps microbatch ``t -
+    n_stages + 1``. Its outputs are broadcast to every stage, where the
+    JAX package sums (``psum``) them with the others' zeros, and every
+    stage returns the logits of them, as the JAX function does without
+    the final norm. Raises for the configs :func:`stage_config`
+    refuses."""
+    stage_config(cfg, n_stages)
+    size = dist.get_world_size(group)
+    if size != n_stages:
+        raise ValueError(f"{n_stages} stages over a group of {size} ranks")
+    me = dist.get_rank(group)
+    peer = [dist.get_global_rank(group, i) if group is not None else i
+            for i in range(n_stages)]
+    nxt, prv = peer[(me + 1) % n_stages], peer[(me - 1) % n_stages]
+
+    def ring(y: torch.Tensor, buf: torch.Tensor) -> None:
+        host = TP.through_host(y, group)
+        send = y.cpu() if host else y.contiguous()
+        recv = torch.empty_like(send)
+        for req in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, send, nxt, group),
+                 dist.P2POp(dist.irecv, recv, prv, group)]):
+            req.wait()
+        buf.copy_(recv)
+
+    @torch.no_grad()
+    def pipeline(stage: Model, batch: Dict, n_microbatches: int
+                 ) -> torch.Tensor:
+        x = _embed_inputs(stage, batch)
+        b, s, d = x.shape
+        if b % n_microbatches:
+            raise ValueError(f"a batch of {b} does not split into "
+                             f"{n_microbatches} microbatches")
+        mb = x.reshape(n_microbatches, b // n_microbatches, s, d)
+        positions = torch.arange(s, device=x.device)[None].expand(
+            b // n_microbatches, s)
+        buf = torch.zeros_like(mb[0])
+        outs = torch.zeros_like(mb)
+        for t in range(n_microbatches + n_stages - 1):
+            if 0 <= t - me < n_microbatches:
+                x_in = mb[t] if me == 0 else buf
+                y, _ = _run_stack(stage, x_in, positions)
+            else:
+                y = torch.zeros_like(buf)
+            ring(y, buf)
+            if me == n_stages - 1 and t >= n_stages - 1:
+                outs[t - (n_stages - 1)] = y
+        src = peer[n_stages - 1]
+        if TP.through_host(outs, group):
+            host = outs.cpu()
+            dist.broadcast(host, src, group=group)
+            outs.copy_(host)
+        else:
+            dist.broadcast(outs, src, group=group)
+        return _logits(stage, outs.reshape(b, s, d))
+
+    return pipeline

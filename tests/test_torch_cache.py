@@ -210,7 +210,8 @@ def test_blocks_cut_short_match_repro(case):
     run's counts as hints, give ``repro``'s exits, rounds and
     ``converged=False``. (Every schedule to convergence is held against
     ``repro`` in ``tests/test_torch_sync.py``, and specmap stopped before
-    any verification round in ``tests/test_torch_sync_fullhd.py``.)"""
+    any verification round in
+    ``tests/test_torch_sync_fullhd_specmap.py``.)"""
     sh, jdev, tdev = _shared_plan(corpus("420"))
     kw, cases = _cases(sh)
     bounds, ref, port = cases[case]

@@ -1,4 +1,6 @@
-"""The port's sync schedules against the JAX package's, on shared plans.
+"""The port's sync schedules against the JAX package's, on shared plans
+(``tests/_torch_sync.py``; specmap's and sequential's cases are in
+``test_torch_sync_specmap.py``).
 
 One plan (the JAX package's, bucketed) feeds both: its arrays go to JAX as
 ``jnp`` arrays and to the port through ``dev_from_numpy``, and each
@@ -14,11 +16,9 @@ import pytest
 import torch
 
 from repro.core import api as RA
-from repro.core import bitstream as RB
 from repro.core import decode as RD
 from repro.core import sync as RS
 from repro.core.state import DecodeState as RState
-from repro.dist.plan import balance_lanes
 from repro.kernels.huffman import ops as RHK
 from repro.kernels.huffman.ref import decode_exits_ref
 from repro.jpeg.format import parse_jpeg as r_parse, unstuff_scan as r_unstuff
@@ -32,91 +32,29 @@ from repro_torch.core.sync import (BLOCK_ROUNDS, compose_prefix,
 from repro_torch.jpeg.format import parse_jpeg, unstuff_scan
 from repro_torch.kernels.huffman import ops as HK
 
-from _torch_corpus import corpus, oracle_coeffs
-
-SYNCS = ("jacobi", "faithful", "specmap", "sequential")
-SYNC_CORPORA = ("420", "restart", "mixed", "optimized")
-
-
-def _plan(blobs, sync, chunk_bits, balance=None):
-    """The JAX package's plan of ``blobs`` as ``from_bytes`` builds it."""
-    if sync == "sequential":
-        unstuffed = [r_unstuff(r_parse(b).scan_data) for b in blobs]
-        chunk_bits = RA._sequential_chunk_bits(unstuffed)
-    plan = RB.build_batch_plan(blobs, chunk_bits=chunk_bits)
-    if balance:
-        plan = balance_lanes(plan, balance, "lpt")
-    return RB.split_plan(plan, bucket=True)
+from _torch_corpus import corpus
+from _torch_sync import one_thread  # noqa: F401 (autouse)
+from _torch_sync import SYNC_CORPORA, check_schedule, plan_of, schedule_cases
 
 
-def _jax_sync(jdev, sh, sync):
-    """``repro``'s schedule with the bounds of ``repro.core.api``."""
-    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits,
-              permuted=sh.permuted)
-    if sync == "jacobi":
-        return RS.jacobi_sync(jdev, max_rounds=sh.n_chunks + 2, **kw)
-    if sync == "specmap":
-        return RS.specmap_sync(jdev, max_upm=RB.MAX_UPM,
-                               max_verify=sh.n_chunks + RB.MAX_UPM + 2, **kw)
-    if sync == "faithful":
-        return RS.faithful_sync(jdev, seq_chunks=sh.seq_chunks,
-                                max_outer=sh.n_sequences + 2, **kw)
-    fn = RD.make_decode_exits(s_max=sh.s_max,
-                              min_code_bits=sh.min_code_bits)
-    return RS.SyncResult(fn(jdev, RState.cold(jdev["chunk_start"])), 1,
-                         True)
-
-
-def _torch_sync(tdev, sh, sync):
-    meta = D.chunk_meta(tdev)
-    kw = dict(s_max=sh.s_max, min_code_bits=sh.min_code_bits)
-
-    def decode_exits(d, entry, idx=None):
-        return HK.decode_exits_plain(d, meta, entry, idx, **kw)
-
-    return api.run_sync(tdev, sh, sync, decode_exits)
-
-
-def _check_schedule(blobs, sync, chunk_bits, balance=None):
-    sh, data = _plan(blobs, sync, chunk_bits, balance)
-    assert sh.permuted == bool(balance)
-    arrays = dict(data.arrays, words=data.words)
-    jdev = {k: jnp.asarray(v) for k, v in arrays.items()}
-    tdev = dev_from_numpy(arrays, "cpu")
-    exp = _jax_sync(jdev, sh, sync)
-    got = _torch_sync(tdev, sh, sync)
-    for f, a, g in zip("puzn", exp.exits, got.exits):
-        np.testing.assert_array_equal(np.asarray(a), g.numpy(), err_msg=f)
-    assert got.rounds == int(exp.rounds)
-    assert got.converged is bool(exp.converged) is True
-    coeffs, rounds, converged = api.decode_coefficients(
-        tdev, sh, backend="torch", fuse="none", sync=sync)
-    assert (rounds, converged) == (got.rounds, True)
-    np.testing.assert_array_equal(coeffs[:data.total_units].numpy(),
-                                  oracle_coeffs(blobs))
-    return got
-
-
-# sequential sizes its own chunks (one per segment), so it runs once
-SCHEDULE_CASES = [(s, n, b) for s in SYNCS for n in SYNC_CORPORA
-                  for b in ((0,) if s == "sequential" else (128, 256))]
-
-
-@pytest.mark.parametrize("sync,name,chunk_bits", SCHEDULE_CASES)
+# specmap and sequential in test_torch_sync_specmap.py: the two halves
+# take about as long
+@pytest.mark.parametrize("sync,name,chunk_bits",
+                         schedule_cases(("jacobi", "faithful")))
 def test_schedule_matches_repro(sync, name, chunk_bits):
-    _check_schedule(corpus(name), sync, chunk_bits)
+    check_schedule(corpus(name), sync, chunk_bits)
 
 
 @pytest.mark.parametrize("name", ["420", "restart", "mixed"])
-@pytest.mark.parametrize("sync", ["jacobi", "faithful", "specmap"])
+@pytest.mark.parametrize("sync", ["jacobi", "faithful"])
 def test_schedule_on_a_permuted_plan_matches_repro(sync, name):
     """A ``balance_lanes(plan, 4, "lpt")`` plan, carried over with its
     lane permutation (``permuted=True``)."""
-    _check_schedule(corpus(name), sync, 128, balance=4)
+    check_schedule(corpus(name), sync, 128, balance=4)
 
 
 def test_faithful_without_verify_matches_repro():
-    sh, data = _plan(corpus("420"), "faithful", 128)
+    sh, data = plan_of(corpus("420"), "faithful", 128)
     arrays = dict(data.arrays, words=data.words)
     jdev = {k: jnp.asarray(v) for k, v in arrays.items()}
     tdev = dev_from_numpy(arrays, "cpu")
@@ -143,7 +81,7 @@ def test_exit_decode_at_a_lane_subset_matches_repro(name):
     """The ``idx`` form (faithful's ``decode_at``) against the JAX
     reference and the Pallas exit kernel (interpret mode) decoded at the
     same subset, from converged entries."""
-    sh, data = _plan(corpus(name), "jacobi", 128)
+    sh, data = plan_of(corpus(name), "jacobi", 128)
     arrays = dict(data.arrays, words=data.words)
     jdev = {k: jnp.asarray(v) for k, v in arrays.items()}
     tdev = dev_from_numpy(arrays, "cpu")

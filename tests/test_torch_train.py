@@ -196,7 +196,7 @@ def test_launcher_needs_a_card_without_device_cpu(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     built = []
-    monkeypatch.setattr(LT, "init_params", lambda *a, **k: built.append(1))
+    monkeypatch.setattr(LT, "init_sharded", lambda *a, **k: built.append(1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LT.main(["--arch", "llama3-8b", "--smoke", "--steps", "1"])
     assert not built
