@@ -221,8 +221,12 @@ otherwise. Phases, each of which exits non-zero on failure:
    checkpoints every 2 steps, its last removed, then ``--resume auto``
    over ``--mesh data=2``: steps 2-3 rerun from the step-2 checkpoint,
    losses within ``RESUME_RTOL``; 16d the pipelined forward over 2
-   stages against the whole forward on the card. Prints each case's
-   largest differences and the phase's seconds. No kernel of the port
+   stages against the whole forward on the card, then its backward
+   (llama3-8b's and gemma-7b's smoke configs, remat ``full``) against the
+   unsplit backward of the same microbatches: each gradient within
+   ``TT_PIPE_GRAD_TOL`` of its leaf's largest, the whole leaves
+   bit-identical on both stages. Prints each case's largest differences
+   and the phase's seconds. No kernel of the port
    lies on these paths.
 
 ``launches`` in the kernel record counts phase 4's paths, phase 7's
@@ -2150,9 +2154,18 @@ TT_ARGV = ["-m", "repro_torch.launch.train", "--arch", "llama3-8b",
            "gloo"]
 # 16d: llama3-8b's smoke config with 2 periods in f32 over 2 stages, 8
 # rows in 4 microbatches, against the whole forward on the card: within
-# this share of the largest |logit|
+# this share of the largest |logit|; then the backward of sum(logits *
+# ct) (ct drawn from --seed, remat "full") of llama3-8b's and gemma-7b's
+# (its embedding tied to the head) against the unsplit model's backward of
+# the same microbatches on the card (tools.tp_train.microbatch_logits: the
+# pipeline's order of sums): each leaf within TT_PIPE_GRAD_TOL of its
+# largest |value| (0 on the CPU, tests/test_torch_gpipe_grad.py; 5e-7
+# against each microbatch's backward summed first to last), the
+# embedding, head and final norm bit-identical on both stages
 TT_PIPE = (2, 8, 24, 4)
 TT_PIPE_TOL = 1e-4
+TT_PIPE_GRAD = ("llama3-8b", "gemma-7b")
+TT_PIPE_GRAD_TOL = 1e-5
 TT_TIMEOUT_S = 300
 
 
@@ -2190,6 +2203,22 @@ def tt_cases(seed):
     for arch, factor, seq in TT_DROP:
         case(f"{arch} drops d2", arch, seq, True, capacity_factor=factor)
     return cases
+
+
+def tt_pipe_case(arch, seed):
+    """(config, tokens, cotangent) of a phase 16d backward case: the smoke
+    config in f32 with ``TT_PIPE``'s periods and ``remat="full"``, the
+    tokens and ``ct`` drawn from ``seed``."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    periods, b, seq, _ = TT_PIPE
+    cfg = dataclasses.replace(get_smoke_config(arch), n_periods=periods,
+                              remat="full", dtype="float32",
+                              param_dtype="float32")
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (b, seq)).astype(np.int32)
+    ct = rng.standard_normal((b, seq, cfg.vocab), dtype=np.float32)
+    return cfg, torch.from_numpy(tokens), torch.from_numpy(ct)
 
 
 def tt_batch(arrays, rows, device):
@@ -2280,6 +2309,20 @@ def tt_worker(args) -> None:
         out["pipeline"] = make_pipelined_forward(cfg, TT_RANKS)(
             stage_model(whole, TT_RANKS, pm.rank), {"tokens": tokens},
             micro).cpu()
+        t0 = time.perf_counter()
+        for arch in TT_PIPE_GRAD:
+            cfg, tokens, ct = tt_pipe_case(arch, args.seed)
+            stage = stage_model(init_params(torch.Generator(
+                device=pm.device).manual_seed(args.seed), cfg,
+                device=pm.device), TT_RANKS, pm.rank)
+            stage.requires_grad_(True)
+            logits = make_pipelined_forward(cfg, TT_RANKS)(
+                stage, {"tokens": tokens.to(pm.device)}, micro)
+            (logits * ct.to(pm.device)).sum().backward()
+            out[f"pipe-grad {arch}"] = {
+                k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                .cpu() for k, p in stage.named_parameters()}
+        out["pipe-grad s"] = time.perf_counter() - t0
         torch.save(out, work / f"rank{pm.rank}.pt")
         print("RESULT " + json.dumps(dict(rank=pm.rank,
                                           device=str(pm.device),
@@ -2318,8 +2361,9 @@ def train_across_ranks(args, gpu) -> None:
     """Phase 16: each case of ``tt_cases`` unsplit on the card (one step,
     its results kept on the host), then by two processes on the card over
     gloo (``launch.mesh.run_ranks``; NCCL refuses two ranks on one card):
-    16a over model=2, 16b over data=2, 16d the pipelined forward over 2
-    stages; then 16c the launcher over model=2, resumed over data=2."""
+    16a over model=2, 16b over data=2, 16d the pipelined forward and
+    backward over 2 stages; then 16c the launcher over model=2, resumed
+    over data=2."""
     import dataclasses
     import shutil
     from repro_torch.configs import get_smoke_config
@@ -2327,6 +2371,7 @@ def train_across_ranks(args, gpu) -> None:
     from repro_torch.launch.mesh import ProcessMesh, run_ranks
     from repro_torch.models import model as TM
     from repro_torch.models.model import abstract_params, init_params
+    from repro_torch.tools.tp_train import microbatch_logits
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     refs, cases = {}, tt_cases(args.seed)
@@ -2349,6 +2394,20 @@ def train_across_ranks(args, gpu) -> None:
             b, seq))
         plain = TM._logits(whole, h).cpu()
     del whole
+    t_grad = time.perf_counter()
+    pipe_refs = {}
+    for arch in TT_PIPE_GRAD:
+        gcfg, gtok, gct = tt_pipe_case(arch, args.seed)
+        gw = init_params(torch.Generator(device=gpu).manual_seed(args.seed),
+                         gcfg, device=gpu)
+        gw.requires_grad_(True)
+        (microbatch_logits(gw, gtok.to(gpu), micro) * gct.to(gpu)).sum(
+            ).backward()
+        pipe_refs[arch] = (gcfg, {
+            k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+            for k, p in gw.named_parameters()})
+        del gw
+    t_grad = time.perf_counter() - t_grad
     with tempfile.TemporaryDirectory() as work:
         ranks = run_ranks([str(Path(__file__).resolve()), "--tt-dir", work,
                            "--seed", str(args.seed)], TT_RANKS, TT_TIMEOUT_S)
@@ -2446,6 +2505,39 @@ def train_across_ranks(args, gpu) -> None:
           f"of {seq} in {micro} microbatches): both stages' logits equal, "
           f"within {gap:.3g} of the whole forward's (largest |logit| "
           f"{top:.4g}, limit {TT_PIPE_TOL} of it)", flush=True)
+    notes = []
+    for arch, (gcfg, want) in pipe_refs.items():
+        parts = [g[f"pipe-grad {arch}"] for g in got]
+        per = gcfg.n_periods // TT_RANKS * len(gcfg.pattern)
+        worst, leaf = 0.0, None
+        for r, part in enumerate(parts):
+            for k, g in part.items():
+                name = k
+                if k.startswith("blocks."):
+                    _, i, rest = k.split(".", 2)
+                    name = f"blocks.{int(i) + r * per}.{rest}"
+                elif r:
+                    check(torch.equal(g, parts[0][k]), f"phase 16d {arch}: "
+                          f"the stages' gradients of {k} differ")
+                exp = want[name]
+                scale = float(exp.abs().max()) or 1.0
+                rel = float((g - exp).abs().max()) / scale
+                check(torch.isfinite(g).all() and rel <= TT_PIPE_GRAD_TOL,
+                      f"phase 16d {arch}: the pipeline's gradient of {k} "
+                      f"(stage {r}) differs from the unsplit backward's by "
+                      f"{rel:.3g} of its largest |value|")
+                if rel >= worst:
+                    worst, leaf = rel, k
+        notes.append(f"{arch} {worst:.3g} ({leaf})")
+    pipe_s = max(g["pipe-grad s"] for g in got)
+    print(f"[tt] phase 16d: the pipeline's backward of sum(logits * ct) over "
+          f"{TT_RANKS} stages (remat full, f32) against the unsplit "
+          f"backward of the same microbatches on the card: the embedding, "
+          f"head and final norm bit-identical on both stages, largest gap "
+          f"of a leaf's largest |value| (limit {TT_PIPE_GRAD_TOL:g}): "
+          + "; ".join(notes) + f"; the backward cases added "
+          f"{t_grad + pipe_s:.1f} s ({t_grad:.1f} s unsplit, {pipe_s:.1f} "
+          f"s over the stages)", flush=True)
 
     # 16c: the launcher as users run it
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -150,11 +150,16 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
     da = dtc * a[None, None, None, :]              # (B,nc,Q,H) negative
     cum = torch.cumsum(da, dim=2)                  # within-chunk cumulative
 
-    # intra-chunk: G[i,j] = C_i . B_j * exp(cum_i - cum_j) * dt_j  (i >= j)
+    # intra-chunk: G[i,j] = C_i . B_j * exp(cum_i - cum_j) * dt_j  (i >= j).
+    # Above the diagonal cum_i - cum_j > 0, and its exp overflows once a
+    # chunk's decay passes f32's range: it is masked to -inf before the
+    # exp (the JAX package masks the exp after it, the same values), so
+    # that the backward multiplies no zero gradient by an infinite exp
     li = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,nc,Q,Q,H)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=xh.device))
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(li), 0.0)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], li,
+                                  float("-inf")))
     del li
     gb = torch.einsum("bcin,bcjn->bcij", cc, bc)            # (B,nc,Q,Q)
     w = gb.float()[..., None] * decay * dtc[:, :, None, :, :]

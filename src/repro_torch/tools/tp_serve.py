@@ -32,8 +32,9 @@ and, to hold the split at published widths, command-r-plus-104b and
 llama3-8b with one layer, jamba with one period and deepseek-v2 with two
 layers (its dense prefix layer and one MoE layer), in f32 (f32 caches,
 128 prompt tokens) on one card and over ``model=4`` (llama also
-``(2, 2)``), and llama3-8b whole on one card serving 2 of the 4
-requests.
+``(2, 2)``; jamba also under ``kv_seq``, which holds the softmax merge of
+``models.attention._seq_attention`` in f32), and llama3-8b whole on one
+card serving 2 of the 4 requests.
 
 Each rank serves its requests through ``run`` (cold), then once more on
 the same weights (warm), then profiles 4 more decode steps. A run is
@@ -124,6 +125,7 @@ RUNS = (
     Run("crp-m4", "command-r-plus-104b", None, (1, 4)),
     Run("jamba1f-1", JAMBA, 1, (1, 1), **F32),
     Run("jamba1f-m4", JAMBA, 1, (1, 4), "jamba1f-1", **F32),
+    Run("jamba1f-seq-m4", JAMBA, 1, (1, 4), "jamba1f-1", seq=True, **F32),
     Run("dsv2-2f-1", DSV2, 1, (1, 1), **F32),
     Run("dsv2-2f-m4", DSV2, 1, (1, 4), "dsv2-2f-1", **F32),
     Run("jamba8-1", JAMBA, 1, (1, 1)),
@@ -391,6 +393,7 @@ def compare(run: Run, out: Path, n_ranks: int) -> Dict:
     data, model = run.mesh
     n = run.batch // data
     worst_pre, worst_first, off, same_first, norm = 0.0, 0.0, 0, 0, 0.0
+    first_norm = 0.0
     tokens_equal, tokens = 0, 0
     group_equal = True
     for d in range(data):
@@ -409,13 +412,17 @@ def compare(run: Run, out: Path, n_ranks: int) -> Dict:
         if same.any():
             got, exp = lead["first"][same], ref["first"][rows][same]
             worst_first = max(worst_first, float(np.abs(got - exp).max()))
+            first_norm = max(first_norm, float(
+                (np.linalg.norm(got - exp, axis=-1)
+                 / np.linalg.norm(exp, axis=-1)).max()))
             off += int((~_close(got, exp)).sum())
         same_first += int(same.sum())
         tokens_equal += int((lead["tokens"] == ref["tokens"][rows]).sum())
         tokens += lead["tokens"].size
     return dict(ref=run.ref, prefill_max_abs=worst_pre,
                 prefill_normwise=norm,
-                first_decode_max_abs=worst_first, logits_off_tol=off,
+                first_decode_max_abs=worst_first,
+                first_decode_normwise=first_norm, logits_off_tol=off,
                 first_token_equal=same_first, tokens_equal=tokens_equal,
                 tokens=tokens, group_logits_equal=group_equal)
 

@@ -33,18 +33,40 @@ Each run starts its ranks, one process a card, through
 * ``llama4f-p4``: ``make_pipelined_forward`` over 4 stages, llama3-8b
   with 4 layers in f32, 8 rows of 256 positions in 4 microbatches, its
   logits held against the whole model's forward of each microbatch on
-  one card (and compared with its forward of the whole batch).
+  one card (and compared with its forward of the whole batch), then its
+  backward of ``sum(logits * ct)`` (``ct`` drawn from seed 0): every
+  gradient held against the one card's backward of the same
+  microbatches (``microbatch_logits``; compared with its backward of the
+  whole batch), the embedding, head and final norm bit-identical on
+  every stage.
+* ``nemotron-p4``, ``jamba-p4``: nemotron-4-15b and jamba-v0.1-52b whole
+  over 4 pipeline stages (8 periods, and one period of 8 layers, a
+  stage), bf16 weights drawn from seed 0 (each stage draws its own
+  stage's model: the same draw on every stage), ``remat="full"``, 4 rows
+  of 4,096 positions (halved while the reckoning says so) in 4
+  microbatches (``SyntheticTokens``), forward and backward of the
+  ``_lm_loss`` form of the logits (f32 logsumexp and gold) on every
+  stage, with no optimizer. No two cards hold jamba's weights and
+  gradients. ``nemotron-m4-2k`` is ``nemotron-m4`` at the positions the
+  pipeline's reckoning leaves it, for the two splits side by side.
 
 Before a training run each rank reckons its memory from the shapes on
 the ``meta`` device (``reckon``); a batch that would go over
 ``MEMORY_LIMIT_GB`` a card is halved until it does not, and the run says
-so. A training run reports per rank: the memory reckoned and the peak,
-each step's wall ms and its split by CUDA events (forward + backward,
-the gradient exchange, the optimizer), the profiled warm step's device
-busy time, its NCCL share and the idle share against the warm step's
-wall, positions/s, and the bound (the step's bf16 products over 989
-TFLOP/s and its f32 attention over 67 TFLOP/s, a card). ``--quick`` cuts
-the layers and positions (a check of the path, not a measurement).
+so; a pipeline run reckons its stage the same way (``reckon_stage``)
+and halves its positions. A training run reports per rank: the memory
+reckoned and the peak, each step's wall ms and its split by CUDA events
+(forward + backward, the gradient exchange, the optimizer), the profiled
+warm step's device busy time, its NCCL share and the idle share against
+the warm step's wall, positions/s, and the bound (the step's bf16 products over 989
+TFLOP/s and its f32 attention over 67 TFLOP/s, a card). A pipeline run
+reports per stage: the memory reckoned and the peak, the warm forward
+and backward wall ms by CUDA events, the profiled warm pass's busy,
+NCCL and idle shares (GPipe's fill and drain leave a stage idle 3 of 7
+ticks), positions/s, and the bound (the stage's bf16 products, the head
+on every stage, over 989 TFLOP/s and its f32 attention over 67
+TFLOP/s). ``--quick`` cuts the layers and positions (a check of the
+path, not a measurement).
 Every number names the cards and their power limits (``nvidia-smi``).
 """
 from __future__ import annotations
@@ -90,12 +112,20 @@ AGREE_GRAD = 1e-3
 # counts, and near one-hot attention turns a last-bit difference into
 # another key (reported, not held)
 PIPE_TOL = 1e-5
+# the pipeline's gradients against the one card's backward of the same
+# microbatches in the pipeline's order of sums (microbatch_logits): each
+# leaf within this share of its largest |value|. A first run on four H100
+# 80GB HBM3 (700 W) against each microbatch's backward summed first to
+# last measured 8.7e-6-1.17e-5 (the periods' sums in the other order; the
+# largest logit near 1,500 at these random weights)
+PIPE_GRAD_TOL = 1e-5
+PIPE_MICRO = 4
 
 
 @dataclasses.dataclass(frozen=True)
 class Run:
     name: str
-    kind: str                   # "train", "agree" or "pipe"
+    kind: str                   # "train", "agree", "pipe", "pipe_train"
     arch: str
     mesh: tuple                 # (data, model); (1, stages) for "pipe"
     n_periods: Optional[int] = None   # None: the whole model
@@ -114,6 +144,11 @@ RUNS = (
     Run("dsv2-2f-d2m2-drop", "agree", "deepseek-v2-236b", (2, 2), 1, 2,
         1024, (("capacity_factor", 0.5),)),
     Run("llama4f-p4", "pipe", "llama3-8b", (1, 4), 4, 8, 256),
+    Run("nemotron-p4", "pipe_train", "nemotron-4-15b", (1, 4), None, 4,
+        4096),
+    # model=4 on the batch the pipeline's reckoning leaves it (4 x 2,048)
+    Run("nemotron-m4-2k", "train", "nemotron-4-15b", (1, 4), None, 4, 2048),
+    Run("jamba-p4", "pipe_train", "jamba-v0.1-52b", (1, 4), None, 4, 4096),
     Run("nemotron-m4", "train", "nemotron-4-15b", (1, 4), None, 4, 4096),
     Run("llava-d2m2", "train", "llava-next-mistral-7b", (2, 2), None, 4),
 )
@@ -191,6 +226,83 @@ def step_flops(model, cfg, layout, batch: int, seq: int):
     f32 = 4 * (2 * 2 * b * sq * (heads.stop - heads.start) * sk
                * cfg.head_dim) * cfg.n_layers
     return bf16, f32
+
+
+def period_saved_bytes(scfg, rows: int, seq: int) -> int:
+    """Bytes autograd saves for one period of ``scfg`` over ``rows`` x
+    ``seq`` positions (what remat's recompute holds in a microbatch's
+    backward), counted by running the period on the ``meta`` device: each
+    saved tensor that is not a parameter or a view of one, a
+    data-dependent shape (``nonzero``'s) taken at its largest."""
+    import torch.fx.experimental._config as fx_config
+    from ..models.model import _run_stack, abstract_params, torch_dtype
+    model = abstract_params(dataclasses.replace(scfg, n_periods=1,
+                                                remat="none"))
+    model.requires_grad_(True)
+    params = {id(p) for p in model.parameters()}
+    saved = {}
+
+    def pack(t):
+        if id(t if t._base is None else t._base) not in params:
+            saved[id(t)] = t.numel() * t.element_size()
+        return t
+
+    x = torch.empty((rows, seq, scfg.d_model), device="meta",
+                    dtype=torch_dtype(scfg.dtype), requires_grad=True)
+    pos = torch.arange(seq, device="meta")[None].expand(rows, seq)
+    was = fx_config.meta_nonzero_assume_all_nonzero
+    fx_config.meta_nonzero_assume_all_nonzero = True
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            _run_stack(model, x, pos)
+    finally:
+        fx_config.meta_nonzero_assume_all_nonzero = was
+    return sum(saved.values())
+
+
+def reckon_stage(cfg, n_stages: int, batch: int, seq: int) -> Dict:
+    """Bytes one stage holds at the peak of a pipelined forward and
+    backward, reckoned from its shapes on the ``meta`` device: its
+    parameters and gradients, the inputs remat keeps (each microbatch's
+    at each period, and each tick's received tensor), one period's
+    recompute for a microbatch (:func:`period_saved_bytes`), the batch's
+    outputs, and the whole batch's logits on every stage (bf16, then f32
+    with the loss's gradient and one f32 temporary)."""
+    from ..models.model import abstract_params
+    from ..train.step import stage_config
+    scfg = stage_config(cfg, n_stages)
+    n = sum(p.numel() * p.element_size()
+            for p in abstract_params(scfg).parameters())
+    act = batch * seq * cfg.d_model * 2
+    ticks = PIPE_MICRO + n_stages - 1
+    return {"parameters": n, "gradients": n,
+            "block inputs": scfg.n_periods * act
+            + ticks * act // PIPE_MICRO,
+            "one period's recompute": period_saved_bytes(
+                scfg, batch // PIPE_MICRO, seq),
+            "outputs": act,
+            "logits": batch * seq * cfg.vocab * (2 + 3 * 4)}
+
+
+def stage_flops(stage, scfg, batch: int, seq: int):
+    """(bf16, f32) FLOP of one stage's pipelined forward and backward: its
+    blocks' products 2 x parameters a position forward, again for the
+    remat forward and 4 x backward (8 x; of an expert's, the share
+    ``top_k / n_experts`` a position reaches); the head's 6 x, on every
+    stage (the reference computes the logits on each); the attention's
+    f32 scores and values over every pair of query and key chunks,
+    padded, of its attention layers (forward, recompute and backward)."""
+    moe = scfg.moe.top_k / scfg.moe.n_experts if scfg.moe else 1.0
+    blk = sum(p.numel() * (moe if p.dim() == 3 and ".ffn.w_" in n else 1)
+              for n, p in stage.blocks.named_parameters())
+    head = (stage.embed if scfg.tie_embeddings else stage.lm_head).numel()
+    t = batch * seq
+    qc, kc = scfg.attn_chunk // 2, scfg.attn_chunk
+    sq, sk = -(-seq // qc) * qc, -(-seq // kc) * kc
+    n_attn = sum(m == "attn" for m, _ in scfg.layer_specs)
+    f32 = 4 * (2 * 2 * batch * sq * scfg.n_heads * sk * scfg.head_dim) \
+        * n_attn
+    return 8 * blk * t + 6 * head * t, f32
 
 
 class _Marks:
@@ -509,8 +621,25 @@ def agree_worker(spec: dict, out: Path) -> None:
         shutdown_process_mesh(pm)
 
 
+def microbatch_logits(model, tokens, n_microbatches: int):
+    """What ``make_pipelined_forward`` computes, by the whole ``model`` on
+    one process and in the pipeline's order of sums: the batch embedded at
+    once, each microbatch run through every period, the outputs' logits
+    taken at once (under autograd each period's gradient then sums the
+    microbatches last first, as the stages' backward does)."""
+    from ..models import model as TM
+    x = TM._embed_inputs(model, {"tokens": tokens})
+    b, s, d = x.shape
+    n = b // n_microbatches
+    pos = torch.arange(s, device=x.device)[None].expand(n, s)
+    outs = torch.stack([TM._run_stack(model, m, pos)[0]
+                        for m in x.reshape(n_microbatches, n, s, d).unbind(0)])
+    return TM._logits(model, outs.reshape(b, s, d))
+
+
 def pipe_worker(spec: dict, out: Path) -> None:
-    """One stage of the pipeline run."""
+    """One stage of the pipeline's agreement run: its forward, then its
+    backward, against the whole model on this card."""
     from ..launch.mesh import shutdown_process_mesh
     from ..models import model as TM
     from ..train.step import make_pipelined_forward, stage_model
@@ -526,7 +655,7 @@ def pipe_worker(spec: dict, out: Path) -> None:
                                cfg, device=dev)
         tokens = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab, (batch, seq)).astype(np.int32)).to(dev)
-        micro = 4
+        micro = PIPE_MICRO
 
         def plain_of(rows):
             x = TM._embed_inputs(model, {"tokens": rows})
@@ -555,15 +684,69 @@ def pipe_worker(spec: dict, out: Path) -> None:
         norm = float(torch.linalg.vector_norm(logits - plain)
                      / torch.linalg.vector_norm(plain))
         whole_gap = float((logits - whole).abs().max())
+        whole_norm = float(torch.linalg.vector_norm(logits - whole)
+                           / torch.linalg.vector_norm(whole))
+        del whole
+
+        # the backward of sum(logits * ct): one card's of the microbatches
+        # (microbatch_logits), and of the whole batch; then the pipeline's
+        ct = torch.randn(plain.shape, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        del plain, logits
+        model.requires_grad_(True)
+
+        def grads_of(m):
+            out = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                   for k, p in m.named_parameters()}
+            m.zero_grad(set_to_none=True)
+            return out
+
+        (microbatch_logits(model, tokens, micro) * ct).sum().backward()
+        want = grads_of(model)
+        (plain_of(tokens) * ct).sum().backward()
+        whole_batch = grads_of(model)
+        model.requires_grad_(False)
+        stage.requires_grad_(True)
+        grad_ms = []
+        for _ in range(2):
+            stage.zero_grad(set_to_none=True)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            (pipe(stage, {"tokens": tokens}, micro) * ct).sum().backward()
+            torch.cuda.synchronize(dev)
+            grad_ms.append((time.perf_counter() - t0) * 1e3)
+        per = len(stage.blocks)
+        grad_gap, batch_norm = {}, {}
+        for k, p in stage.named_parameters():
+            name = k
+            if k.startswith("blocks."):
+                _, i, rest = k.split(".", 2)
+                name = f"blocks.{int(i) + pm.rank * per}.{rest}"
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            exp, other = want[name], whole_batch[name]
+            scale = float(exp.abs().max())
+            grad_gap[k] = float((g - exp).abs().max()) / (scale or 1.0)
+            den = float(torch.linalg.vector_norm(other))
+            batch_norm[k] = float(torch.linalg.vector_norm(g - other)) / (
+                den or 1.0)
+        same = _whole_leaves_equal(stage)
+        kg = max(grad_gap, key=grad_gap.get)
+        kb = max(batch_norm, key=batch_norm.get)
         res = dict(rank=pm.rank, device=str(dev),
                    periods=len(stage.blocks), largest_logit=top,
                    max_abs=gap, max_rel=gap / top, normwise=norm,
                    whole_batch_max_rel=whole_gap / top,
-                   whole_batch_normwise=float(
-                       torch.linalg.vector_norm(logits - whole)
-                       / torch.linalg.vector_norm(whole)),
+                   whole_batch_normwise=whole_norm,
                    plain_ms=plain_ms, pipeline_cold_ms=times[0],
-                   pipeline_ms=times[1], ok=gap <= PIPE_TOL * top,
+                   pipeline_ms=times[1], grad_max_rel=grad_gap[kg],
+                   grad_max_leaf=kg, grad_bit_identical=all(
+                       v == 0 for v in grad_gap.values()),
+                   whole_batch_grad_normwise=batch_norm[kb],
+                   whole_batch_grad_leaf=kb, whole_leaves_equal=same,
+                   pipeline_grad_cold_ms=grad_ms[0],
+                   pipeline_grad_ms=grad_ms[1],
+                   ok=gap <= PIPE_TOL * top
+                   and grad_gap[kg] <= PIPE_GRAD_TOL and same,
                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
         (out / f"{spec['name']}-rank{pm.rank}.json").write_text(
             json.dumps(res))
@@ -571,7 +754,140 @@ def pipe_worker(spec: dict, out: Path) -> None:
         shutdown_process_mesh(pm)
 
 
-WORKERS = {"train": train_worker, "agree": agree_worker, "pipe": pipe_worker}
+def _whole_leaves_equal(stage) -> bool:
+    """Whether this stage's gradients of the embedding, head and final
+    norm are stage 0's, bit for bit (each broadcast from it; a NaN equal
+    to the same NaN)."""
+    import torch.distributed as dist
+    same = True
+    for name, p in stage.named_parameters():
+        if name.startswith("blocks."):
+            continue
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        ref = g.clone()
+        dist.broadcast(ref, 0)
+        same = same and torch.equal(ref.view(torch.uint8),
+                                    g.contiguous().view(torch.uint8))
+    return bool(same)
+
+
+def _nonfinite(stage) -> Dict:
+    """Of this stage's gradients: the count of elements that are not
+    finite, the leaves holding them, and the largest finite |value| of
+    each leaf in the stage's order (the embedding first, the periods by
+    layer, the head last)."""
+    out = {"count": 0, "leaves": [], "largest_finite": {}}
+    for name, p in stage.named_parameters():
+        if p.grad is None:
+            continue
+        bad = p.grad.numel() - int(torch.isfinite(p.grad).sum())
+        if bad:
+            out["count"] += bad
+            out["leaves"].append(name)
+        out["largest_finite"][name] = float(p.grad.abs().nan_to_num_(
+            nan=0.0, posinf=0.0).max().float())
+    return out
+
+
+def _loss_of(logits, labels):
+    """``models.model._lm_loss``'s form of the logits: the mean over the
+    labels >= 0 of the f32 logsumexp less the gold logit."""
+    lg = logits.float()
+    mask = labels >= 0
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, torch.clamp_min(labels, 0).long()[..., None]
+                        )[..., 0]
+    return ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1)
+
+
+def pipe_train_worker(spec: dict, out: Path) -> None:
+    """One stage of a pipelined forward and backward at full width."""
+    from ..data.tokens import SyntheticTokens
+    from ..launch.mesh import shutdown_process_mesh
+    from ..models.model import init_params
+    from ..train.step import make_pipelined_forward, stage_config
+
+    cfg = dataclasses.replace(_config(spec, "bfloat16"), remat="full")
+    pm = _mesh(spec)
+    dev = pm.device
+    try:
+        n_stages = pm.model
+        scfg = stage_config(cfg, n_stages)
+        batch, seq = spec["batch"], spec["seq"]
+        notes = []
+        while True:
+            mem = reckon_stage(cfg, n_stages, batch, seq)
+            if sum(mem.values()) / 1e9 <= MEMORY_LIMIT_GB or seq <= 256:
+                break
+            notes.append(f"{seq} positions reckoned at "
+                         f"{sum(mem.values()) / 1e9:.1f} GB a card: halved")
+            seq //= 2
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        stage = init_params(torch.Generator(device=dev).manual_seed(0),
+                            scfg, device=dev)
+        stage.requires_grad_(True)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        arrays = SyntheticTokens(cfg.vocab, seq, batch, seed=0).batch_at(0)
+        tokens = torch.from_numpy(arrays["tokens"]).to(dev)
+        labels = torch.from_numpy(arrays["labels"]).to(dev)
+        pipe = make_pipelined_forward(cfg, n_stages)
+        marks = []
+
+        def step():
+            stage.zero_grad(set_to_none=True)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            loss = _loss_of(pipe(stage, {"tokens": tokens}, PIPE_MICRO),
+                            labels)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            marks.append((loss.detach(), ev))
+
+        passes = []
+        for _ in range(3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            loss, ev = marks[-1]
+            passes.append(dict(loss=float(loss), wall_ms=wall,
+                               forward_ms=ev[0].elapsed_time(ev[1]),
+                               backward_ms=ev[1].elapsed_time(ev[2])))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        busy, nccl, prof_wall = _profile(step, dev)
+        same = _whole_leaves_equal(stage)
+        nonfinite = _nonfinite(stage)
+        bf16, f32 = stage_flops(stage, scfg, batch, seq)
+        warm = passes[-1]
+        res = dict(
+            rank=pm.rank, device=str(dev), backend=pm.backend,
+            periods=scfg.n_periods, layers=len(stage.blocks), batch=batch,
+            seq=seq, notes=notes,
+            params=sum(p.numel() for p in stage.parameters()),
+            reckoned_gb={k: v / 1e9 for k, v in mem.items()},
+            reckoned_total_gb=sum(mem.values()) / 1e9, peak_gb=peak,
+            init_s=init_s, passes=passes, whole_leaves_equal=same,
+            grads_finite=not nonfinite["count"], nonfinite=nonfinite,
+            profile_busy_ms=busy,
+            profile_wall_ms=prof_wall, nccl_ms=nccl,
+            busy_share=busy / prof_wall if busy else None,
+            nccl_share=nccl / busy if busy else None,
+            idle_share=max(0.0, 1 - busy / prof_wall) if busy else None,
+            positions_per_s=batch * seq / warm["wall_ms"] * 1e3,
+            bound_ms=(bf16 / BF16_FLOP_PER_S + f32 / F32_FLOP_PER_S) * 1e3,
+            bf16_tflop=bf16 / 1e12, f32_tflop=f32 / 1e12)
+        (out / f"{spec['name']}-rank{pm.rank}.json").write_text(
+            json.dumps(res))
+    finally:
+        shutdown_process_mesh(pm)
+
+
+WORKERS = {"train": train_worker, "agree": agree_worker, "pipe": pipe_worker,
+           "pipe_train": pipe_train_worker}
 
 
 def _ok(run: Run, ranks: List[Dict]) -> bool:
@@ -580,6 +896,12 @@ def _ok(run: Run, ranks: List[Dict]) -> bool:
                   for r in ranks}
         return all(r["loss_falls"] and all(np.isfinite(s["loss"])
                                            for s in r["steps"])
+                   for r in ranks) and len(losses) == 1
+    if run.kind == "pipe_train":
+        losses = {json.dumps([p["loss"] for p in r["passes"]])
+                  for r in ranks}
+        return all(r["whole_leaves_equal"] and r["grads_finite"]
+                   and all(np.isfinite(p["loss"]) for p in r["passes"])
                    for r in ranks) and len(losses) == 1
     return all(r["ok"] for r in ranks)
 
@@ -617,6 +939,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             if args.quick:
                 spec.update(n_periods=1 if run.kind == "agree"
                             else QUICK_PERIODS if run.kind == "train"
+                            else run.mesh[1] if run.kind == "pipe_train"
                             else run.n_periods,
                             seq=min(run.seq, QUICK_SEQ))
             t0 = time.perf_counter()

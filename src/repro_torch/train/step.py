@@ -19,7 +19,7 @@ taken over the group. The JAX package gets the same from XLA's
 partitioner under its training rules.
 
 :func:`make_pipelined_forward` is the JAX package's GPipe forward over
-ranks of a stage group (forward only: ROADMAP A15d).
+ranks of a stage group, with the gradient ``jax.grad`` takes through it.
 """
 from __future__ import annotations
 
@@ -215,6 +215,89 @@ def stage_model(model: Model, n_stages: int, stage: int) -> Model:
     return out
 
 
+def _exchange(x: torch.Tensor, to: int, frm: int, group) -> torch.Tensor:
+    """``x`` sent to global rank ``to`` while a tensor like it comes from
+    ``frm``, in one ``batch_isend_irecv`` (through the host where the
+    group's backend is gloo and ``x`` is on a card); the received one."""
+    host = TP.through_host(x, group)
+    send = x.cpu() if host else x.contiguous()
+    recv = torch.empty_like(send)
+    for req in dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, send, to, group),
+             dist.P2POp(dist.irecv, recv, frm, group)]):
+        req.wait()
+    return recv.to(x.device) if host else recv
+
+
+def _broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Global rank ``src``'s ``x`` on every rank of ``group``: ``x`` itself
+    there, a new tensor like it elsewhere (through the host where the
+    group's backend is gloo and ``x`` is on a card)."""
+    mine = dist.get_rank() == src
+    host = TP.through_host(x, group)
+    buf = x.cpu() if host and mine else x if mine else torch.empty_like(
+        x, device="cpu" if host else x.device)
+    dist.broadcast(buf, src, group=group)
+    return x if mine else buf.to(x.device)
+
+
+class _Enter(torch.autograd.Function):
+    """The embedded batch as it is, and the first link of the chain that
+    orders the ring's backward (:class:`_Ring`). Backward: the first
+    stage's gradient of the batch, broadcast to every stage, so that each
+    stage's embedding gets the whole gradient of the lookup that fed the
+    ring."""
+
+    @staticmethod
+    def forward(ctx, x, link, src, group):
+        ctx.src, ctx.group = src, group
+        return x.view_as(x), link.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, g, _):
+        return _broadcast(g.contiguous(), ctx.src, ctx.group), None, None, \
+            None
+
+
+class _Ring(torch.autograd.Function):
+    """One tick's exchange: ``y`` to the next stage, what the previous
+    one sent in return, and the next link of the chain. Backward the
+    reverse exchange: the gradient of what came in goes back to the
+    previous stage, ``y``'s comes from the next one.
+
+    Each tick takes the previous tick's link, so every stage's ticks form
+    one chain in the autograd graph, which autograd runs last to first:
+    every stage makes the same exchanges in the same order, the ticks
+    where it ran no microbatch (and sent zeros) included."""
+
+    @staticmethod
+    def forward(ctx, y, link, nxt, prv, group):
+        ctx.peers = nxt, prv, group
+        return _exchange(y, nxt, prv, group), link.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, g, _):
+        nxt, prv, group = ctx.peers
+        return _exchange(g, prv, nxt, group), None, None, None, None
+
+
+class _Exit(torch.autograd.Function):
+    """The last stage's outputs on every stage, after the chain's last
+    link (the JAX package sums them with the other stages' zeros).
+    Backward: every stage takes the same loss of the same logits, so the
+    last stage's own gradient is the whole one; the others pass none."""
+
+    @staticmethod
+    def forward(ctx, outs, link, src, group):
+        ctx.mine = dist.get_rank() == src
+        out = _broadcast(outs, src, group)
+        return out.view_as(out) if ctx.mine else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else None), None, None, None
+
+
 def make_pipelined_forward(cfg: ModelConfig, n_stages: int, group=None
                            ) -> Callable:
     """The JAX package's ``make_pipelined_forward``: the periods split over
@@ -222,7 +305,7 @@ def make_pipelined_forward(cfg: ModelConfig, n_stages: int, group=None
     microbatches passed round a ring of them (GPipe fill and drain).
     Returns ``pipeline(stage, batch, n_microbatches) -> logits``, where
     ``stage`` is this rank's :func:`stage_model` (the stage of its rank
-    in ``group``). Forward only (its gradient is ROADMAP A15d).
+    in ``group``).
 
     Every stage embeds the batch (the first stage's input) and splits it
     into ``n_microbatches``; over ``n_microbatches + n_stages - 1`` ticks
@@ -233,8 +316,18 @@ def make_pipelined_forward(cfg: ModelConfig, n_stages: int, group=None
     n_stages + 1``. Its outputs are broadcast to every stage, where the
     JAX package sums (``psum``) them with the others' zeros, and every
     stage returns the logits of them, as the JAX function does without
-    the final norm. Raises for the configs :func:`stage_config`
-    refuses."""
+    the final norm.
+
+    Under autograd the logits carry the gradient ``jax.grad`` takes
+    through the JAX function: each stage's periods get their share, and
+    the embedding, head and final norm the whole gradient, the same on
+    every stage (the first stage's gradient of the embedded batch is
+    broadcast to all). Every stage must take the same loss of its logits
+    and run its backward: the backward makes each tick's exchange in
+    reverse, last tick first, on every stage, and a stage that does not
+    leaves its neighbours waiting. With ``cfg.remat`` each stage
+    recomputes a microbatch's periods in that microbatch's backward.
+    Raises for the configs :func:`stage_config` refuses."""
     stage_config(cfg, n_stages)
     size = dist.get_world_size(group)
     if size != n_stages:
@@ -243,18 +336,23 @@ def make_pipelined_forward(cfg: ModelConfig, n_stages: int, group=None
     peer = [dist.get_global_rank(group, i) if group is not None else i
             for i in range(n_stages)]
     nxt, prv = peer[(me + 1) % n_stages], peer[(me - 1) % n_stages]
+    last = n_stages - 1
 
-    def ring(y: torch.Tensor, buf: torch.Tensor) -> None:
-        host = TP.through_host(y, group)
-        send = y.cpu() if host else y.contiguous()
-        recv = torch.empty_like(send)
-        for req in dist.batch_isend_irecv(
-                [dist.P2POp(dist.isend, send, nxt, group),
-                 dist.P2POp(dist.irecv, recv, prv, group)]):
-            req.wait()
-        buf.copy_(recv)
+    def recorded(stage: Model, batch: Dict) -> bool:
+        """Whether the stages record the forward for a backward: grad mode
+        on, and a parameter or input of some stage needing a gradient.
+        Then the chain's first link needs one on every stage, so that
+        every stage's ticks are in the graph, whatever else is."""
+        if not torch.is_grad_enabled():
+            return False
+        mine = any(p.requires_grad for p in stage.parameters()) or any(
+            torch.is_tensor(v) and v.requires_grad for v in batch.values())
+        flag = torch.ones(1) if mine else torch.zeros(1)
+        if dist.get_backend(group) != dist.Backend.GLOO:
+            flag = flag.to(stage.embed.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        return bool(flag.item())
 
-    @torch.no_grad()
     def pipeline(stage: Model, batch: Dict, n_microbatches: int
                  ) -> torch.Tensor:
         x = _embed_inputs(stage, batch)
@@ -262,27 +360,24 @@ def make_pipelined_forward(cfg: ModelConfig, n_stages: int, group=None
         if b % n_microbatches:
             raise ValueError(f"a batch of {b} does not split into "
                              f"{n_microbatches} microbatches")
+        link = x.new_empty(0, requires_grad=recorded(stage, batch))
+        x, link = _Enter.apply(x, link, peer[0], group)
         mb = x.reshape(n_microbatches, b // n_microbatches, s, d)
+        ins = mb.unbind(0) if me == 0 else None
         positions = torch.arange(s, device=x.device)[None].expand(
             b // n_microbatches, s)
-        buf = torch.zeros_like(mb[0])
-        outs = torch.zeros_like(mb)
+        recv, ys = None, []
         for t in range(n_microbatches + n_stages - 1):
             if 0 <= t - me < n_microbatches:
-                x_in = mb[t] if me == 0 else buf
-                y, _ = _run_stack(stage, x_in, positions)
+                y, _ = _run_stack(stage, ins[t] if me == 0 else recv,
+                                  positions)
             else:
-                y = torch.zeros_like(buf)
-            ring(y, buf)
-            if me == n_stages - 1 and t >= n_stages - 1:
-                outs[t - (n_stages - 1)] = y
-        src = peer[n_stages - 1]
-        if TP.through_host(outs, group):
-            host = outs.cpu()
-            dist.broadcast(host, src, group=group)
-            outs.copy_(host)
-        else:
-            dist.broadcast(outs, src, group=group)
+                y = x.new_zeros(mb.shape[1:])
+            recv, link = _Ring.apply(y, link, nxt, prv, group)
+            if me == last and t >= last:
+                ys.append(y)
+        outs = torch.stack(ys) if me == last else x.new_empty(mb.shape)
+        outs = _Exit.apply(outs, link, peer[last], group)
         return _logits(stage, outs.reshape(b, s, d))
 
     return pipeline
