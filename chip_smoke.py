@@ -227,7 +227,16 @@ otherwise. Phases, each of which exits non-zero on failure:
    ``TT_PIPE_GRAD_TOL`` of its leaf's largest, the whole leaves
    bit-identical on both stages. Prints each case's largest differences
    and the phase's seconds. No kernel of the port
-   lies on these paths.
+   lies on these paths;
+17. the dry run (``repro_torch.launch.dryrun``) against phase 14c's
+   measured step: ``lower_cell`` of the same llava-next-mistral-7b train
+   step (its batch and positions, AdamW with bf16 moments) on the
+   ``meta`` device, one rank; its reckoned peak a card within 0.95-1.25
+   of phase 14c's ``torch.cuda.max_memory_allocated``. Prints both,
+   the dry run's bf16 and f32 FLOPs beside ``tools/tp_train.step_flops``'
+   and phase 14c's bound, its roofline against the H100's datasheet
+   peaks, the phase's seconds and the card's name and power limit. It
+   launches no kernel.
 
 ``launches`` in the kernel record counts phase 4's paths, phase 7's
 stream, phase 8b's mesh decodes, phase 12's requests and phase 14c's steps, and for the seeds
@@ -1629,7 +1638,7 @@ def train_launcher(args, gpu) -> None:
     del first, again, saved, restored
 
 
-def train_vlm(args, gpu, card, counters, kernels) -> None:
+def train_vlm(args, gpu, card, counters, kernels) -> dict:
     """Phase 14c: llava-next-mistral-7b at full width trained on patches
     from ``JpegVisionPipeline`` on the card (B1, B2, B4);
     ``make_train_step(schedule="constant")``, AdamW with bf16 moments, lr
@@ -1793,20 +1802,75 @@ def train_vlm(args, gpu, card, counters, kernels) -> None:
     del model, opt_state, params, pipe, patches, batch
     gc.collect()
     torch.cuda.empty_cache()
+    return dict(batch=bsz, seq=seq, peak=peak - held, bf16=bf16_flop,
+                f32=f32_flop, bound_ms=bound_ms)
 
 
-def train_families(args, gpu, card, counters, kernels) -> None:
+def train_families(args, gpu, card, counters, kernels) -> dict:
     """Phase 14: 14a the ten archs' smoke train step, card against CPU;
     14b the launcher with a checkpoint and a resume; 14c
-    llava-next-mistral-7b trained at full width on decoded frames."""
+    llava-next-mistral-7b trained at full width on decoded frames, whose
+    measured step (batch, positions, peak, FLOPs, bound) it returns."""
     for name, fn, call_args in (
             ("14a", train_smoke_parity, (args, gpu)),
             ("14b", train_launcher, (args, gpu)),
             ("14c", train_vlm, (args, gpu, card, counters, kernels))):
         t0 = time.perf_counter()
-        fn(*call_args)
+        out = fn(*call_args)
         print(f"[train] phase {name} took {time.perf_counter() - t0:.1f} s",
               flush=True)
+    return out
+
+
+# -- phase 17: the dry run against the measured step ---------------------------
+
+# the dry run's reckoned peak a card over phase 14c's measured one
+DRYRUN_PEAK_RANGE = (0.95, 1.25)
+
+
+def dry_run_step(card, step: dict) -> None:
+    """Phase 17: ``launch.dryrun.lower_cell`` of phase 14c's train step
+    (llava-next-mistral-7b at full width, its batch and positions, one
+    microbatch, AdamW with bf16 moments) on the ``meta`` device of this
+    process, one rank: its reckoned peak a card within DRYRUN_PEAK_RANGE
+    of phase 14c's ``torch.cuda.max_memory_allocated`` (the phase's own);
+    its bf16 and f32 FLOPs beside ``step_flops``'s and phase 14c's bound;
+    its roofline against the H100's datasheet peaks."""
+    from repro_torch.launch.dryrun import lower_cell, roofline
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t0 = time.perf_counter()
+    st = lower_cell("llava-next-mistral-7b", "train_4k", MeshShape(1, 1),
+                    batch=step["batch"], seq=step["seq"], microbatches=1,
+                    opt_cfg=AdamWConfig(lr=VLM_TRAIN_LR,
+                                        moment_dtype="bfloat16"))
+    secs = time.perf_counter() - t0
+    ratio = st["peak_bytes"] / step["peak"]
+    lo, hi = DRYRUN_PEAK_RANGE
+    rf = roofline(st)
+    print(f"[dryrun] phase 17: llava-next-mistral-7b train step, batch "
+          f"{step['batch']} x {step['seq']} positions, one card, reckoned "
+          f"on meta in {st['compile_s']} s: peak {st['peak_bytes'] / 1e9:.2f} "
+          f"GB a card (arguments {st['argument_bytes'] / 1e9:.2f}: "
+          f"parameters {st['param_bytes'] / 1e9:.2f}, optimizer "
+          f"{st['opt_bytes'] / 1e9:.2f}, inputs "
+          f"{st['input_bytes'] / 1e9:.4f}; temporaries "
+          f"{st['temp_bytes'] / 1e9:.2f}) against phase 14c's "
+          f"max_memory_allocated {step['peak'] / 1e9:.2f} GB: ratio "
+          f"{ratio:.4f} (held within {lo}-{hi}); FLOPs bf16 "
+          f"{st['flops_bf16'] / 1e12:.2f} T (step_flops "
+          f"{step['bf16'] / 1e12:.2f} T), f32 {st['flops_f32'] / 1e12:.2f} "
+          f"T (step_flops {step['f32'] / 1e12:.2f} T); bytes accessed "
+          f"{st['hbm_bytes_accessed'] / 1e12:.3f} TB; roofline compute "
+          f"{rf['compute_s'] * 1e3:.1f} ms, memory "
+          f"{rf['memory_s'] * 1e3:.1f} ms: {rf['dominant']}-bound "
+          f"{rf['bound_s'] * 1e3:.1f} ms (phase 14c's bound by operations "
+          f"{step['bound_ms']:.1f} ms); the phase {secs:.1f} s; {card}",
+          flush=True)
+    check(lo <= ratio <= hi, f"phase 17: the dry run's peak "
+          f"{st['peak_bytes'] / 1e9:.2f} GB is {ratio:.3f} of the measured "
+          f"{step['peak'] / 1e9:.2f} GB")
 
 
 # -- phase 15: serving across ranks ------------------------------------------
@@ -3627,13 +3691,16 @@ def main() -> None:
     serve_families(args, gpu, card)
 
     # -- 14. training --------------------------------------------------------------
-    train_families(args, gpu, card, counters, kernels)
+    vlm_step = train_families(args, gpu, card, counters, kernels)
 
     # -- 15. serving across ranks ---------------------------------------------
     serve_across_ranks(args, gpu)
 
     # -- 16. training across ranks ---------------------------------------------
     train_across_ranks(args, gpu)
+
+    # -- 17. the dry run against phase 14c's measured step ------------------------
+    dry_run_step(card, vlm_step)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,18 @@ Every assigned architecture is selectable as ``--arch <id>``; each pairs
 with the LM shape set (train_4k / prefill_32k / decode_32k / long_500k).
 ``long_500k`` runs only for sub-quadratic archs (ssm/hybrid).
 
-The port of the JAX package's ``configs/``. Its ``input_specs`` (stand-ins
-for the XLA dry run) has no counterpart here. ``repro_torch.models``
-serves all ten archs.
+The port of the JAX package's ``configs/``. ``repro_torch.models`` serves
+all ten archs. :func:`input_specs` gives a cell's inputs as tensors on
+the ``meta`` device, the stand-ins the dry run (``launch.dryrun``) runs
+a step on, where the JAX package gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
 
 from ..models.config import ModelConfig
 
@@ -69,3 +72,33 @@ def shape_overrides(cfg: ModelConfig, shape: str) -> ModelConfig:
         # dense GQA 32k cache at batch 128: int8 cache keeps HBM in budget
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     return cfg
+
+
+def input_specs(cfg: ModelConfig, shape: str,
+                batch_override: Optional[int] = None, device="meta",
+                seq_override: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Every model input of the given shape, as the JAX package's
+    ``input_specs`` names, shapes and types them: empty tensors on
+    ``device`` (``meta``: shapes and dtypes alone), zeros elsewhere.
+    ``seq_override`` replaces the shape's positions (a dry run of another
+    length: the VLM's text is what its patches leave)."""
+    seq, gbatch, kind = SHAPES[shape]
+    seq = seq_override or seq
+    b = batch_override or gbatch
+    make = torch.empty if torch.device(device).type == "meta" else torch.zeros
+
+    def spec(shp, dtype):
+        return make(shp, dtype=dtype, device=device)
+
+    if kind == "decode":
+        # one new token against a seq_len cache
+        return {"token": spec((b, 1), torch.int32)}
+    text = seq - (cfg.n_patches if cfg.frontend == "vision" else 0)
+    out = {"tokens": spec((b, text), torch.int32)}
+    if kind == "train":
+        out["labels"] = spec((b, text), torch.int32)
+    if cfg.frontend == "vision":
+        out["patches"] = spec((b, cfg.n_patches, 1024), torch.bfloat16)
+    if cfg.is_encdec:
+        out["frames"] = spec((b, cfg.enc_seq, 128), torch.bfloat16)
+    return out

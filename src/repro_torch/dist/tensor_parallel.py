@@ -235,10 +235,11 @@ def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (``a`` (..., k), ``b`` (k, n); or a batch of products,
     ``a`` (E, m, k), ``b`` (E, k, n)) accumulated and returned in f32
     without rounding to the operands' dtype: on the card a bf16 GEMM with
-    an f32 output (under autograd through :class:`_WideProduct`),
+    an f32 output (under autograd through :class:`_WideProduct`; on the
+    ``meta`` device too, which stands for the card in the dry run),
     elsewhere the product of the f32 operands (bf16 values are exact in
     f32)."""
-    if a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16,
+    if (a.is_cuda or a.is_meta) and a.dtype == b.dtype and a.dtype in (torch.bfloat16,
                                                         torch.float16):
         wide = _WideProduct.apply if torch.is_grad_enabled() and (
             a.requires_grad or b.requires_grad) else _wide_product

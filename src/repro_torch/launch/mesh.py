@@ -16,10 +16,12 @@ of peer copies. The CPU tests decode over ``Mesh([cpu] * 4)`` where the
 JAX package forces four host devices. A device index the machine does not
 have raises.
 
-The JAX package's TPU pod mesh (``make_production_mesh``) and its TPU
-roofline constants are not ported (ROADMAP: no port, on purpose): the
-largest mesh here is the cards of one host, four H100s joined by NVLink,
-as a :class:`ProcessMesh`.
+The JAX package's production meshes are here too, as shapes alone
+(:func:`make_production_mesh`: no process runs on them): the dry run
+(``launch.dryrun``) reckons a rank of each over a process group that
+moves nothing. :data:`H100` replaces the JAX package's TPU roofline
+constants. The largest mesh that runs here is the cards of one host,
+four H100s joined by NVLink, as a :class:`ProcessMesh`.
 """
 from __future__ import annotations
 
@@ -156,6 +158,55 @@ def make_local_data_mesh(devices: Optional[Sequence] = None) -> Mesh:
     process sees."""
     devs = list(devices) if devices is not None else _cards(None)
     return make_mesh((len(devs),), ("data",), devs)
+
+
+# ---------------------------------------------------------------------------
+# The production meshes, as shapes, and the card's peaks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A ``("data", "model")`` mesh as a shape alone: ``axis_names``,
+    ``shape`` and ``size``, which ``dist.plan`` reads from any mesh."""
+    data: int
+    model: int
+
+    axis_names = ("data", "model")
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    def tag(self) -> str:
+        return f"{self.data}x{self.model}"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The JAX package's production mesh as a shape: ``(data=16,
+    model=16)``, or for its two pods of ``(pod=2, data=16, model=16)``
+    ``(data=32, model=16)``: ``dist.plan.rules_for`` splits the batch over
+    ``pod`` and ``data`` alike, so a rank's shapes are the same."""
+    return MeshShape(32 if multi_pod else 16, 16)
+
+
+# Peaks of one NVIDIA H100 SXM5 80GB HBM3 card at its 700 W limit, from
+# NVIDIA's datasheet (dense rates, no sparsity), not measured: the
+# roofline's rates. ``nvlink_bw`` is NVLink 4's rate a card in each
+# direction within a node of ``node_cards``; ``net_bw`` a card's rate
+# between nodes (400 Gb/s NDR InfiniBand).
+H100 = {
+    "peak_flops_bf16": 989e12,   # FLOP/s a card, tensor cores
+    "peak_flops_f32": 67e12,     # FLOP/s a card, f32 outside the tensor cores
+    "hbm_bw": 3.35e12,           # bytes/s a card
+    "hbm_bytes": 80e9,           # capacity a card
+    "nvlink_bw": 450e9,          # bytes/s a card, each direction
+    "node_cards": 8,
+    "net_bw": 50e9,              # bytes/s a card, each direction
+}
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Tables of the serving entry point's dry runs: the JPEG decode stream and
-the decode service.
+"""Tables of the dry runs: the model dry run's cells and rooflines
+(:func:`render`), the JPEG decode stream and the decode service.
 
-The port of the parts of the JAX package's ``launch/report.py`` that
-``launch/serve.py`` calls, over the port's pipeline and decode service.
-Its ``render(path)`` (the dry-run and roofline tables from benchmark
-JSON) waits for ROADMAP A14.
+The port of the JAX package's ``launch/report.py``, over the port's
+dry run (``launch.dryrun``), pipeline and decode service::
+
+  PYTHONPATH=src python -m repro_torch.launch.report results/dryrun/dryrun.json
 """
 from __future__ import annotations
+
+import json
+import sys
 
 
 def fmt_bytes(b):
@@ -227,3 +230,76 @@ def decode_serve_dryrun(n_requests: int, batch_size: int = 4,
     finally:
         svc.close()
     return stats, load
+
+
+def _per_card(r: dict, key: str) -> float:
+    """``r[key]`` for one card: the port's rows hold a card's bytes
+    (``per_card``); the JAX package's are read, as its report reads them,
+    as the whole mesh's."""
+    return r[key] if r.get("per_card") else r[key] / r["n_chips"]
+
+
+def render(path: str) -> str:
+    """The dry-run and roofline tables of a ``dryrun.json`` (the port's,
+    or the JAX package's), against the H100's datasheet peaks
+    (``launch.mesh.H100``), in bytes a card; a cell whose peak goes over
+    a card's 80 GB is marked."""
+    from .dryrun import model_flops, roofline
+    from .mesh import H100
+    with open(path) as f:
+        rows = json.load(f)
+    out = []
+    out.append("### Dry-run matrix (a card)\n")
+    out.append("| arch | shape | mesh | pass | peak/card | args/card | "
+               "temp/card | flops/card (bf16, f32) | bytes/card | "
+               "coll bytes/card |")
+    out.append("|---|---|---|---|---|---|---|---|---|---|")
+    for r in rows:
+        if "skipped" in r:
+            out.append(f"| {r['arch']} | {r['shape']} | - | SKIP: "
+                       f"{r['skipped']} | | | | | | |")
+            continue
+        if "error" in r:
+            out.append(f"| {r['arch']} | {r['shape']} | {r.get('mesh')} | "
+                       f"FAIL | | | | | | |")
+            continue
+        peak = r.get("peak_bytes")
+        over = " **over 80 GB**" if peak and peak > H100["hbm_bytes"] \
+            else ""
+        split = (f" ({r['flops_bf16']:.3e}, {r['flops_f32']:.3e})"
+                 if "flops_bf16" in r else "")
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['compile_s']}s "
+            f"| {fmt_bytes(peak)}{over} "
+            f"| {fmt_bytes(_per_card(r, 'argument_bytes'))} "
+            f"| {fmt_bytes(_per_card(r, 'temp_bytes'))} "
+            f"| {r.get('flops_model', 0):.3e}{split} "
+            f"| {fmt_bytes(r.get('hbm_bytes_accessed_model'))} "
+            f"| {fmt_bytes(r.get('collective_bytes_model', r.get('collective_bytes', 0)))} |")
+
+    out.append("\n### Roofline (H100 SXM5 80GB datasheet peaks, 700 W; "
+               "a step)\n")
+    out.append("| arch | shape | mesh | compute | memory | collective | "
+               "dominant | bound | MODEL_FLOPS/counted | roofline frac |")
+    out.append("|---|---|---|---|---|---|---|---|---|---|")
+    for r in rows:
+        if "flops_model" not in r:
+            continue
+        rf = roofline(r)
+        mf = model_flops(r["arch"], r["shape"])
+        frac = mf / (r["flops_model"] * r["n_chips"]) \
+            if r["flops_model"] else 0
+        # fraction of roofline achieved = ideal compute time over bound
+        ideal = mf / (r["n_chips"] * H100["peak_flops_bf16"])
+        achieved = ideal / rf["bound_s"] if rf["bound_s"] else 0.0
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} "
+            f"| {fmt_s(rf['compute_s'])} | {fmt_s(rf['memory_s'])} "
+            f"| {fmt_s(rf['collective_s'])} | **{rf['dominant']}** "
+            f"| {fmt_s(rf['bound_s'])} | {frac:.2f} | {achieved:.2f} |")
+    return "\n".join(out)
+
+
+if __name__ == "__main__":
+    print(render(sys.argv[1] if len(sys.argv) > 1 else
+                 "results/dryrun/dryrun.json"))
